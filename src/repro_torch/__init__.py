@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of the R&A D-FL simulator (Hopper, sm_90a).
+
+The package mirrors the JAX reference package module for module (`core/`,
+`data/`, `fl/`, `kernels/`, `models/`) and imports only `torch` and numpy.
+Entry points (`fl.simulator.build_sim`, `fl.simulator.run`,
+`kernels.ops.ra_aggregate`) run on the CUDA card unless the caller passes
+``device="cpu"``; without a card and without that argument they raise.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks.
+
+    ``None`` means the card.  Asking for CUDA on a machine without one
+    raises instead of quietly running on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this machine; pass device='cpu' to "
+            "run the plain PyTorch path on the CPU"
+        )
+    return dev

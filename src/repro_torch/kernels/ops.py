@@ -1,0 +1,126 @@
+"""Public entry points for the port's kernels: build, dispatch, count.
+
+  * Build at first use: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
+    ``sm_90a`` into a shared library with a plain C interface, named by a
+    hash of its source, under ``kernels/build/`` (listed in .gitignore), and
+    loaded with ctypes.  `build_all` starts one ``nvcc`` per source, all at
+    once.
+  * Dispatch by tensor device: a tensor on the CPU goes to the kernel's
+    plain version (`kernels.ref`); a CUDA tensor goes to the kernel, or the
+    call raises.  There is no fallback from one to the other.
+  * `LAUNCHES` counts kernel launches by name, incremented where the kernel
+    is launched and nowhere else, so a run can show that its main path went
+    through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .. import resolve_device
+from . import ra_aggregate as _ra
+from . import ref
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES: dict[str, int] = {"ra_aggregate": 0}
+
+_BINDERS = {"ra_aggregate": _ra.bind}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every named kernel (default: all of ``csrc/``) that is not
+    built yet, one ``nvcc`` process per source, all started together.
+
+    Returns ``{name: compiler output}`` (``-Xptxas -v``: registers, shared
+    memory and spills per instantiation).  Raises if any build fails.
+    """
+    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _lib_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    logs, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _BINDERS[name](ctypes.CDLL(str(_lib_path(name))))
+        _LIBS[name] = lib
+    return lib
+
+
+_REFS = {"ra_normalized": ref.ra_aggregate_ref,
+         "substitution": ref.ra_substitution_ref}
+
+
+def ra_aggregate(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor, *,
+                 tx: torch.Tensor | None = None, mode: str = "ra_normalized",
+                 device: str | torch.device | None = None) -> torch.Tensor:
+    """Fused R&A aggregation (paper eq. 6 / fused substitution baseline).
+
+    w_seg: (N, L, K) or batched (B, N, L, K), float32 or bfloat16;
+    p: (N,)/(B, N); e: (N, N, L)/(B, N, N, L) in bool/uint8/float32;
+    ``tx`` ((N, L)/(B, N, L), optional) selects the transmit-mask variant.
+    Returns the receiver-major aggregate in ``w_seg``'s shape and dtype.
+
+    ``device`` (default: the CUDA card) is where the call runs; every
+    input must already lie there.  Without a card, pass ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    for name, t in (("w_seg", w_seg), ("p", p), ("e", e), ("tx", tx)):
+        if t is not None and t.device.type != dev.type:
+            raise ValueError(f"ra_aggregate: {name} is on {t.device}, the "
+                             f"call runs on {dev}")
+    w4, p2, e4, tx3 = _ra.broadcast_batch(w_seg, p, e, tx, mode=mode)
+    if w4.device.type == "cpu":
+        out = _REFS[mode](w4, p2, e4, tx3)
+    else:
+        out = _ra.launch(load_library("ra_aggregate"), w4, p2, e4, tx3,
+                         mode=mode)
+        LAUNCHES["ra_aggregate"] += 1
+    return out if w_seg.ndim == 4 else out[0]
+

@@ -1,0 +1,62 @@
+"""Plain PyTorch versions of the port's kernels.
+
+  * ra_aggregate_ref    — the paper's adaptive-normalized segment
+    aggregation (eq. 6) over client-stacked segment tensors.
+  * ra_substitution_ref — the model-substitution baseline [12].
+
+Both take an optional per-segment transmit mask ``tx``, composed into the
+success mask as `core.aggregation.apply_transmit_mask` does: a pruned
+sender segment is delivered to nobody, and a receiver always holds its
+own.  Any leading batch axes are allowed as long as ``p``, ``e`` and
+``tx`` carry the same ones as ``w_seg``.  Arithmetic is float32; the
+result takes ``w_seg``'s dtype.  These are what the kernel wrapper runs for
+tensors on the CPU, and what `chip_smoke.py` holds the CUDA kernel to.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _mask(e: torch.Tensor, tx: torch.Tensor | None) -> torch.Tensor:
+    """float32 (..., N, N, L) mask, with ``tx`` (..., N, L) composed in."""
+    ef = e.to(torch.float32)
+    if tx is None:
+        return ef
+    n = ef.shape[-3]
+    eye = torch.eye(n, dtype=torch.float32, device=ef.device)[:, :, None]
+    return torch.maximum(ef * tx.to(torch.float32)[..., :, None, :], eye)
+
+
+def ra_aggregate_ref(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor,
+                     tx: torch.Tensor | None = None) -> torch.Tensor:
+    """Paper eq. (6).
+
+    Args:
+      w_seg: (..., N, L, K) client-stacked model segments.
+      p:     (..., N) aggregation weights.
+      e:     (..., N, N, L) success indicators (sender, receiver, segment).
+      tx:    optional (..., N, L) transmit mask.
+
+    Returns:
+      (..., N, L, K) receiver-major aggregated segments:
+        out[n, l] = sum_m p_m e[m,n,l] w[m,l] / max(sum_m p_m e[m,n,l], 1e-12)
+    """
+    w = p.to(torch.float32)[..., :, None, None] * _mask(e, tx)
+    denom = torch.clamp(w.sum(dim=-3), min=1e-12)            # (..., N, L)
+    num = torch.einsum("...mnl,...mlk->...nlk", w, w_seg.to(torch.float32))
+    return (num / denom[..., None]).to(w_seg.dtype)
+
+
+def ra_substitution_ref(w_seg: torch.Tensor, p: torch.Tensor,
+                        e: torch.Tensor,
+                        tx: torch.Tensor | None = None) -> torch.Tensor:
+    """Model-substitution baseline [12] over segments.
+
+    out[n, l] = sum_m p_m (e[m,n,l] w[m,l] + (1 - e[m,n,l]) w[n,l])
+    """
+    ef = _mask(e, tx)
+    pf = p.to(torch.float32)[..., :, None, None]
+    wf = w_seg.to(torch.float32)
+    recv = torch.einsum("...mnl,...mlk->...nlk", pf * ef, wf)
+    miss = (pf * (1.0 - ef)).sum(dim=-3)                      # (..., N, L)
+    return (recv + miss[..., None] * wf).to(w_seg.dtype)

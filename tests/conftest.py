@@ -6,3 +6,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 # Make the `_proptest` hypothesis-fallback shim importable regardless of the
 # pytest import mode in use.
 sys.path.insert(0, os.path.dirname(__file__))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (and nvcc); skips with a reason elsewhere",
+    )

@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the reference.
+
+A fresh interpreter imports every module of `repro_torch`; afterwards no
+``jax*`` module and no ``repro`` / ``repro.*`` module may be loaded.  The
+package sources must not even spell such an import.
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+PKG = SRC / "repro_torch"
+
+_PROBE = r"""
+import importlib, json, pathlib, sys
+pkg = pathlib.Path(sys.argv[1])
+mods = []
+for path in sorted(pkg.rglob("*.py")):
+    rel = path.relative_to(pkg.parent).with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    mods.append(".".join(parts))
+for name in mods:
+    importlib.import_module(name)
+loaded = [m for m in sys.modules
+          if m == "jax" or m.startswith(("jax.", "jaxlib"))
+          or m == "repro" or m.startswith("repro.")]
+print(json.dumps({"imported": mods, "forbidden": loaded}))
+"""
+
+
+def test_every_module_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(PKG)], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.fl.simulator" in report["imported"]
+    assert "repro_torch.kernels.ops" in report["imported"]
+    assert report["forbidden"] == []
+
+
+def test_sources_spell_no_jax_or_reference_import():
+    sources = sorted(PKG.rglob("*.py"))
+    assert len(sources) >= 15
+    for path in sources:
+        text = path.read_text(encoding="utf-8")
+        for needle in ("import jax", "from jax", "from repro",
+                       "import repro"):
+            assert needle not in text, f"{path}: {needle!r}"
