@@ -22,6 +22,28 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  R&A (both modes), AaYG, C-FL and ideal C-FL; the kernel's
                  launch count is set to 0 just before and read just after.
   6. profile   — one R&A round under torch.profiler: device time by kernel.
+  7. k3        — K3 `rwkv6_scan` against its plain PyTorch version (the
+                 sequential recurrence), output and final state: at the
+                 serving shape in bfloat16, at two test shapes in float32
+                 and at the decay floor; times the kernel (staging tiles of
+                 32 tokens, as the wrapper stages, and of 16 and 64) and the
+                 plain version with CUDA events, L2 cold and warm, beside
+                 the bound.
+  8. serve     — the second main path: `launch.serve.serve` on rwkv6-1.6b at
+                 full width and depth (bfloat16, seed 0; 8 prompts of 2048
+                 tokens, 32 generated per row); the kernel's launch count is
+                 set to 0 just before and must read 24 (one per layer) just
+                 after.  Then the same prefill through the plain chunked
+                 scan (impl="torch") on the card: with float32 activations
+                 at full depth and in bfloat16 layer by layer, kernel
+                 against plain; and each bfloat16 path against the float32
+                 run, where the kernel may be at most 1.1x as far from it
+                 as the plain path.
+  9. serve-reference — the float32 smoke rwkv6 served on the card and on the
+                 CPU's plain path from the same weights and prompts: the
+                 greedy ids must be identical.
+ 10. serve-profile — one full-width prefill and one decode step under
+                 torch.profiler: device time by kernel, launches, K3's share.
 
 It then prints the card line, one JSON line describing every ported kernel,
 and last a JSON line with the device.  Without CUDA, or without the rest of
@@ -57,6 +79,23 @@ K1_SHAPES = [
 ]
 F32_TOL = 1e-5      # absolute; float32 sums in another order
 BF16_TOL_ULP = 1.0  # bfloat16 spacing at the result's magnitude, + F32_TOL
+# K3 checks: (name, (B, S, H, D), dtype of r/k/v, constant log decay or None).
+K3_CASES = [
+    ("serve", (8, 2048, 32, 64), torch.bfloat16, None),
+    ("2x96x3x16", (2, 96, 3, 16), torch.float32, None),
+    ("1x128x4x64", (1, 128, 4, 64), torch.float32, None),
+    ("decay_floor", (1, 128, 4, 64), torch.float32, -60.0 / 64.0),
+]
+K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
+SERVE_ARCH = "rwkv6-1.6b"
+SERVE_SHAPE = dict(batch=8, prompt_len=2048, gen=32)
+# Serving prefill, kernel path vs impl="torch" (`serve_vs_plain`); limits
+# of max |diff| / max |value| set from the readings in PERF.md section 6.
+SERVE_F32_TOL = 1e-3    # float32 activations, full depth: logits, states
+SERVE_LAYER_TOL = 2e-2  # bf16 layer outputs from one input (~1 ulp at max)
+SERVE_STATE_TOL = 1e-4  # bf16 layers' time-mix states (float32)
+SERVE_BF16_RATIO = 1.1  # bf16 end to end: kernel's gap to the float32 run
+                        # at most this times impl="torch"'s (read 0.99-1.01)
 SLICE_PROTOCOLS = [("ra", "ra_normalized"), ("ra", "substitution"),
                    ("aayg", "ra_normalized"), ("cfl", "ra_normalized"),
                    ("ideal_cfl", "ra_normalized")]
@@ -338,22 +377,28 @@ def run_slice(sim, scenarios, base, sync):
     return launches
 
 
-def profile_round(sim, scenario):
-    """Phase 6: one R&A round under torch.profiler."""
+def _profiled(fn):
+    """(wall ms, CUDA kernel events) of one call of ``fn`` under
+    torch.profiler, ending in a device sync.  Kernel events only: CPU-side
+    aten ops also report the device time of the kernels they launched."""
     from torch.profiler import ProfilerActivity, profile
 
-    state = sim.init_scan(scenario)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sim.advance_chunk(state, scenario)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel events only: CPU-side aten ops also report the device time of
-    # the kernels they launched, which would count it twice.
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0]
+    return wall_ms, [ev for ev in prof.key_averages()
+                     if ev.device_type.name == "CUDA"
+                     and ev.self_device_time_total > 0]
+
+
+def profile_round(sim, scenario):
+    """Phase 6: one R&A round under torch.profiler."""
+    state = sim.init_scan(scenario)
+    wall_ms, events = _profiled(lambda: sim.advance_chunk(state, scenario))
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     if dev_ms <= 0:
         print(f"[profile] one ra round: wall {wall_ms:.2f} ms, device time "
@@ -364,6 +409,328 @@ def profile_round(sim, scenario):
     for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:10]:
         print(f"[profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
               f"x{ev.count:<5d} {ev.key[:100]}")
+
+
+def _bf16_ulps(got, want, atol):
+    """Largest |got - want| - atol in bfloat16 ulps at the larger magnitude."""
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float((((got - want).abs() - atol) / ulp).max())
+
+
+def k3_checks(dev, timer):
+    """Phase 7: K3 against its plain version, with times and bounds."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as _rwkv
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for name, shape, dtype, w_const in K3_CASES:
+        r, k, v = ((0.5 * torch.randn(shape, generator=gen, device=dev))
+                   .to(dtype) for _ in range(3))
+        if w_const is None:
+            w = -torch.exp(0.5 * torch.randn(shape, generator=gen, device=dev)
+                           - 1.0)
+        else:
+            w = torch.full(shape, w_const, device=dev)
+        u = 0.3 * torch.randn(shape[2:], generator=gen, device=dev)
+
+        def kernel():
+            return ops.rwkv6_scan(r, k, v, w, u, return_state=True)
+
+        def kernel_tile(tile):   # the launch alone, at another staging tile
+            return lambda: _rwkv.launch(ops.load_library("rwkv6_scan"),
+                                        r, k, v, w, u, tile=tile,
+                                        return_state=True)
+
+        def plain():
+            return ref.rwkv6_scan_ref(r, k, v, w, u, return_state=True)
+
+        launches_before = ops.LAUNCHES["rwkv6_scan"]
+        got, got_state = kernel()
+        want, want_state = plain()
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        state_err = float((got_state - want_state).abs().max())
+        state_ok = bool(torch.allclose(got_state, want_state, atol=K3_TOL,
+                                       rtol=K3_TOL))
+        row = dict(case=name, shape=shape, dtype=str(dtype)[6:], err=err,
+                   state_err=state_err)
+        if dtype == torch.float32:
+            row["ok"] = state_ok and bool(torch.allclose(
+                got, want, atol=K3_TOL, rtol=K3_TOL))
+            desc = f"max_abs_err={err:.3e} (tol {K3_TOL:g} abs+rel)"
+        else:
+            row["ulp"] = _bf16_ulps(got, want, K3_TOL)
+            row["ok"] = state_ok and row["ulp"] <= 1.0
+            desc = (f"max_abs_err={err:.3e} max_ulp={row['ulp']:.2f} (tol 1 "
+                    f"ulp + {K3_TOL:g})")
+        b, s, h, d = shape
+        bytes_moved = (4 * r.numel() * r.element_size()   # r, k, v read; out
+                       + w.numel() * 4 + u.numel() * 4    # written once
+                       + b * h * d * d * 4)               # final state
+        # The recurrence: y += r s; x = k v; s = s exp(w) + x: 5 float32
+        # operations per (token, d, e); the bonus dot product and its
+        # product with v: 4 per (token, d).
+        flops = 5 * b * s * h * d * d + 4 * b * s * h * d
+        t_bytes = bytes_moved / HBM_BYTES_PER_S
+        t_ops = flops / F32_FLOP_PER_S
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        timing = ""
+        if name == "serve":
+            for tag, cold in (("cold", True), ("warm", False)):
+                row[f"ms_{tag}"] = timer(kernel, cold)
+                for tile in (16, 64):
+                    row[f"ms_tile{tile}_{tag}"] = timer(kernel_tile(tile),
+                                                        cold)
+                row[f"plain_ms_{tag}"] = timer(plain, cold, reps=5)
+            timing = (f" | kernel {row['ms_cold'] * 1e3:.1f}/"
+                      f"{row['ms_warm'] * 1e3:.1f} us at tile "
+                      f"{_rwkv.TILE} (tile 16: "
+                      f"{row['ms_tile16_cold'] * 1e3:.1f}/"
+                      f"{row['ms_tile16_warm'] * 1e3:.1f} us, tile 64: "
+                      f"{row['ms_tile64_cold'] * 1e3:.1f}/"
+                      f"{row['ms_tile64_warm'] * 1e3:.1f} us) plain "
+                      f"{row['plain_ms_cold']:.2f}/{row['plain_ms_warm']:.2f}"
+                      f" ms | bound {row['bound_ms'] * 1e3:.1f} us "
+                      f"({row['bound_by']}; {bytes_moved / 1e6:.1f} MB, "
+                      f"{flops / 1e9:.2f} GFLOP) [L2 cold/warm]; grid "
+                      f"{b * h} blocks of {4 * d} threads")
+        ops.LAUNCHES["rwkv6_scan"] = launches_before
+        rows.append(row)
+        print(f"[k3] {name:12s} {'x'.join(map(str, shape)):14s} "
+              f"{row['dtype']:8s} {desc} state_err={state_err:.3e} "
+              f"{'ok' if row['ok'] else 'FAIL'}{timing}")
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"K3 disagrees with its plain version: {bad}")
+    return rows
+
+
+def serve_full(dev):
+    """Phase 8: rwkv6-1.6b at full width through `launch.serve.serve`."""
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = base.get(SERVE_ARCH)
+    # Warm-up (cuBLAS handles and plans, the allocator) with a short prompt,
+    # before the counted run.
+    serve.serve(cfg, batch=SERVE_SHAPE["batch"], prompt_len=64, gen=2, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.LAUNCHES["rwkv6_scan"] = 0
+    res = serve.serve(cfg, **SERVE_SHAPE, seed=0)
+    launches = ops.LAUNCHES["rwkv6_scan"]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in res.params.values())
+    b, gen = SERVE_SHAPE["batch"], SERVE_SHAPE["gen"]
+    check(tuple(res.tokens.shape) == (b, gen), f"ids {tuple(res.tokens.shape)}")
+    check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab,
+          "generated ids outside the vocabulary")
+    check(bool(torch.isfinite(res.prefill_logits).all()),
+          "non-finite prefill logits")
+    state = res.prefill_cache["rwkv_state"]
+    check(bool(torch.isfinite(state).all()), "non-finite prefill state")
+    print(f"[serve] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.rwkv_cfg().n_heads} heads of "
+          f"{cfg.rwkv_cfg().head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{str(cfg.dtype)[6:]}); batch {b} x prompt "
+          f"{SERVE_SHAPE['prompt_len']} + {gen} generated")
+    print(f"[serve] prefill {res.prefill_s:.4f} s; decode {res.decode_steps} "
+          f"steps x batch {b} in {res.decode_s:.4f} s = "
+          f"{res.decode_tokens_per_s:.1f} tok/s; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"[serve] ids, row 0: {res.tokens[0].tolist()}")
+    check(launches == cfg.n_layers,
+          f"rwkv6_scan launched {launches} times on the serving path, "
+          f"expected {cfg.n_layers} (one per layer of the prefill)")
+    print(f"[serve] rwkv6_scan launches on the serving path: {launches} "
+          f"(expected {cfg.n_layers})")
+
+    serve_vs_plain(cfg, res)
+    return cfg, res, launches
+
+
+def _rel_gap(got, want):
+    """max |got - want| over max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _rel_l2(got, want):
+    """||got - want|| over ||want|| (Frobenius), in float32."""
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def serve_gaps(cfg, params, prompt, logits, state):
+    """The serving prefill's precision, from the kernel path's bfloat16
+    ``logits`` and cache ``state`` for ``params`` and ``prompt``:
+
+      * f32_*: the same weights (widened, exactly) with float32 activations
+        at full depth, kernel against impl="torch";
+      * layer_*: the bfloat16 model layer by layer from the same input,
+        kernel against impl="torch" (worst layer);
+      * bf16_*_kernel / bf16_*_torch: each bfloat16 path's relative L2 gap
+        to the float32 impl="torch" run, logits and all layers' states.
+
+    Gaps named *_max are max |diff| over max |value|.  The launches this
+    makes are not counted.
+    """
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, registry
+    from repro_torch.models import transformer as T
+
+    launches = ops.LAUNCHES["rwkv6_scan"]
+    tokens = {"tokens": prompt}
+    g = {}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    bundle32 = registry.build(cfg32)
+    dev = prompt.device
+    lk32, ck32 = bundle32.prefill_step(p32, tokens, impl="kernel", device=dev)
+    lt32, ct32 = bundle32.prefill_step(p32, tokens, impl="torch", device=dev)
+    check(ops.LAUNCHES["rwkv6_scan"] == launches + cfg.n_layers,
+          "the float32 prefill did not go through the kernel once per layer")
+    g["f32_logits_max"] = _rel_gap(lk32, lt32)
+    g["f32_state_max"] = max(_rel_gap(a, b) for a, b in
+                             zip(ck32["rwkv_state"], ct32["rwkv_state"]))
+    g["f32_same_ids"] = bool(torch.equal(lk32.argmax(-1), lt32.argmax(-1)))
+    del p32, lk32, ck32
+
+    lt, ct = registry.build(cfg).prefill_step(params, tokens, impl="torch",
+                                              device=dev)
+    for name, (lg, st) in (("kernel", (logits, state)), ("torch", (lt, ct[
+            "rwkv_state"]))):
+        g[f"bf16_logits_{name}"] = _rel_l2(lg, lt32)
+        g[f"bf16_state_{name}"] = _rel_l2(st, ct32["rwkv_state"])
+        g[f"bf16_logits_max_{name}"] = _rel_gap(lg, lt32)
+    g["bf16_logits_max_kernel_vs_torch"] = _rel_gap(logits, lt)
+    del lt, ct, lt32, ct32
+
+    with torch.no_grad():
+        x = layers.embed(T._sub(params, "embed"), prompt).to(cfg.dtype)
+        g["layer_out_max"] = g["layer_state_max"] = 0.0
+        for lp in T.layer_params(params, cfg.n_layers):
+            xk, sk = T._block(cfg, lp, x, impl="kernel", return_state=True)
+            xt, st = T._block(cfg, lp, x, impl="torch", return_state=True)
+            g["layer_out_max"] = max(g["layer_out_max"], _rel_gap(xk, xt))
+            g["layer_state_max"] = max(g["layer_state_max"], _rel_gap(sk, st))
+            x = xk
+    ops.LAUNCHES["rwkv6_scan"] = launches
+    return g
+
+
+def serve_vs_plain(cfg, res):
+    """Phase 8, second half: the serving prefill through the kernel against
+    the plain chunked scan (impl="torch") on the card, from the same
+    weights and prompts (`serve_gaps`).
+
+    The two scans sum in other orders, so their outputs differ in the last
+    float32 bits; in bfloat16 that flips the rounding of some activations
+    by one ulp, and a deep stack of random layers amplifies such flips, so
+    the two bfloat16 paths are not held to each other end to end.  Each is
+    held instead to the same weights run with float32 activations: the
+    kernel path may be at most SERVE_BF16_RATIO times as far from it as the
+    plain path is.  The float32 run and each bfloat16 layer hold the
+    kernel to the plain scan directly, at limits set from their readings.
+    """
+    g = serve_gaps(cfg, res.params, res.prompt, res.prefill_logits,
+                   res.prefill_cache["rwkv_state"])
+    print(f"[serve] float32 activations, full width and depth: kernel vs "
+          f"impl='torch' logits gap/max {g['f32_logits_max']:.3e} (tol "
+          f"{SERVE_F32_TOL:g}), worst layer state gap/max "
+          f"{g['f32_state_max']:.3e} (tol {SERVE_F32_TOL:g}); same greedy "
+          f"ids: {g['f32_same_ids']}")
+    print(f"[serve] bfloat16, each layer from the same input: worst output "
+          f"gap/max {g['layer_out_max']:.3e} (tol {SERVE_LAYER_TOL:g}), "
+          f"worst state gap/max {g['layer_state_max']:.3e} (tol "
+          f"{SERVE_STATE_TOL:g})")
+    print(f"[serve] bfloat16 end to end, relative L2 gap to the float32 "
+          f"run: logits kernel {g['bf16_logits_kernel']:.3e} vs impl='torch' "
+          f"{g['bf16_logits_torch']:.3e}, states kernel "
+          f"{g['bf16_state_kernel']:.3e} vs impl='torch' "
+          f"{g['bf16_state_torch']:.3e} (kernel at most "
+          f"{SERVE_BF16_RATIO:g}x); logits gap/max kernel "
+          f"{g['bf16_logits_max_kernel']:.3e}, impl='torch' "
+          f"{g['bf16_logits_max_torch']:.3e}, kernel vs impl='torch' "
+          f"{g['bf16_logits_max_kernel_vs_torch']:.3e}")
+    check(g["f32_logits_max"] <= SERVE_F32_TOL
+          and g["f32_state_max"] <= SERVE_F32_TOL,
+          "float32 prefill: kernel vs impl='torch'")
+    check(g["layer_out_max"] <= SERVE_LAYER_TOL
+          and g["layer_state_max"] <= SERVE_STATE_TOL,
+          "bfloat16 layers: kernel vs impl='torch'")
+    check(g["bf16_logits_kernel"] <= SERVE_BF16_RATIO * g["bf16_logits_torch"]
+          and g["bf16_state_kernel"]
+          <= SERVE_BF16_RATIO * g["bf16_state_torch"],
+          "bfloat16 prefill: the kernel path is farther from the float32 "
+          "run than impl='torch' allows")
+
+
+def serve_reference(dev):
+    """Phase 9: the float32 smoke rwkv6 on the card and on the CPU's plain
+    path, from the same weights and prompts."""
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = base.smoke_variant(base.get(SERVE_ARCH))
+    params = registry.build(cfg).init(torch.Generator().manual_seed(0),
+                                      device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 128),
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(batch=4, prompt_len=128, gen=16)
+    cpu = serve.serve(cfg, **kw, device="cpu", params=params, tokens=tokens)
+    before = ops.LAUNCHES["rwkv6_scan"]
+    gpu = serve.serve(cfg, **kw, device=dev,
+                      params={k: v.to(dev) for k, v in params.items()},
+                      tokens=tokens.to(dev))
+    check(ops.LAUNCHES["rwkv6_scan"] == before + cfg.n_layers,
+          "the card's smoke run did not go through the kernel")
+    ops.LAUNCHES["rwkv6_scan"] = before
+    gap = float((gpu.prefill_logits.cpu() - cpu.prefill_logits).abs().max())
+    same = bool(torch.equal(gpu.tokens, cpu.tokens))
+    print(f"[serve-reference] {cfg.name} float32, batch 4 x prompt 128 + 16: "
+          f"card ids == CPU plain-path ids: {same}; prefill logits gap "
+          f"{gap:.3e}")
+    check(same, f"greedy ids differ: card {gpu.tokens.tolist()} vs CPU "
+          f"{cpu.tokens.tolist()}")
+
+
+def profile_serve(cfg, res):
+    """Phase 10: one full-width prefill and one decode step under
+    torch.profiler."""
+    from repro_torch.models import registry
+
+    bundle = registry.build(cfg)
+    token = res.tokens[:, :1].to(res.prompt.device)
+    for what, fn in (
+            ("prefill", lambda: bundle.prefill_step(
+                res.params, {"tokens": res.prompt})),
+            ("decode step", lambda: bundle.serve_step(
+                res.params, res.prefill_cache, token, res.prompt.shape[1]))):
+        wall_ms, events = _profiled(fn)
+        dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+        if dev_ms <= 0:
+            print(f"[serve-profile] {what}: wall {wall_ms:.2f} ms, device "
+                  f"time not measured (the profiler saw no CUDA kernels)")
+            continue
+        k3_ms = sum(ev.self_device_time_total for ev in events
+                    if "rwkv6_scan" in ev.key) / 1e3
+        print(f"[serve-profile] {what}: wall {wall_ms:.2f} ms, device kernels "
+              f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}% of wall busy) "
+              f"in {sum(ev.count for ev in events)} launches; rwkv6_scan "
+              f"{k3_ms:.3f} ms = {100 * k3_ms / dev_ms:.1f}% of device time")
+        for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:12]:
+            print(f"[serve-profile]   {ev.self_device_time_total / 1e3:9.3f} "
+                  f"ms x{ev.count:<5d} {ev.key[:100]}")
 
 
 def main() -> int:
@@ -405,7 +772,8 @@ def main() -> int:
           f"in {build_s:.2f} s")
 
     # 3. kernels
-    rows = k1_checks(dev, K1_SHAPES, cuda_timer(dev))
+    timer = cuda_timer(dev)
+    rows = k1_checks(dev, K1_SHAPES, timer)
     torch.cuda.synchronize()
 
     # 4. reference
@@ -424,6 +792,21 @@ def main() -> int:
 
     # 6. profile
     profile_round(sim, scenarios[SLICE_PROTOCOLS[0]])
+    del sim, scenarios
+
+    # 7. k3
+    k3_rows = k3_checks(dev, timer)
+    torch.cuda.synchronize()
+
+    # 8. serve (the second main path)
+    serve_cfg, res, k3_launches = serve_full(dev)
+
+    # 9. serve-reference
+    serve_reference(dev)
+
+    # 10. serve-profile
+    profile_serve(serve_cfg, res)
+    del res
 
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
@@ -445,6 +828,25 @@ def main() -> int:
         "library_ms": main_row["library_ms_cold"],
         "shape": "B=1 N=10 L=412 K=1024 float32, bool mask, L2 cold",
     }]
+    k3_row = next(r for r in k3_rows if r["case"] == "serve")
+    check(math.isfinite(k3_row["ms_cold"]), "non-finite K3 time")
+    kernels.append({
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:100",
+        "launches": k3_launches,
+        "max_abs_err": max(r["err"] for r in k3_rows
+                           if r["dtype"] == "float32"),
+        "ms": k3_row["ms_cold"],
+        "ms_warm_l2": k3_row["ms_warm"],
+        "plain_ms": k3_row["plain_ms_cold"],
+        "bound_ms": k3_row["bound_ms"],
+        "bound_by": k3_row["bound_by"],
+        "library_ms": None,
+        "shape": "B=8 S=2048 H=32 D=64, bfloat16 r/k/v, float32 w, with "
+                 "the final state, L2 cold",
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

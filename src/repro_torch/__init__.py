@@ -3,8 +3,10 @@
 The package mirrors the JAX reference package module for module (`core/`,
 `data/`, `fl/`, `kernels/`, `models/`) and imports only `torch` and numpy.
 Entry points (`fl.simulator.build_sim`, `fl.simulator.run`,
-`kernels.ops.ra_aggregate`) run on the CUDA card unless the caller passes
-``device="cpu"``; without a card and without that argument they raise.
+`kernels.ops.ra_aggregate`, `kernels.ops.rwkv6_scan`, the
+`models.registry.build` bundle and `launch.serve.serve`) run on the CUDA
+card unless the caller passes ``device="cpu"``; without a card and without
+that argument they raise.
 """
 from __future__ import annotations
 
@@ -15,12 +17,18 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks.
 
     ``None`` means the card.  Asking for CUDA on a machine without one
-    raises instead of quietly running on the CPU.
+    raises instead of quietly running on the CPU.  On the card it turns
+    TF32 off for matmuls and cuDNN, process-wide: the reference computes
+    float32 products in float32, and every entry point resolves its device
+    here, so each computes float32 the same way whichever ran first.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available on this machine; pass device='cpu' to "
-            "run the plain PyTorch path on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available on this machine; pass device='cpu' "
+                "to run the plain PyTorch path on the CPU"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -1,0 +1,91 @@
+"""Config registry: full architecture configs and reduced smoke variants.
+
+Port of the reference package's `configs/base.py`.  Every full config
+cites its source in `ModelCfg.source`; dtypes are torch dtypes.
+`smoke_variant` shrinks any config to <=2 layers, d_model<=512, <=4
+experts while keeping the family topology.  Only the families the port
+runs have their config files here (rwkv6-1.6b); `get` raises
+`NotImplementedError` for the others, which come with their families
+(ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import importlib.util
+
+import torch
+
+from ..models.transformer import ModelCfg
+
+ARCH_IDS = [
+    "qwen2_5_3b",
+    "llama3_8b",
+    "whisper_base",
+    "starcoder2_3b",
+    "llama3_2_vision_90b",
+    "hymba_1_5b",
+    "dbrx_132b",
+    "rwkv6_1_6b",
+    "granite_moe_1b_a400m",
+    "gemma_7b",
+]
+
+# CLI-friendly aliases (--arch qwen2.5-3b etc.)
+ALIASES = {
+    "qwen2.5-3b": "qwen2_5_3b",
+    "llama3-8b": "llama3_8b",
+    "whisper-base": "whisper_base",
+    "starcoder2-3b": "starcoder2_3b",
+    "llama-3.2-vision-90b": "llama3_2_vision_90b",
+    "hymba-1.5b": "hymba_1_5b",
+    "dbrx-132b": "dbrx_132b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "gemma-7b": "gemma_7b",
+}
+
+
+def get(arch: str) -> ModelCfg:
+    arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch!r}; one of {ARCH_IDS}")
+    name = f"{__package__}.{arch}"
+    if importlib.util.find_spec(name) is None:
+        raise NotImplementedError(
+            f"{arch}: its family is not ported yet; see ROADMAP.md Queue 1 "
+            f"item 7")
+    return importlib.import_module(name).CONFIG
+
+
+def smoke_variant(cfg: ModelCfg) -> ModelCfg:
+    """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts."""
+    d = min(cfg.d_model, 256)
+    heads = max(2, min(cfg.n_heads, 4))
+    kv = max(1, heads * cfg.n_kv_heads // cfg.n_heads)  # keep GQA ratio
+    hd = min(cfg.hd, 64)
+    kw: dict = dict(
+        name=cfg.name + "-smoke",
+        n_layers=2,
+        d_model=d,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=hd,
+        d_ff=min(cfg.d_ff, 512),
+        vocab=min(cfg.vocab, 512),
+        dtype=torch.float32,
+        remat=False,
+    )
+    if cfg.family == "moe":
+        kw["n_experts"] = min(cfg.n_experts, 4)
+        kw["top_k"] = min(cfg.top_k, 2)
+    if cfg.family == "vlm":
+        kw["n_layers"] = 4
+        kw["cross_attn_every"] = 2
+        kw["n_modal_tokens"] = min(cfg.n_modal_tokens, 16)
+    if cfg.family == "enc_dec":
+        kw["n_enc_layers"] = 2
+        kw["enc_seq"] = min(cfg.enc_seq, 16)
+    if cfg.family == "ssm":
+        kw["rwkv_heads"] = max(2, min(cfg.rwkv_heads, 4))
+    return dataclasses.replace(cfg, **kw)

@@ -21,8 +21,9 @@ also takes a round's uniforms explicitly, which is how the parity tests
 replay the reference's key chain.
 
 Entry points `build_sim` and `run` run on the CUDA card unless the caller
-passes ``device="cpu"``.  On CUDA, `build_sim` turns TF32 off for matmuls
-and cuDNN convolutions: the reference computes in float32.
+passes ``device="cpu"``.  On CUDA, TF32 is off for matmuls and cuDNN
+convolutions (`repro_torch.resolve_device`): the reference computes in
+float32.
 
 Public API
 ----------
@@ -268,11 +269,6 @@ def build_sim(
     if agg_impl not in aggregation.IMPLS:
         raise ValueError(f"agg_impl must be one of {aggregation.IMPLS}, got "
                          f"{agg_impl!r}")
-    if dev.type == "cuda":
-        # The reference computes in float32; cuDNN convolutions would
-        # otherwise run in TF32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
     n = data.n_clients
     p = torch.tensor(data.weights(), dtype=torch.float32, device=dev)

@@ -26,15 +26,16 @@ import torch
 from .. import resolve_device
 from . import ra_aggregate as _ra
 from . import ref
+from . import rwkv6_scan as _rwkv
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: dict[str, int] = {"ra_aggregate": 0}
+LAUNCHES: dict[str, int] = {"ra_aggregate": 0, "rwkv6_scan": 0}
 
-_BINDERS = {"ra_aggregate": _ra.bind}
+_BINDERS = {"ra_aggregate": _ra.bind, "rwkv6_scan": _rwkv.bind}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -124,3 +125,37 @@ def ra_aggregate(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor, *,
         LAUNCHES["ra_aggregate"] += 1
     return out if w_seg.ndim == 4 else out[0]
 
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+               return_state: bool = False,
+               device: str | torch.device | None = None):
+    """The rwkv6 time-mix scan (see `kernels.ref.rwkv6_scan_ref`).
+
+    r, k, v: (B, S, H, D) float32 or bfloat16; w: (B, S, H, D) float32 log
+    decay; u: (H, D) bonus.  Returns out (B, S, H, D) in r's dtype and, with
+    ``return_state``, the final state (B, H, D, D) in float32.
+
+    ``chunk`` is the reference's chunk length, kept so that calls read as
+    the reference's; both paths here run the recurrence token by token, so
+    their result does not depend on it.  The CUDA kernel stages
+    ``min(S, rwkv6_scan.TILE)`` tokens of the inputs in shared memory per
+    step.
+    ``device`` (default: the CUDA card) is where the call runs; every input
+    must already lie there.
+    """
+    dev = resolve_device(device)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+        if t.device.type != dev.type:
+            raise ValueError(f"rwkv6_scan: {name} is on {t.device}, the "
+                             f"call runs on {dev}")
+    _rwkv.check_shapes(r, k, v, w, u)
+    if chunk < 1:
+        raise ValueError(f"rwkv6_scan: chunk must be positive, got {chunk}")
+    if dev.type == "cpu":
+        return ref.rwkv6_scan_ref(r, k, v, w, u, return_state=return_state)
+    tile = max(1, min(r.shape[1], _rwkv.TILE))
+    out, state = _rwkv.launch(load_library("rwkv6_scan"), r, k, v, w, u,
+                              tile=tile, return_state=return_state)
+    LAUNCHES["rwkv6_scan"] += 1
+    return (out, state) if return_state else out

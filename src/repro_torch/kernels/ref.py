@@ -3,14 +3,17 @@
   * ra_aggregate_ref    — the paper's adaptive-normalized segment
     aggregation (eq. 6) over client-stacked segment tensors.
   * ra_substitution_ref — the model-substitution baseline [12].
+  * rwkv6_scan_ref      — the rwkv6 data-dependent-decay linear attention,
+    as the sequential token recurrence with a float32 state.
 
-Both take an optional per-segment transmit mask ``tx``, composed into the
-success mask as `core.aggregation.apply_transmit_mask` does: a pruned
-sender segment is delivered to nobody, and a receiver always holds its
-own.  Any leading batch axes are allowed as long as ``p``, ``e`` and
-``tx`` carry the same ones as ``w_seg``.  Arithmetic is float32; the
-result takes ``w_seg``'s dtype.  These are what the kernel wrapper runs for
-tensors on the CPU, and what `chip_smoke.py` holds the CUDA kernel to.
+The two aggregation rules take an optional per-segment transmit mask
+``tx``, composed into the success mask as
+`core.aggregation.apply_transmit_mask` does: a pruned sender segment is
+delivered to nobody, and a receiver always holds its own.  Any leading
+batch axes are allowed as long as ``p``, ``e`` and ``tx`` carry the same
+ones as ``w_seg``.  Arithmetic is float32; the result takes ``w_seg``'s
+dtype.  These are what the kernel wrappers run for tensors on the CPU,
+and what `chip_smoke.py` holds the CUDA kernels to.
 """
 from __future__ import annotations
 
@@ -60,3 +63,28 @@ def ra_substitution_ref(w_seg: torch.Tensor, p: torch.Tensor,
     recv = torch.einsum("...mnl,...mlk->...nlk", pf * ef, wf)
     miss = (pf * (1.0 - ef)).sum(dim=-3)                      # (..., N, L)
     return (recv + miss[..., None] * wf).to(w_seg.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, *,
+                   return_state: bool = False):
+    """Sequential rwkv6 recurrence (float32 state).
+
+    r, k, v, w: (B, S, H, D) with w = per-step log decay (<= 0);
+    u: (H, D) bonus.  Per head, state S in R^{DxD} (key index first):
+      out_t = r_t · (S_{t-1} + diag(exp(u)) k_t v_t^T)
+      S_t   = diag(exp(w_t)) S_{t-1} + k_t v_t^T
+    Returns out (B, S, H, D) in ``r``'s dtype and, with ``return_state``,
+    the final state (B, H, D, D) in float32.
+    """
+    b, s, h, d = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    eu = torch.exp(u.float())[None, :, :, None]            # (1, H, D, 1)
+    state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]   # (B, H, D, D)
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, t], state + eu * kv))
+        state = torch.exp(wf[:, t])[..., None] * state + kv
+    out = torch.stack(outs, dim=1).to(r.dtype)
+    return (out, state) if return_state else out

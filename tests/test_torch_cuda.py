@@ -1,4 +1,5 @@
-"""The CUDA kernel K1 (`ra_aggregate`) against its plain PyTorch version.
+"""The CUDA kernels K1 (`ra_aggregate`) and K3 (`rwkv6_scan`) against their
+plain PyTorch versions.
 
 These tests need an NVIDIA GPU (and nvcc to build the kernel): a CUDA
 kernel has no CPU mode, so elsewhere they skip with that reason.  They
@@ -7,10 +8,10 @@ with only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: 1e-5 absolute for float32 (sums in another order); for
+K1's tolerances: 1e-5 absolute for float32 (sums in another order); for
 bfloat16 one bfloat16 ulp plus that 1e-5, since both sides round float32
 sums that may differ by it (where a sum cancels to near zero, 1e-5 is
-many ulps of the result).
+many ulps of the result).  K3's are stated above its tests.
 """
 import pytest
 
@@ -19,7 +20,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from _torch_parity import bf16_ulps  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref, rwkv6_scan  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 MODES = ("ra_normalized", "substitution")
 CASES = {
@@ -96,3 +98,120 @@ def test_k1_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):
         ops.ra_aggregate(*big)
     assert ops.ra_aggregate(w, p, e).shape == w.shape
+
+
+# ---------------------------------------------------------------------------
+# K3 `rwkv6_scan`: the CUDA kernel against the sequential plain version, both
+# on the card.  Tolerances: float32 2e-5 (absolute and relative; the kernel
+# sums each output over four row groups plus the bonus term, the plain
+# version in one einsum); bfloat16 outputs one ulp plus 2e-5, since both
+# round float32 values that may differ by that.  The final state is float32
+# on both sides: 2e-5.
+# ---------------------------------------------------------------------------
+K3_SHAPES = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 128, 4, 64), (2, 96, 3, 16),
+             (8, 2048, 32, 64)]
+
+
+def _k3_inputs(dev, shape, dtype=torch.float32, *, seed=0, w_const=None):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.5)
+               .to(dev, dtype) for _ in range(3))
+    w = (np.full(shape, w_const) if w_const is not None
+         else -np.exp(rng.normal(size=shape) * 0.5 - 1.0))
+    u = rng.normal(size=shape[2:]) * 0.3
+    return (r, k, v, torch.from_numpy(w.astype(np.float32)).to(dev),
+            torch.from_numpy(u.astype(np.float32)).to(dev))
+
+
+def _k3_check(got, want, got_state, want_state):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if got_state is not None:
+        np.testing.assert_allclose(got_state.cpu().numpy(),
+                                   want_state.cpu().numpy(), atol=2e-5,
+                                   rtol=2e-5)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k3_cuda_kernel_matches_plain(cuda_device, shape, dtype):
+    inputs = _k3_inputs(cuda_device, shape, getattr(torch, dtype),
+                        seed=sum(shape))
+    want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
+    before = ops.LAUNCHES["rwkv6_scan"]
+    got, got_state = ops.rwkv6_scan(*inputs, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rwkv6_scan"] == before + 1
+    assert got.dtype == inputs[0].dtype and got.shape == inputs[0].shape
+    assert got_state.dtype == torch.float32
+    assert tuple(got_state.shape) == (shape[0], shape[2], shape[3], shape[3])
+    got, want = _k3_check(got, want, got_state, want_state)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        assert bf16_ulps(got, want, atol=2e-5) <= 1.0
+
+
+@pytest.mark.cuda
+def test_k3_cuda_tiles_strides_and_decay_floor(cuda_device):
+    r, k, v, w, u = _k3_inputs(cuda_device, (1, 96, 2, 32), seed=1)
+    want = ops.rwkv6_scan(r, k, v, w, u)
+    # Neither the reference's chunk nor the staging tile changes the
+    # arithmetic: bit for bit.
+    for chunk in (1, 8, 48, 96):
+        assert torch.equal(ops.rwkv6_scan(r, k, v, w, u, chunk=chunk), want)
+    lib = ops.load_library("rwkv6_scan")
+    for tile in (1, 8, 16, 48, rwkv6_scan.MAX_TILE):
+        got, _ = rwkv6_scan.launch(lib, r, k, v, w, u, tile=tile,
+                                   return_state=False)
+        assert torch.equal(got, want)
+    # Inputs read through their strides: a head slice of a wider tensor.
+    wide = [torch.cat([t, torch.zeros_like(t)], dim=2) for t in (r, k, v, w)]
+    sliced = [t[:, :, :2] for t in wide]
+    assert not sliced[0].is_contiguous()
+    assert torch.equal(ops.rwkv6_scan(*sliced, u), want)
+    # The decay floor of `ssm._rkvwg`, where the chunked form is at its edge.
+    inputs = _k3_inputs(cuda_device, (1, 128, 4, 64), seed=2,
+                        w_const=ssm.LOG_DECAY_FLOOR)
+    want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
+    got, got_state = ops.rwkv6_scan(*inputs, return_state=True)
+    got, want = _k3_check(got, want, got_state, want_state)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_k3_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
+    r, k, v, w, u = _k3_inputs(cuda_device, (1, 16, 2, 16))
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.rwkv6_scan(r, k, v, w.cpu(), u)
+    with pytest.raises(TypeError, match="share one dtype"):
+        ops.rwkv6_scan(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(TypeError, match="must be float32"):
+        ops.rwkv6_scan(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="contiguous in its last axis"):
+        ops.rwkv6_scan(r, k.transpose(2, 3).contiguous().transpose(2, 3), v,
+                       w, u)
+    odd = _k3_inputs(cuda_device, (1, 16, 2, 48))
+    with pytest.raises(ValueError, match="head dim 48"):
+        ops.rwkv6_scan(*odd)
+    assert ops.rwkv6_scan(r, k, v, w, u).shape == r.shape
+
+
+@pytest.mark.cuda
+def test_rwkv6_seq_auto_runs_the_kernel_on_the_card(cuda_device):
+    cfg = ssm.RWKV6Cfg(d_model=256, n_heads=4)
+    params = {n: t.to(cuda_device) for n, t in
+              ssm.init_rwkv6(torch.Generator().manual_seed(0), cfg).items()}
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 96, 256)).astype(np.float32)).to(cuda_device)
+    before = ops.LAUNCHES["rwkv6_scan"]
+    got, got_state = ssm.rwkv6_seq(params, cfg, x, return_state=True)
+    assert ops.LAUNCHES["rwkv6_scan"] == before + 1
+    want, want_state = ssm.rwkv6_seq(params, cfg, x, impl="torch",
+                                     return_state=True)
+    assert ops.LAUNCHES["rwkv6_scan"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_state.cpu().numpy(),
+                               want_state.cpu().numpy(), atol=1e-4, rtol=1e-4)

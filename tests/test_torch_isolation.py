@@ -42,6 +42,9 @@ def test_every_module_imports_without_jax_or_reference():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.fl.simulator" in report["imported"]
     assert "repro_torch.kernels.ops" in report["imported"]
+    for mod in ("repro_torch.models.transformer",
+                "repro_torch.kernels.rwkv6_scan", "repro_torch.launch.serve"):
+        assert mod in report["imported"]
     assert report["forbidden"] == []
 
 
