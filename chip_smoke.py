@@ -44,6 +44,27 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  greedy ids must be identical.
  10. serve-profile — one full-width prefill and one decode step under
                  torch.profiler: device time by kernel, launches, K3's share.
+ 11. k2        — K2 `flash_attention` against its plain PyTorch version
+                 (float32 logits and softmax): at the dense serving shape
+                 (B=8, S=2048, H=16, KV=2, D=128, bfloat16, causal), at the
+                 reference's test shapes in float32 and bfloat16, and one
+                 non-causal shape; times the kernel, the plain version and
+                 `F.scaled_dot_product_attention` (the library yardstick,
+                 used nowhere in the port) with CUDA events, L2 cold and
+                 warm, beside the bound.
+ 12. dense-serve — the third main path: `launch.serve.serve` on qwen2.5-3b at
+                 full width and depth (bfloat16, seed 0; 8 prompts of 2048
+                 tokens, 32 generated per row); K2's launch count is set to
+                 0 just before and must read 36 (one per layer) after the
+                 prefill and still 36 after decode, which runs `_sdpa` in
+                 plain PyTorch.  Then the same checks as phase 8, kernel
+                 against impl="torch", with the K/V caches in place of the
+                 states.
+ 13. dense-serve-reference — the float32 smoke qwen2.5 served on the card
+                 and on the CPU's plain path: the greedy ids must be
+                 identical.
+ 14. dense-serve-profile — one full-width prefill and one decode step under
+                 torch.profiler: device time by kernel, K2's share.
 
 It then prints the card line, one JSON line describing every ported kernel,
 and last a JSON line with the device.  Without CUDA, or without the rest of
@@ -70,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # K1 checks: the slice shape, a batched prime-L shape, and N > 16 receivers.
 K1_SHAPES = [
@@ -87,15 +109,31 @@ K3_CASES = [
     ("decay_floor", (1, 128, 4, 64), torch.float32, -60.0 / 64.0),
 ]
 K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
-SERVE_ARCH = "rwkv6-1.6b"
+# K2 checks: (name, (B, S, H, KV, D), dtype, causal).  The serving shape is
+# qwen2.5-3b's prefill; the others are tests/test_kernels.py's.
+K2_CASES = [
+    ("serve", (8, 2048, 16, 2, 128), torch.bfloat16, True),
+    *((f"{'x'.join(map(str, sh))}", sh, dt, True)
+      for sh in ((2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16))
+      for dt in (torch.float32, torch.bfloat16)),
+    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.float32, False),
+    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.bfloat16, False),
+]
+K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # absolute
+# The serving paths: tag -> (architecture, the kernel its prefill runs).
+SERVE_PATHS = {"serve": ("rwkv6-1.6b", "rwkv6_scan"),
+               "dense-serve": ("qwen2.5-3b", "flash_attention")}
 SERVE_SHAPE = dict(batch=8, prompt_len=2048, gen=32)
 # Serving prefill, kernel path vs impl="torch" (`serve_vs_plain`); limits
 # of max |diff| / max |value| set from the readings in PERF.md section 6.
-SERVE_F32_TOL = 1e-3    # float32 activations, full depth: logits, states
-SERVE_LAYER_TOL = 2e-2  # bf16 layer outputs from one input (~1 ulp at max)
-SERVE_STATE_TOL = 1e-4  # bf16 layers' time-mix states (float32)
+SERVE_F32_TOL = 1e-3    # float32 activations, full depth: logits, caches
+SERVE_LAYER_TOL = 2e-2  # bf16 layer outputs from one input (~1 ulp at max;
+                        # qwen2.5-3b read 1.3e-2)
+SERVE_STATE_TOL = 1e-4  # bf16 layers' caches: time-mix states (float32),
+                        # K/V (equal on both paths)
 SERVE_BF16_RATIO = 1.1  # bf16 end to end: kernel's gap to the float32 run
-                        # at most this times impl="torch"'s (read 0.99-1.01)
+                        # at most this times impl="torch"'s (read 0.99-1.01
+                        # for rwkv6, 0.96 for qwen2.5)
 SLICE_PROTOCOLS = [("ra", "ra_normalized"), ("ra", "substitution"),
                    ("aayg", "ra_normalized"), ("cfl", "ra_normalized"),
                    ("ideal_cfl", "ra_normalized")]
@@ -508,13 +546,88 @@ def k3_checks(dev, timer):
     return rows
 
 
-def serve_full(dev):
-    """Phase 8: rwkv6-1.6b at full width through `launch.serve.serve`."""
+def k2_checks(dev, timer):
+    """Phase 11: K2 against its plain version, with times and bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for name, shape, dtype, causal in K2_CASES:
+        b, s, h, kv, d = shape
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
+                   .to(dtype) for n in (h, kv, kv))
+        scale = d ** -0.5
+
+        def kernel():
+            return ops.flash_attention(q, k, v, scale=scale, causal=causal)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+
+        launches_before = ops.LAUNCHES["flash_attention"]
+        got, want = kernel().float(), plain().float()
+        err = float((got - want).abs().max())
+        tol = K2_TOL[dtype]
+        row = dict(case=name, shape=shape, dtype=str(dtype)[6:],
+                   causal=causal, err=err, ok=err <= tol)
+        # Bytes: q, k, v read once and out written once.  Operations: the
+        # QK^T and PV products over the (query, key) pairs the mask keeps,
+        # 2 x 2 D each, at the peak rate of the inputs' type.
+        bytes_moved = 2 * (q.numel() + k.numel()) * q.element_size()
+        pairs = s * (s + 1) // 2 if causal else s * s
+        flops = 4 * b * h * d * pairs
+        t_bytes = bytes_moved / HBM_BYTES_PER_S
+        t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                         else F32_FLOP_PER_S)
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        timing = ""
+        if name == "serve":
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale,
+                    enable_gqa=True)
+
+            lib_err = float((library().transpose(1, 2).float() - want)
+                            .abs().max())
+            check(lib_err <= tol, f"SDPA yardstick disagrees: {lib_err:.3e}")
+            for tag, cold in (("cold", True), ("warm", False)):
+                row[f"ms_{tag}"] = timer(kernel, cold)
+                row[f"plain_ms_{tag}"] = timer(plain, cold, reps=5)
+                row[f"library_ms_{tag}"] = timer(library, cold)
+            timing = (f" | kernel {row['ms_cold'] * 1e3:.1f}/"
+                      f"{row['ms_warm'] * 1e3:.1f} us plain "
+                      f"{row['plain_ms_cold']:.2f}/{row['plain_ms_warm']:.2f}"
+                      f" ms sdpa {row['library_ms_cold'] * 1e3:.1f}/"
+                      f"{row['library_ms_warm'] * 1e3:.1f} us | bound "
+                      f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}; "
+                      f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)"
+                      f" [L2 cold/warm]; grid {-(-s // 64) * b * h} blocks "
+                      f"of 128 threads; sdpa gap {lib_err:.3e}")
+        ops.LAUNCHES["flash_attention"] = launches_before
+        rows.append(row)
+        print(f"[k2] {name:18s} {'x'.join(map(str, shape)):16s} "
+              f"{row['dtype']:8s} {'causal' if causal else 'full':6s} "
+              f"max_abs_err={err:.3e} (tol {tol:g}) "
+              f"{'ok' if row['ok'] else 'FAIL'}{timing}")
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"K2 disagrees with its plain version: {bad}")
+    return rows
+
+
+def serve_full(dev, tag):
+    """Phase 8 / 12: a serving path at full width through
+    `launch.serve.serve`; its kernel's launches are counted per phase."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    cfg = base.get(SERVE_ARCH)
+    arch, kernel = SERVE_PATHS[tag]
+    cfg = base.get(arch)
     # Warm-up (cuBLAS handles and plans, the allocator) with a short prompt,
     # before the counted run.
     serve.serve(cfg, batch=SERVE_SHAPE["batch"], prompt_len=64, gen=2, seed=1)
@@ -522,9 +635,9 @@ def serve_full(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    ops.LAUNCHES["rwkv6_scan"] = 0
+    ops.LAUNCHES[kernel] = 0
     res = serve.serve(cfg, **SERVE_SHAPE, seed=0)
-    launches = ops.LAUNCHES["rwkv6_scan"]
+    launches = ops.LAUNCHES[kernel]
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in res.params.values())
     b, gen = SERVE_SHAPE["batch"], SERVE_SHAPE["gen"]
@@ -533,25 +646,32 @@ def serve_full(dev):
           "generated ids outside the vocabulary")
     check(bool(torch.isfinite(res.prefill_logits).all()),
           "non-finite prefill logits")
-    state = res.prefill_cache["rwkv_state"]
-    check(bool(torch.isfinite(state).all()), "non-finite prefill state")
-    print(f"[serve] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
-          f"d {cfg.d_model}, {cfg.rwkv_cfg().n_heads} heads of "
-          f"{cfg.rwkv_cfg().head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+    for name, t in res.prefill_cache.items():
+        check(bool(torch.isfinite(t).all()), f"non-finite prefill {name}")
+    if cfg.family == "ssm":
+        heads = (f"{cfg.rwkv_cfg().n_heads} heads of "
+                 f"{cfg.rwkv_cfg().head_dim}")
+    else:
+        heads = (f"{cfg.n_heads} heads and {cfg.n_kv_heads} kv heads of "
+                 f"{cfg.hd}")
+    print(f"[{tag}] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
           f"{str(cfg.dtype)[6:]}); batch {b} x prompt "
           f"{SERVE_SHAPE['prompt_len']} + {gen} generated")
-    print(f"[serve] prefill {res.prefill_s:.4f} s; decode {res.decode_steps} "
+    print(f"[{tag}] prefill {res.prefill_s:.4f} s; decode {res.decode_steps} "
           f"steps x batch {b} in {res.decode_s:.4f} s = "
           f"{res.decode_tokens_per_s:.1f} tok/s; max_memory_allocated "
           f"{peak / 2**30:.3f} GiB")
-    print(f"[serve] ids, row 0: {res.tokens[0].tolist()}")
-    check(launches == cfg.n_layers,
-          f"rwkv6_scan launched {launches} times on the serving path, "
-          f"expected {cfg.n_layers} (one per layer of the prefill)")
-    print(f"[serve] rwkv6_scan launches on the serving path: {launches} "
-          f"(expected {cfg.n_layers})")
+    print(f"[{tag}] ids, row 0: {res.tokens[0].tolist()}")
+    pre, dec = res.prefill_launches[kernel], res.decode_launches[kernel]
+    print(f"[{tag}] {kernel} launches on the serving path: {pre} in the "
+          f"prefill, {dec} in decode, {launches} in all (expected "
+          f"{cfg.n_layers}, one per layer of the prefill)")
+    check(pre == cfg.n_layers and dec == 0 and launches == cfg.n_layers,
+          f"{kernel} launched {pre} times in the prefill and {dec} in decode, "
+          f"expected {cfg.n_layers} and 0")
 
-    serve_vs_plain(cfg, res)
+    serve_vs_plain(cfg, res, tag, kernel)
     return cfg, res, launches
 
 
@@ -562,31 +682,35 @@ def _rel_gap(got, want):
 
 
 def _rel_l2(got, want):
-    """||got - want|| over ||want|| (Frobenius), in float32."""
-    got, want = got.float(), want.float()
-    return float(torch.linalg.vector_norm(got - want)
-                 / torch.linalg.vector_norm(want))
+    """||got - want|| over ||want|| (Frobenius) over paired tensors, in
+    float32."""
+    num = den = 0.0
+    for a, b in zip(got, want):
+        num += float(torch.linalg.vector_norm(a.float() - b.float())) ** 2
+        den += float(torch.linalg.vector_norm(b.float())) ** 2
+    return math.sqrt(num / den)
 
 
-def serve_gaps(cfg, params, prompt, logits, state):
+def serve_gaps(cfg, params, prompt, logits, cache, kernel):
     """The serving prefill's precision, from the kernel path's bfloat16
-    ``logits`` and cache ``state`` for ``params`` and ``prompt``:
+    ``logits`` and ``cache`` (time-mix states, or K/V caches) for
+    ``params`` and ``prompt``:
 
       * f32_*: the same weights (widened, exactly) with float32 activations
         at full depth, kernel against impl="torch";
       * layer_*: the bfloat16 model layer by layer from the same input,
         kernel against impl="torch" (worst layer);
       * bf16_*_kernel / bf16_*_torch: each bfloat16 path's relative L2 gap
-        to the float32 impl="torch" run, logits and all layers' states.
+        to the float32 impl="torch" run, logits and all layers' caches.
 
-    Gaps named *_max are max |diff| over max |value|.  The launches this
-    makes are not counted.
+    Gaps named *_max are max |diff| over max |value|.  The launches of
+    ``kernel`` this makes are not counted.
     """
     from repro_torch.kernels import ops
     from repro_torch.models import layers, registry
     from repro_torch.models import transformer as T
 
-    launches = ops.LAUNCHES["rwkv6_scan"]
+    launches = ops.LAUNCHES[kernel]
     tokens = {"tokens": prompt}
     g = {}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -595,141 +719,148 @@ def serve_gaps(cfg, params, prompt, logits, state):
     dev = prompt.device
     lk32, ck32 = bundle32.prefill_step(p32, tokens, impl="kernel", device=dev)
     lt32, ct32 = bundle32.prefill_step(p32, tokens, impl="torch", device=dev)
-    check(ops.LAUNCHES["rwkv6_scan"] == launches + cfg.n_layers,
+    check(ops.LAUNCHES[kernel] == launches + cfg.n_layers,
           "the float32 prefill did not go through the kernel once per layer")
     g["f32_logits_max"] = _rel_gap(lk32, lt32)
-    g["f32_state_max"] = max(_rel_gap(a, b) for a, b in
-                             zip(ck32["rwkv_state"], ct32["rwkv_state"]))
+    g["f32_cache_max"] = max(_rel_gap(a, b) for name in ck32
+                             for a, b in zip(ck32[name], ct32[name]))
     g["f32_same_ids"] = bool(torch.equal(lk32.argmax(-1), lt32.argmax(-1)))
     del p32, lk32, ck32
 
     lt, ct = registry.build(cfg).prefill_step(params, tokens, impl="torch",
                                               device=dev)
-    for name, (lg, st) in (("kernel", (logits, state)), ("torch", (lt, ct[
-            "rwkv_state"]))):
-        g[f"bf16_logits_{name}"] = _rel_l2(lg, lt32)
-        g[f"bf16_state_{name}"] = _rel_l2(st, ct32["rwkv_state"])
+    for name, (lg, c) in (("kernel", (logits, cache)), ("torch", (lt, ct))):
+        g[f"bf16_logits_{name}"] = _rel_l2([lg], [lt32])
+        g[f"bf16_cache_{name}"] = _rel_l2([c[n] for n in c],
+                                          [ct32[n] for n in c])
         g[f"bf16_logits_max_{name}"] = _rel_gap(lg, lt32)
     g["bf16_logits_max_kernel_vs_torch"] = _rel_gap(logits, lt)
     del lt, ct, lt32, ct32
 
     with torch.no_grad():
         x = layers.embed(T._sub(params, "embed"), prompt).to(cfg.dtype)
-        g["layer_out_max"] = g["layer_state_max"] = 0.0
+        g["layer_out_max"] = g["layer_cache_max"] = 0.0
         for lp in T.layer_params(params, cfg.n_layers):
-            xk, sk = T._block(cfg, lp, x, impl="kernel", return_state=True)
-            xt, st = T._block(cfg, lp, x, impl="torch", return_state=True)
+            xk, ck = T._block(cfg, lp, x, impl="kernel", return_cache=True)
+            xt, ct = T._block(cfg, lp, x, impl="torch", return_cache=True)
             g["layer_out_max"] = max(g["layer_out_max"], _rel_gap(xk, xt))
-            g["layer_state_max"] = max(g["layer_state_max"], _rel_gap(sk, st))
+            pairs = zip(ck, ct) if isinstance(ck, tuple) else [(ck, ct)]
+            g["layer_cache_max"] = max(g["layer_cache_max"],
+                                       *(_rel_gap(a, b) for a, b in pairs))
             x = xk
-    ops.LAUNCHES["rwkv6_scan"] = launches
+    ops.LAUNCHES[kernel] = launches
     return g
 
 
-def serve_vs_plain(cfg, res):
-    """Phase 8, second half: the serving prefill through the kernel against
-    the plain chunked scan (impl="torch") on the card, from the same
+def serve_vs_plain(cfg, res, tag, kernel):
+    """Phase 8 / 12, second half: the serving prefill through the kernel
+    against the plain path (impl="torch") on the card, from the same
     weights and prompts (`serve_gaps`).
 
-    The two scans sum in other orders, so their outputs differ in the last
+    The two paths sum in other orders, so their outputs differ in the last
     float32 bits; in bfloat16 that flips the rounding of some activations
     by one ulp, and a deep stack of random layers amplifies such flips, so
     the two bfloat16 paths are not held to each other end to end.  Each is
     held instead to the same weights run with float32 activations: the
     kernel path may be at most SERVE_BF16_RATIO times as far from it as the
     plain path is.  The float32 run and each bfloat16 layer hold the
-    kernel to the plain scan directly, at limits set from their readings.
+    kernel to the plain path directly, at limits set from their readings.
     """
     g = serve_gaps(cfg, res.params, res.prompt, res.prefill_logits,
-                   res.prefill_cache["rwkv_state"])
-    print(f"[serve] float32 activations, full width and depth: kernel vs "
+                   res.prefill_cache, kernel)
+    what = "state" if cfg.family == "ssm" else "K/V cache"
+    print(f"[{tag}] float32 activations, full width and depth: kernel vs "
           f"impl='torch' logits gap/max {g['f32_logits_max']:.3e} (tol "
-          f"{SERVE_F32_TOL:g}), worst layer state gap/max "
-          f"{g['f32_state_max']:.3e} (tol {SERVE_F32_TOL:g}); same greedy "
+          f"{SERVE_F32_TOL:g}), worst layer {what} gap/max "
+          f"{g['f32_cache_max']:.3e} (tol {SERVE_F32_TOL:g}); same greedy "
           f"ids: {g['f32_same_ids']}")
-    print(f"[serve] bfloat16, each layer from the same input: worst output "
+    print(f"[{tag}] bfloat16, each layer from the same input: worst output "
           f"gap/max {g['layer_out_max']:.3e} (tol {SERVE_LAYER_TOL:g}), "
-          f"worst state gap/max {g['layer_state_max']:.3e} (tol "
+          f"worst {what} gap/max {g['layer_cache_max']:.3e} (tol "
           f"{SERVE_STATE_TOL:g})")
-    print(f"[serve] bfloat16 end to end, relative L2 gap to the float32 "
+    print(f"[{tag}] bfloat16 end to end, relative L2 gap to the float32 "
           f"run: logits kernel {g['bf16_logits_kernel']:.3e} vs impl='torch' "
-          f"{g['bf16_logits_torch']:.3e}, states kernel "
-          f"{g['bf16_state_kernel']:.3e} vs impl='torch' "
-          f"{g['bf16_state_torch']:.3e} (kernel at most "
+          f"{g['bf16_logits_torch']:.3e}, {what} kernel "
+          f"{g['bf16_cache_kernel']:.3e} vs impl='torch' "
+          f"{g['bf16_cache_torch']:.3e} (kernel at most "
           f"{SERVE_BF16_RATIO:g}x); logits gap/max kernel "
           f"{g['bf16_logits_max_kernel']:.3e}, impl='torch' "
           f"{g['bf16_logits_max_torch']:.3e}, kernel vs impl='torch' "
           f"{g['bf16_logits_max_kernel_vs_torch']:.3e}")
     check(g["f32_logits_max"] <= SERVE_F32_TOL
-          and g["f32_state_max"] <= SERVE_F32_TOL,
+          and g["f32_cache_max"] <= SERVE_F32_TOL,
           "float32 prefill: kernel vs impl='torch'")
     check(g["layer_out_max"] <= SERVE_LAYER_TOL
-          and g["layer_state_max"] <= SERVE_STATE_TOL,
+          and g["layer_cache_max"] <= SERVE_STATE_TOL,
           "bfloat16 layers: kernel vs impl='torch'")
     check(g["bf16_logits_kernel"] <= SERVE_BF16_RATIO * g["bf16_logits_torch"]
-          and g["bf16_state_kernel"]
-          <= SERVE_BF16_RATIO * g["bf16_state_torch"],
+          and g["bf16_cache_kernel"]
+          <= SERVE_BF16_RATIO * g["bf16_cache_torch"],
           "bfloat16 prefill: the kernel path is farther from the float32 "
           "run than impl='torch' allows")
 
 
-def serve_reference(dev):
-    """Phase 9: the float32 smoke rwkv6 on the card and on the CPU's plain
-    path, from the same weights and prompts."""
+def serve_reference(dev, tag):
+    """Phase 9 / 13: the float32 smoke model on the card and on the CPU's
+    plain path, from the same weights and prompts."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
-    cfg = base.smoke_variant(base.get(SERVE_ARCH))
+    arch, kernel = SERVE_PATHS[tag]
+    cfg = base.smoke_variant(base.get(arch))
     params = registry.build(cfg).init(torch.Generator().manual_seed(0),
                                       device="cpu")
     tokens = torch.randint(0, cfg.vocab, (4, 128),
                            generator=torch.Generator().manual_seed(1))
     kw = dict(batch=4, prompt_len=128, gen=16)
     cpu = serve.serve(cfg, **kw, device="cpu", params=params, tokens=tokens)
-    before = ops.LAUNCHES["rwkv6_scan"]
+    before = ops.LAUNCHES[kernel]
     gpu = serve.serve(cfg, **kw, device=dev,
                       params={k: v.to(dev) for k, v in params.items()},
                       tokens=tokens.to(dev))
-    check(ops.LAUNCHES["rwkv6_scan"] == before + cfg.n_layers,
+    check(ops.LAUNCHES[kernel] == before + cfg.n_layers,
           "the card's smoke run did not go through the kernel")
-    ops.LAUNCHES["rwkv6_scan"] = before
+    ops.LAUNCHES[kernel] = before
     gap = float((gpu.prefill_logits.cpu() - cpu.prefill_logits).abs().max())
     same = bool(torch.equal(gpu.tokens, cpu.tokens))
-    print(f"[serve-reference] {cfg.name} float32, batch 4 x prompt 128 + 16: "
+    print(f"[{tag}-reference] {cfg.name} float32, batch 4 x prompt 128 + 16: "
           f"card ids == CPU plain-path ids: {same}; prefill logits gap "
           f"{gap:.3e}")
     check(same, f"greedy ids differ: card {gpu.tokens.tolist()} vs CPU "
           f"{cpu.tokens.tolist()}")
 
 
-def profile_serve(cfg, res):
-    """Phase 10: one full-width prefill and one decode step under
+def profile_serve(cfg, res, tag, kernel):
+    """Phase 10 / 14: one full-width prefill and one decode step under
     torch.profiler."""
+    from repro_torch.launch import serve
     from repro_torch.models import registry
 
     bundle = registry.build(cfg)
+    s = res.prompt.shape[1]
     token = res.tokens[:, :1].to(res.prompt.device)
+    cache = serve.grow_cache(res.prefill_cache, s + 1)
     for what, fn in (
             ("prefill", lambda: bundle.prefill_step(
                 res.params, {"tokens": res.prompt})),
             ("decode step", lambda: bundle.serve_step(
-                res.params, res.prefill_cache, token, res.prompt.shape[1]))):
+                res.params, cache, token, s))):
         wall_ms, events = _profiled(fn)
         dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
         if dev_ms <= 0:
-            print(f"[serve-profile] {what}: wall {wall_ms:.2f} ms, device "
+            print(f"[{tag}-profile] {what}: wall {wall_ms:.2f} ms, device "
                   f"time not measured (the profiler saw no CUDA kernels)")
             continue
-        k3_ms = sum(ev.self_device_time_total for ev in events
-                    if "rwkv6_scan" in ev.key) / 1e3
-        print(f"[serve-profile] {what}: wall {wall_ms:.2f} ms, device kernels "
+        k_ms = sum(ev.self_device_time_total for ev in events
+                   if kernel in ev.key) / 1e3
+        print(f"[{tag}-profile] {what}: wall {wall_ms:.2f} ms, device kernels "
               f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}% of wall busy) "
-              f"in {sum(ev.count for ev in events)} launches; rwkv6_scan "
-              f"{k3_ms:.3f} ms = {100 * k3_ms / dev_ms:.1f}% of device time")
+              f"in {sum(ev.count for ev in events)} launches; {kernel} "
+              f"{k_ms:.3f} ms = {100 * k_ms / dev_ms:.1f}% of device time")
         for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:12]:
-            print(f"[serve-profile]   {ev.self_device_time_total / 1e3:9.3f} "
+            print(f"[{tag}-profile]   {ev.self_device_time_total / 1e3:9.3f} "
                   f"ms x{ev.count:<5d} {ev.key[:100]}")
 
 
@@ -799,13 +930,28 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # 8. serve (the second main path)
-    serve_cfg, res, k3_launches = serve_full(dev)
+    serve_cfg, res, k3_launches = serve_full(dev, "serve")
 
     # 9. serve-reference
-    serve_reference(dev)
+    serve_reference(dev, "serve")
 
     # 10. serve-profile
-    profile_serve(serve_cfg, res)
+    profile_serve(serve_cfg, res, "serve", "rwkv6_scan")
+    del res
+    torch.cuda.empty_cache()
+
+    # 11. k2
+    k2_rows = k2_checks(dev, timer)
+    torch.cuda.synchronize()
+
+    # 12. dense-serve (the third main path)
+    dense_cfg, res, k2_launches = serve_full(dev, "dense-serve")
+
+    # 13. dense-serve-reference
+    serve_reference(dev, "dense-serve")
+
+    # 14. dense-serve-profile
+    profile_serve(dense_cfg, res, "dense-serve", "flash_attention")
     del res
 
     main_row = next(r for r in rows if r["shape"] == "slice"
@@ -846,6 +992,26 @@ def main() -> int:
         "library_ms": None,
         "shape": "B=8 S=2048 H=32 D=64, bfloat16 r/k/v, float32 w, with "
                  "the final state, L2 cold",
+    })
+    k2_row = next(r for r in k2_rows if r["case"] == "serve")
+    check(math.isfinite(k2_row["ms_cold"]), "non-finite K2 time")
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:98",
+        "launches": k2_launches,
+        "max_abs_err": max(r["err"] for r in k2_rows
+                           if r["dtype"] == "float32"),
+        "ms": k2_row["ms_cold"],
+        "ms_warm_l2": k2_row["ms_warm"],
+        "plain_ms": k2_row["plain_ms_cold"],
+        "bound_ms": k2_row["bound_ms"],
+        "bound_by": k2_row["bound_by"],
+        "library_ms": k2_row["library_ms_cold"],
+        "shape": "B=8 S=2048 H=16 KV=2 D=128 bfloat16, causal, L2 cold; "
+                 "library: F.scaled_dot_product_attention(is_causal=True, "
+                 "enable_gqa=True)",
     })
     print(card)
     print(json.dumps({"kernels": kernels}))

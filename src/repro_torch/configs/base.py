@@ -4,7 +4,7 @@ Port of the reference package's `configs/base.py`.  Every full config
 cites its source in `ModelCfg.source`; dtypes are torch dtypes.
 `smoke_variant` shrinks any config to <=2 layers, d_model<=512, <=4
 experts while keeping the family topology.  Only the families the port
-runs have their config files here (rwkv6-1.6b); `get` raises
+runs have their config files here (rwkv6-1.6b, qwen2.5-3b); `get` raises
 `NotImplementedError` for the others, which come with their families
 (ROADMAP Queue 1 item 7).
 """

@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from .. import resolve_device
+from . import flash_attention as _fa
 from . import ra_aggregate as _ra
 from . import ref
 from . import rwkv6_scan as _rwkv
@@ -33,9 +34,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: dict[str, int] = {"ra_aggregate": 0, "rwkv6_scan": 0}
+LAUNCHES: dict[str, int] = {"ra_aggregate": 0, "rwkv6_scan": 0,
+                             "flash_attention": 0}
 
-_BINDERS = {"ra_aggregate": _ra.bind, "rwkv6_scan": _rwkv.bind}
+_BINDERS = {"ra_aggregate": _ra.bind, "rwkv6_scan": _rwkv.bind,
+            "flash_attention": _fa.bind}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -159,3 +162,30 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               tile=tile, return_state=return_state)
     LAUNCHES["rwkv6_scan"] += 1
     return (out, state) if return_state else out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    device: str | torch.device | None = None) -> torch.Tensor:
+    """Causal (or full) grouped-query attention forward (see
+    `kernels.ref.flash_attention_ref`).
+
+    q: (B, S, H, D); k, v: (B, S, KV, D) with H a multiple of KV, one dtype
+    (float32 or bfloat16).  Query head h reads kv head h // (H // KV).
+    Returns (B, S, H, D) in q's dtype.
+
+    ``device`` (default: the CUDA card) is where the call runs; every input
+    must already lie there.
+    """
+    dev = resolve_device(device)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != dev.type:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, the "
+                             f"call runs on {dev}")
+    _fa.check_shapes(q, k, v)
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    out = _fa.launch(load_library("flash_attention"), q, k, v, scale=scale,
+                     causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -6,9 +6,14 @@ Port of the reference package's `launch/serve.py` (single device).  Usage:
       --batch 4 --prompt-len 32 --gen 16            # on the CUDA card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      --device cpu                                  # the dense family
+
 `main`, like the reference's, serves the config's smoke variant; `serve`
 takes any config (the full-width one included) and returns the generated
-ids with the prefill and decode times.
+ids with the prefill and decode times.  After the prefill, attention caches
+(``k`` / ``v``) grow along their sequence axis to ``prompt_len + gen``, as
+the reference's `main` grows them.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 
 from .. import resolve_device
 from ..configs import base as cfgbase
+from ..kernels import ops
 from ..models import registry, transformer
 
 
@@ -44,13 +50,35 @@ class ServeResult:
     params: transformer.Params    # the weights served
     prefill_logits: torch.Tensor  # (B, V) float32 last-token logits
     prefill_cache: transformer.Params  # the cache as prefill left it
+                                       # (attention caches not yet grown)
     prefill_s: float              # host clock, ending in a device sync
     decode_s: float               # the (gen - 1) serve_step calls
     decode_steps: int
+    prefill_launches: dict[str, int]  # kernel launches by name, prefill
+    decode_launches: dict[str, int]   # and over the decode steps
 
     @property
     def decode_tokens_per_s(self) -> float:
         return self.decode_steps * self.tokens.shape[0] / max(self.decode_s, 1e-9)
+
+
+def grow_cache(cache: transformer.Params, total: int) -> transformer.Params:
+    """Attention caches ``k`` / ``v`` (..., T, KV, Dh) zero-padded along T
+    to ``total`` slots (new tensors); other leaves as they are."""
+    def grow(name, leaf):
+        if name in ("k", "v") and leaf.ndim >= 4:
+            pad = list(leaf.shape)
+            pad[-3] = total - leaf.shape[-3]
+            return torch.cat([leaf, leaf.new_zeros(pad)], dim=-3)
+        return leaf
+    return {name: grow(name, leaf) for name, leaf in cache.items()}
+
+
+def _since(before: dict[str, int], *already: dict[str, int]) -> dict[str, int]:
+    """Kernel launches by name since ``before``, less those counted in
+    ``already``."""
+    return {name: n - before.get(name, 0) - sum(a.get(name, 0) for a in already)
+            for name, n in ops.LAUNCHES.items()}
 
 
 def _seeds(seed: int) -> tuple[int, int]:
@@ -90,13 +118,16 @@ def serve(cfg: transformer.ModelCfg, *, batch: int, prompt_len: int,
             0, cfg.vocab, (batch, prompt_len), device=dev,
             generator=torch.Generator(dev).manual_seed(s_tokens))
 
+    launches = dict(ops.LAUNCHES)
     sync()
     t0 = time.perf_counter()
     logits, cache = bundle.prefill_step(params, {"tokens": tokens},
                                         window=window, device=dev)
     sync()
     prefill_s = time.perf_counter() - t0
+    prefill_launches = _since(launches)
     prefill_logits, prefill_cache = logits, cache
+    cache = grow_cache(cache, prompt_len + gen)
 
     tok = first_token(logits)
     generated = [tok]
@@ -108,10 +139,12 @@ def serve(cfg: transformer.ModelCfg, *, batch: int, prompt_len: int,
         generated.append(tok)
     sync()
     decode_s = time.perf_counter() - t0
+    decode_launches = _since(launches, prefill_launches)
     return ServeResult(
         tokens=torch.cat(generated, dim=1).cpu(), prompt=tokens, params=params,
         prefill_logits=prefill_logits, prefill_cache=prefill_cache,
-        prefill_s=prefill_s, decode_s=decode_s, decode_steps=gen - 1)
+        prefill_s=prefill_s, decode_s=decode_s, decode_steps=gen - 1,
+        prefill_launches=prefill_launches, decode_launches=decode_launches)
 
 
 def main(argv=None) -> None:

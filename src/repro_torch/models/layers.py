@@ -1,9 +1,13 @@
 """Transformer building blocks, functional PyTorch: init/apply pairs.
 
-Port of the reference package's `models/layers.py` for what the rwkv6
-serving slice runs: dense init, RMSNorm and LayerNorm, the MLP with all
-four activations, and the tied embedding.  Attention, RoPE and the KV
-cache come with the dense family (ROADMAP Queue 1 item 7).
+Port of the reference package's `models/layers.py` for what the rwkv6 and
+dense serving slices run: dense init, RMSNorm and LayerNorm, split-half
+RoPE, grouped-query attention with optional QKV bias (`attention`, its
+prefill core `self_attention`, the plain `_sdpa`), the KV cache with
+`decode_attention`, the MLP with all four activations, and the tied
+embedding.  Cross-attention, the reference's jnp `_sdpa_chunked`, the
+``attn_mask`` argument and the wrapped sliding-window decode cache are not
+ported yet (ROADMAP Queue 1 item 7).
 
 Conventions, as in the reference:
 
@@ -18,10 +22,13 @@ Conventions, as in the reference:
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import ops
 
 Params = dict[str, torch.Tensor]
 
@@ -62,6 +69,181 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     var = xf.var(-1, unbiased=False, keepdim=True)
     y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
     return y * params["scale"] + params["bias"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float = 10_000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """Split-half rotary embedding.  x: (B, S, H, Dh); positions: (B, S)
+    integers.  Angles and the rotation are float32; the result takes x's
+    dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (Dh/2,)
+    angles = positions[..., None].to(torch.float32) * freqs    # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + RoPE + optional bias + KV cache)
+# ---------------------------------------------------------------------------
+IMPLS = ("auto", "torch", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope: bool = True
+    rope_theta: float = 10_000.0
+    causal: bool = True
+    sliding_window: int | None = None
+
+
+def init_attention(gen: torch.Generator, cfg: AttnCfg,
+                   dtype=torch.float32) -> Params:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # Draw order as the reference's split keys: wq, wk, wv, wo.
+    p = {"wq": _dense_init(gen, d, h * dh, dtype),
+         "wk": _dense_init(gen, d, kv * dh, dtype),
+         "wv": _dense_init(gen, d, kv * dh, dtype),
+         "wo": _dense_init(gen, h * dh, d, dtype)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", kv * dh), ("bv", kv * dh)):
+            p[name] = torch.zeros(n, dtype=dtype, device=gen.device)
+    return dict(sorted(p.items()))
+
+
+def _qkv(params: Params, cfg: AttnCfg, x: torch.Tensor,
+         positions: torch.Tensor):
+    """q (B, S, H, Dh), k and v (B, S, KV, Dh) in x's dtype; the bias is
+    added to the rounded product, and RoPE rotates q and k."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, kv, dh)
+    v = v.reshape(b, s, kv, dh)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor | None, *, scale: float) -> torch.Tensor:
+    """Grouped-query attention, rounding where the reference rounds: the
+    logits product in the inputs' dtype, then float32 for the scale, mask
+    (-1e30) and softmax, the probabilities cast to v's dtype.
+    q: (B, S, H, Dh); k, v: (B, T, KV, Dh); mask: (B, S, T) bool or None."""
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    q = q.reshape(b, s, kv, h // kv, dh)
+    logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, dh)
+
+
+def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int | None = None,
+                   impl: str = "auto") -> torch.Tensor:
+    """Full-sequence self-attention of projected heads (the prefill's
+    attention).  q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh).
+
+    ``impl="kernel"``, or ``"auto"`` on a CUDA tensor, runs
+    `kernels.ops.flash_attention` (the CUDA kernel K2 for CUDA tensors, its
+    plain version for CPU tensors); ``"torch"``, or ``"auto"`` on the CPU,
+    runs `_sdpa` with the causal / window mask.  K2 takes no window: a
+    window with the kernel raises.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl == "kernel" or (impl == "auto" and q.device.type == "cuda"):
+        if window is not None:
+            raise NotImplementedError(
+                "flash_attention (K2) takes no sliding window; see ROADMAP.md "
+                "Queue 2 (or pass impl='torch')")
+        return ops.flash_attention(q, k, v, scale=scale, causal=causal,
+                                   device=q.device)
+    b, s = q.shape[:2]
+    idx = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= idx[:, None] >= idx[None, :]
+    if window is not None:
+        mask &= idx[:, None] - idx[None, :] < window
+    return _sdpa(q, k, v, mask.expand(b, s, s), scale=scale)
+
+
+def attention(params: Params, cfg: AttnCfg, x: torch.Tensor, *,
+              positions: torch.Tensor | None = None,
+              impl: str = "auto") -> torch.Tensor:
+    """Full-sequence attention (prefill).  x: (B, S, D) -> (B, S, D).
+    ``impl`` as in `self_attention`."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = self_attention(q, k, v, causal=cfg.causal,
+                         window=cfg.sliding_window, impl=impl)
+    return out.reshape(b, s, -1) @ params["wo"]
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg,
+                  dtype=torch.float32, device=None) -> Params:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params: Params, cfg: AttnCfg, x: torch.Tensor,
+                     cache: Params, pos: int):
+    """One-token decode step against a KV cache, in plain PyTorch.
+
+    x: (B, 1, D); cache: k, v (B, T, KV, Dh); pos: the position of the new
+    token, where its k and v are written.  Unlike the reference, which
+    returns updated copies, the cache is written in place (one (B, KV, Dh)
+    row per step instead of a copy of the whole cache); the returned dict
+    holds the same tensors.  Returns (out (B, 1, D), cache).
+    """
+    b = x.shape[0]
+    t = cache["k"].shape[1]
+    pos = int(pos)
+    if not 0 <= pos < t:
+        raise IndexError(f"decode_attention: position {pos} is outside the "
+                         f"cache of {t} slots")
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _qkv(params, cfg, x, positions)
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    idx = torch.arange(t, device=x.device)
+    valid = idx <= pos
+    if cfg.sliding_window is not None:
+        valid &= idx > pos - cfg.sliding_window
+    out = _sdpa(q, cache["k"], cache["v"], valid.expand(b, 1, t),
+                scale=1.0 / math.sqrt(cfg.head_dim))
+    return out.reshape(b, 1, -1) @ params["wo"], cache
 
 
 # ---------------------------------------------------------------------------

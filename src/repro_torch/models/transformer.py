@@ -1,15 +1,21 @@
-"""Transformer assembly, functional PyTorch: the ``ssm`` family (rwkv6).
+"""Transformer assembly, functional PyTorch: the ``dense`` and ``ssm``
+families.
 
-Port of the reference package's `models/transformer.py` for the rwkv6
-serving slice: `ModelCfg`, init, the full forward, `prefill` (builds the
-decode cache, returns last-token logits) and `serve_step` (one token
-against the recurrent state).  Per layer: {ln1, rwkv6 time-mix, ln2, mlp}.
-The other families (dense, moe, hybrid, enc_dec, vlm) raise
-`NotImplementedError`; they come with ROADMAP Queue 1 item 7.
+Port of the reference package's `models/transformer.py` for the serving
+slices: `ModelCfg`, init, the full forward, `prefill` (builds the decode
+cache, returns last-token logits) and `serve_step` (one token against the
+cache).  Per layer:
+
+  dense : {ln1, attn, ln2, mlp}   (GQA + RoPE + optional QKV bias; qwen2.5)
+  ssm   : {ln1, rwkv6 time-mix, ln2, mlp}                          (rwkv6)
+
+The other families (moe, hybrid, enc_dec, vlm) raise `NotImplementedError`,
+as does a sliding window on the dense family; they come with ROADMAP Queue 1
+item 7.
 
 Parameters are a flat ``dict[str, Tensor]`` in the reference's leaf order
 (sorted keys, dotted names: "embed.table", "final_norm.scale",
-"layers.ln1.scale", ..., "layers.mlp.w_up").  Layer leaves are stacked on a
+"layers.attn.bk", ..., "layers.mlp.w_up").  Layer leaves are stacked on a
 leading ``(n_layers, ...)`` axis as the reference stacks them, so
 `interop.params_from_jax` maps one tree onto the other leaf for leaf; the
 reference's `lax.scan` over layers is a Python loop over that axis here.
@@ -72,19 +78,36 @@ class ModelCfg:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def attn_cfg(self, *, causal: bool = True,
+                 window: int | None = None) -> L.AttnCfg:
+        return L.AttnCfg(d_model=self.d_model, n_heads=self.n_heads,
+                         n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+                         qkv_bias=self.qkv_bias, rope=True,
+                         rope_theta=self.rope_theta, causal=causal,
+                         sliding_window=window)
+
     def rwkv_cfg(self) -> S.RWKV6Cfg:
         return S.RWKV6Cfg(d_model=self.d_model,
                           n_heads=self.rwkv_heads or self.n_heads or 16)
 
 
-def check_family(cfg: ModelCfg) -> None:
-    """Raise for a family the port does not run yet."""
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def check_family(cfg: ModelCfg, window: int | None = None) -> None:
+    """Raise for a family (or a dense sliding window) the port does not run
+    yet."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
-    if cfg.family != "ssm":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (only "
-            f"'ssm'); see ROADMAP.md Queue 1 item 7")
+            f"{PORTED_FAMILIES}); see ROADMAP.md Queue 1 item 7")
+    if cfg.family == "dense" and window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a sliding window on the dense family is not ported "
+            f"yet (K2 takes none, nor the wrapped decode cache); see "
+            f"ROADMAP.md Queue 1 item 7")
 
 
 def _norm_init(cfg: ModelCfg):
@@ -111,9 +134,15 @@ def _prefixed(prefix: str, params: Params) -> Params:
 def _init_block(gen: torch.Generator, cfg: ModelCfg) -> Params:
     """One decoder layer (unstacked)."""
     dev = gen.device
+    # Draw order as the reference's split keys: the mixer, then the MLP.
+    if cfg.family == "ssm":
+        mixer = _prefixed("mix", S.init_rwkv6(gen, cfg.rwkv_cfg(), cfg.dtype))
+    else:
+        mixer = _prefixed("attn", L.init_attention(gen, cfg.attn_cfg(),
+                                                   cfg.dtype))
     p = {**_prefixed("ln1", _norm_init(cfg)(cfg.d_model, cfg.dtype, dev)),
          **_prefixed("ln2", _norm_init(cfg)(cfg.d_model, cfg.dtype, dev)),
-         **_prefixed("mix", S.init_rwkv6(gen, cfg.rwkv_cfg(), cfg.dtype)),
+         **mixer,
          **_prefixed("mlp", L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
                                        cfg.dtype))}
     return dict(sorted(p.items()))
@@ -144,27 +173,44 @@ def layer_params(params: Params, n_layers: int) -> list[Params]:
 # ---------------------------------------------------------------------------
 # Blocks (apply)
 # ---------------------------------------------------------------------------
+def _mixer(cfg: ModelCfg, lp: Params, h: torch.Tensor, impl: str):
+    """The layer's sequence mixer on its normed input: the rwkv6 time-mix
+    (ssm) or causal self-attention (dense), through `ssm.rwkv6_seq` /
+    `layers.self_attention` with ``impl``.  Returns (out, what the decode
+    cache keeps of the layer: the time-mix's final state, or (k, v))."""
+    if cfg.family == "ssm":
+        return S.rwkv6_seq(_sub(lp, "mix"), cfg.rwkv_cfg(), h, impl=impl,
+                           return_state=True)
+    ap = _sub(lp, "attn")
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    q, k, v = L._qkv(ap, cfg.attn_cfg(), h, positions)
+    out = L.self_attention(q, k, v, causal=True, impl=impl)
+    return out.reshape(b, s, -1) @ ap["wo"], (k, v)
+
+
 def _block(cfg: ModelCfg, lp: Params, x: torch.Tensor, *, impl: str = "auto",
-           return_state: bool = False):
-    """One layer: x + time-mix(ln1 x), then + mlp(ln2 x).  Returns x, or
-    (x, the time-mix's final state) with ``return_state``."""
+           return_cache: bool = False):
+    """One layer: x + mixer(ln1 x), then + mlp(ln2 x).  Returns x, or with
+    ``return_cache`` (x, what the decode cache keeps of the layer).  The
+    normed input is passed straight to `_mixer`, so it is freed before the
+    MLP runs."""
     norm = _norm(cfg)
-    mix, state = S.rwkv6_seq(_sub(lp, "mix"), cfg.rwkv_cfg(),
-                             norm(_sub(lp, "ln1"), x), impl=impl,
-                             return_state=True)
+    mix, kept = _mixer(cfg, lp, norm(_sub(lp, "ln1"), x), impl)
     x = x + mix
     x = x + L.mlp(_sub(lp, "mlp"), norm(_sub(lp, "ln2"), x), cfg.act)
-    return (x, state) if return_state else x
+    return (x, kept) if return_cache else x
 
 
 def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
-            impl: str = "auto", return_hidden: bool = False):
+            impl: str = "auto", window: int | None = None,
+            return_hidden: bool = False):
     """tokens: (B, S) -> (logits (B, S, V) float32, aux loss 0).
 
     ``return_hidden`` gives the final normed hidden states (B, S, D)
-    instead of logits.  ``impl`` selects the time-mix scan (see
-    `ssm.rwkv6_seq`)."""
-    check_family(cfg)
+    instead of logits.  ``impl`` selects the time-mix scan or the attention
+    (see `_block`)."""
+    check_family(cfg, window)
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
     for lp in layer_params(params, cfg.n_layers):
         x = _block(cfg, lp, x, impl=impl)
@@ -181,44 +227,67 @@ def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
 def prefill(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
             window: int | None = None, impl: str = "auto"):
     """tokens: (B, S) -> (last-token logits (B, V) float32, cache ready for
-    `serve_step`).  The cache holds each layer's final time-mix state,
-    ``rwkv_state`` (n_layers, B, H, Dh, Dh) in ``cfg.dtype``.  ``window``
-    only bounds attention caches, which this family has none of."""
-    check_family(cfg)
+    `serve_step`).  The cache holds, in ``cfg.dtype``, each layer's final
+    time-mix state ``rwkv_state`` (n_layers, B, H, Dh, Dh) for the ssm
+    family, and each layer's attention keys and values ``k`` / ``v``
+    (n_layers, B, S, KV, Dh) for the dense family.  ``window`` bounds
+    attention caches; on the dense family it raises (not ported)."""
+    check_family(cfg, window)
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
-    states = []
+    kept = []
     for lp in layer_params(params, cfg.n_layers):
-        x, st = _block(cfg, lp, x, impl=impl, return_state=True)
-        states.append(st.to(cfg.dtype))
+        x, entry = _block(cfg, lp, x, impl=impl, return_cache=True)
+        # A float32 time-mix state is cast as it comes, not held to the end;
+        # k and v are already in cfg.dtype.
+        kept.append(entry.to(cfg.dtype) if cfg.family == "ssm" else entry)
     last = _norm(cfg)(_sub(params, "final_norm"), x[:, -1])
     logits = L.unembed(_sub(params, "embed"), last)
-    return logits, {"rwkv_state": torch.stack(states)}
+    if cfg.family == "ssm":
+        return logits, {"rwkv_state": torch.stack(kept)}
+    return logits, {name: torch.stack([kv[i] for kv in kept])
+                    for i, name in enumerate(("k", "v"))}
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, *,
                window: int | None = None, device=None) -> Params:
-    """Decode cache: one recurrent state per layer, zeros."""
-    check_family(cfg)
-    rc = cfg.rwkv_cfg()
-    return {"rwkv_state": torch.zeros(
-        (cfg.n_layers, batch, rc.n_heads, rc.head_dim, rc.head_dim),
-        dtype=cfg.dtype, device=device)}
+    """Decode cache, zeros: one recurrent state per layer (ssm), or
+    attention keys and values (n_layers, B, max_len, KV, Dh) (dense)."""
+    check_family(cfg, window)
+    if cfg.family == "ssm":
+        rc = cfg.rwkv_cfg()
+        return {"rwkv_state": torch.zeros(
+            (cfg.n_layers, batch, rc.n_heads, rc.head_dim, rc.head_dim),
+            dtype=cfg.dtype, device=device)}
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
 def serve_step(params: Params, cfg: ModelCfg, cache: Params,
                token: torch.Tensor, pos, *, window: int | None = None):
     """One decode step.  token: (B, 1).  Returns (logits (B, 1, V) float32,
-    new cache).  ``pos`` and ``window`` place attention-cache writes, which
-    this family has none of."""
-    check_family(cfg)
+    new cache).  ``pos`` is the token's position: where the dense family
+    writes its keys and values, which it does in place (see
+    `layers.decode_attention`); the returned cache holds the same tensors.
+    The ssm family returns new states.  Decode runs in plain PyTorch."""
+    check_family(cfg, window)
     norm = _norm(cfg)
     x = L.embed(_sub(params, "embed"), token).to(cfg.dtype)
     states = []
-    for lp, st in zip(layer_params(params, cfg.n_layers), cache["rwkv_state"]):
-        mix, st = S.rwkv6_step(_sub(lp, "mix"), cfg.rwkv_cfg(),
-                               norm(_sub(lp, "ln1"), x), st)
+    for i, lp in enumerate(layer_params(params, cfg.n_layers)):
+        h = norm(_sub(lp, "ln1"), x)
+        if cfg.family == "ssm":
+            mix, st = S.rwkv6_step(_sub(lp, "mix"), cfg.rwkv_cfg(), h,
+                                   cache["rwkv_state"][i])
+            states.append(st)
+        else:
+            mix, _ = L.decode_attention(
+                _sub(lp, "attn"), cfg.attn_cfg(), h,
+                {"k": cache["k"][i], "v": cache["v"][i]}, pos)
         x = x + mix
         x = x + L.mlp(_sub(lp, "mlp"), norm(_sub(lp, "ln2"), x), cfg.act)
-        states.append(st)
     x = norm(_sub(params, "final_norm"), x)
-    return L.unembed(_sub(params, "embed"), x), {"rwkv_state": torch.stack(states)}
+    logits = L.unembed(_sub(params, "embed"), x)
+    if cfg.family == "ssm":
+        return logits, {"rwkv_state": torch.stack(states)}
+    return logits, cache

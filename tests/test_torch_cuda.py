@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 (`ra_aggregate`) and K3 (`rwkv6_scan`) against their
-plain PyTorch versions.
+"""The CUDA kernels K1 (`ra_aggregate`), K2 (`flash_attention`) and K3
+(`rwkv6_scan`) against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU (and nvcc to build the kernel): a CUDA
 kernel has no CPU mode, so elsewhere they skip with that reason.  They
@@ -20,8 +20,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from _torch_parity import bf16_ulps  # noqa: E402
-from repro_torch.kernels import ops, ref, rwkv6_scan  # noqa: E402
-from repro_torch.models import ssm  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref, rwkv6_scan  # noqa: E402,E501
+from repro_torch.models import layers, ssm  # noqa: E402
 
 MODES = ("ra_normalized", "substitution")
 CASES = {
@@ -215,3 +215,101 @@ def test_rwkv6_seq_auto_runs_the_kernel_on_the_card(cuda_device):
                                atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(got_state.cpu().numpy(),
                                want_state.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K2 `flash_attention`: the CUDA kernel against its plain version (float32
+# logits and softmax), both on the card.  Tolerances as the reference's
+# kernel tests hold Pallas to its oracle: 2e-5 absolute in float32 (sums in
+# another order), 3e-2 absolute in bfloat16 (the kernel rounds P to bfloat16
+# for the PV product, and both round the output).
+# ---------------------------------------------------------------------------
+K2_SHAPES = [(2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16),
+             (1, 200, 4, 1, 128), (2, 33, 2, 2, 64)]
+K2_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _k2_inputs(dev, shape, dtype=torch.float32, *, seed=0):
+    b, s, h, kv, dh = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, dh)).astype(np.float32))
+            .to(dev, dtype) for n in (h, kv, kv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_cuda_kernel_matches_plain(cuda_device, shape, dtype, causal):
+    q, k, v = _k2_inputs(cuda_device, shape, getattr(torch, dtype),
+                         seed=sum(shape))
+    scale = shape[-1] ** -0.5
+    want = ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=K2_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_cuda_reads_strided_head_slices(cuda_device, dtype):
+    """q, k, v as head slices of wider tensors (as a fused QKV projection
+    would give them): read through their strides, the same result."""
+    q, k, v = _k2_inputs(cuda_device, (2, 96, 6, 2, 32), getattr(torch, dtype),
+                         seed=3)
+    want = ops.flash_attention(q, k, v, scale=0.2)
+    qkv = torch.cat([q, k, v], dim=2)             # (B, S, H + 2 KV, D)
+    qs, ks, vs = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    assert not qs.is_contiguous() and not ks.is_contiguous()
+    assert torch.equal(ops.flash_attention(qs, ks, vs, scale=0.2), want)
+    np.testing.assert_allclose(
+        want.float().cpu().numpy(),
+        ref.flash_attention_ref(q, k, v, scale=0.2).float().cpu().numpy(),
+        atol=K2_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_k2_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _k2_inputs(cuda_device, (1, 16, 4, 2, 32))
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.flash_attention(*_k2_inputs(cuda_device, (1, 16, 4, 2, 96)),
+                            scale=1.0)
+    with pytest.raises(TypeError, match="share one dtype"):
+        ops.flash_attention(q, k.bfloat16(), v, scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half(), scale=1.0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.flash_attention(q, k.cpu(), v, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous in its last axis"):
+        ops.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                            v, scale=1.0)
+    with pytest.raises(ValueError, match="start on 16 bytes"):
+        ops.flash_attention(torch.cat([q.flatten()[:1], q.flatten()])[1:]
+                            .view(q.shape), k, v, scale=1.0)
+    lib = ops.load_library("flash_attention")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention.launch(lib, q.cpu(), k.cpu(), v.cpu(), scale=1.0,
+                               causal=True)
+    assert ops.flash_attention(q, k, v, scale=1.0).shape == q.shape
+
+
+@pytest.mark.cuda
+def test_attention_auto_runs_the_kernel_on_the_card(cuda_device):
+    cfg = layers.AttnCfg(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                         qkv_bias=True, rope_theta=1e6)
+    params = {n: t.to(cuda_device) for n, t in layers.init_attention(
+        torch.Generator().manual_seed(0), cfg).items()}
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 96, 256)).astype(np.float32)).to(cuda_device)
+    before = ops.LAUNCHES["flash_attention"]
+    got = layers.attention(params, cfg, x)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = layers.attention(params, cfg, x, impl="torch")
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)

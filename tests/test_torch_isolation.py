@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax_or_reference():
     assert "repro_torch.fl.simulator" in report["imported"]
     assert "repro_torch.kernels.ops" in report["imported"]
     for mod in ("repro_torch.models.transformer",
-                "repro_torch.kernels.rwkv6_scan", "repro_torch.launch.serve"):
+                "repro_torch.kernels.rwkv6_scan", "repro_torch.launch.serve",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.configs.qwen2_5_3b"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 

@@ -1,5 +1,5 @@
 """PyTorch port vs the JAX reference: layers, configs, interop and the smoke
-rwkv6 model (prefill + decode).
+rwkv6 and qwen2.5 models (prefill + decode).
 
 Weights come from the reference's init and cross through
 `repro_torch.interop`; token ids are drawn with numpy.  Tolerances:
@@ -29,6 +29,7 @@ from repro.models import layers as jL  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers, registry, transformer  # noqa: E402
 
 DT = {"float32": (jnp.float32, torch.float32),
@@ -133,7 +134,7 @@ def _same_cfg(cfg, jcfg):
 
 
 def test_configs_match_reference_field_for_field():
-    for arch in ("rwkv6-1.6b", "rwkv6_1_6b"):
+    for arch in ("rwkv6-1.6b", "rwkv6_1_6b", "qwen2.5-3b", "qwen2_5_3b"):
         _same_cfg(base.get(arch), jbase.get(arch))
         _same_cfg(base.smoke_variant(base.get(arch)),
                   jbase.smoke_variant(jbase.get(arch)))
@@ -143,12 +144,12 @@ def test_configs_match_reference_field_for_field():
             smoke.vocab) == (2, 256, 4, 64, 512)
     assert base.ALIASES == jbase.ALIASES and base.ARCH_IDS == jbase.ARCH_IDS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.get("qwen2.5-3b")
+        base.get("llama3-8b")
     with pytest.raises(ValueError, match="unknown architecture"):
         base.get("gpt-2")
-    dense = dataclasses.replace(smoke, family="dense")
+    moe = dataclasses.replace(smoke, family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build(dense)
+        registry.build(moe)
 
 
 def test_bfloat16_tree_crosses_and_round_trips():
@@ -265,4 +266,164 @@ def test_bundle_device_rule(monkeypatch):
                  lambda: bundle.serve_step(cpu_params, cache, tokens[:, :1], 4),
                  lambda: bundle.init_cache(2, 16)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+# ---------------------------------------------------------------------------
+# The smoke qwen2.5 (dense family): prefill, then decode
+# ---------------------------------------------------------------------------
+QWEN_LEAVES = [
+    "embed.table", "final_norm.scale", "layers.attn.bk", "layers.attn.bq",
+    "layers.attn.bv", "layers.attn.wk", "layers.attn.wo", "layers.attn.wq",
+    "layers.attn.wv", "layers.ln1.scale", "layers.ln2.scale",
+    "layers.mlp.w_down", "layers.mlp.w_gate", "layers.mlp.w_up",
+]
+
+
+def test_qwen_config_and_dense_tree():
+    cfg = base.get("qwen2.5-3b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab, cfg.qkv_bias,
+            cfg.rope_theta, cfg.dtype) == (
+        "dense", 36, 2048, 16, 2, 128, 11008, 151936, True, 1e6,
+        torch.bfloat16)
+    smoke = base.smoke_variant(cfg)
+    assert (smoke.n_layers, smoke.d_model, smoke.n_heads, smoke.n_kv_heads,
+            smoke.hd, smoke.vocab) == (2, 256, 4, 1, 64, 512)
+    ac = cfg.attn_cfg()
+    jac = jbase.get("qwen2.5-3b").attn_cfg()
+    assert dataclasses.asdict(ac) == dataclasses.asdict(jac)
+    # The reference's dense tree crosses leaf for leaf, bfloat16 included.
+    jcfg = dataclasses.replace(jbase.smoke_variant(jbase.get("qwen2.5-3b")),
+                               dtype=jnp.bfloat16)
+    jparams = jT.init_params(jax.random.PRNGKey(0), jcfg)
+    flat = _tree(jparams)
+    assert list(flat) == QWEN_LEAVES
+    for (name, t), leaf in zip(flat.items(), jax.tree.leaves(jparams)):
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == leaf.shape
+        assert torch.equal(t.float(), torch.from_numpy(_np(leaf))), name
+    own = transformer.init_params(torch.Generator().manual_seed(0),
+                                  dataclasses.replace(smoke,
+                                                      dtype=torch.bfloat16))
+    assert list(own) == QWEN_LEAVES
+    assert all(own[k].shape == flat[k].shape and own[k].dtype == torch.bfloat16
+               for k in flat)
+    # Parameter count at full width (the reference's init, counted on
+    # shapes only).
+    shapes = jax.eval_shape(lambda k: jT.init_params(k, jbase.get("qwen2.5-3b")),
+                            jax.random.PRNGKey(0))
+    assert sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes)) == \
+        3_085_938_688
+
+
+def _smoke_qwen(dtype):
+    jdt, tdt = DT[dtype]
+    jcfg = dataclasses.replace(jbase.smoke_variant(jbase.get("qwen2.5-3b")),
+                               dtype=jdt)
+    cfg = dataclasses.replace(base.smoke_variant(base.get("qwen2.5-3b")),
+                              dtype=tdt)
+    jparams = jT.init_params(jax.random.PRNGKey(0), jcfg)
+    # Biases drawn, not zero, so that the QKV bias path is exercised.
+    rng = np.random.default_rng(7)
+    attn = jparams["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name] = jnp.asarray(rng.normal(size=attn[name].shape).astype(
+            np.float32) * 0.3).astype(jdt)
+    return jcfg, cfg, jparams, _tree(jparams)
+
+
+def _grow(cache, total):
+    pad = [(0, 0)] * cache.ndim
+    pad[-3] = (0, total - cache.shape[-3])
+    return jnp.pad(cache, pad)
+
+
+@pytest.mark.parametrize("prompt_len", [64, 96])
+def test_smoke_qwen_prefill_and_decode_match_reference(prompt_len):
+    """float32: prefill logits and K/V caches, then 8 decode steps against
+    caches grown to prompt_len + 8, as the reference's serve grows them."""
+    jcfg, cfg, jparams, tparams = _smoke_qwen("float32")
+    bundle = registry.build(cfg)
+    tokens = np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab, size=(2, prompt_len))
+    jlogits, jcache = jax.jit(lambda p, t: jT.prefill(p, jcfg, t))(
+        jparams, jnp.asarray(tokens, jnp.int32))
+    logits, cache = bundle.prefill_step(
+        tparams, {"tokens": torch.from_numpy(tokens)}, device="cpu")
+    assert logits.dtype == torch.float32 and tuple(logits.shape) == (2, 512)
+    assert list(cache) == ["k", "v"]
+    assert tuple(cache["k"].shape) == (2, 2, prompt_len, 1, 64)
+    np.testing.assert_allclose(_np(logits), _np(jlogits), atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        assert cache[name].dtype == torch.float32
+        np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
+                                   atol=1e-4, rtol=1e-4)
+
+    total = prompt_len + 8
+    jcache = {k: _grow(v, total) for k, v in jcache.items()}
+    cache = serve.grow_cache(cache, total)
+    assert tuple(cache["v"].shape) == (2, 2, total, 1, 64)
+    jstep = jax.jit(lambda p, c, t, pos: jT.serve_step(p, jcfg, c, t, pos))
+    for i in range(8):
+        jtok = jnp.argmax(jlogits.reshape(2, -1), axis=-1)[:, None]
+        tok = logits.reshape(2, -1).argmax(-1)[:, None]
+        assert np.array_equal(tok.numpy(), np.asarray(jtok)), f"step {i}"
+        jlogits, jcache = jstep(jparams, jcache, jtok.astype(jnp.int32),
+                                jnp.int32(prompt_len + i))
+        logits, new = bundle.serve_step(tparams, cache, tok, prompt_len + i,
+                                        device="cpu")
+        assert new["k"] is cache["k"]     # written in place
+        assert tuple(logits.shape) == (2, 1, 512)
+        np.testing.assert_allclose(_np(logits), _np(jlogits), atol=1e-4,
+                                   rtol=1e-4)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
+                                       atol=1e-4, rtol=1e-4)
+
+
+def test_smoke_qwen_bf16_prefill_matches_reference():
+    """bfloat16: logits within 3e-2 of the largest |logit| (every layer
+    rounds activations to bfloat16, and the packages' sums may round
+    apart)."""
+    jcfg, cfg, jparams, tparams = _smoke_qwen("bfloat16")
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 96))
+    jlogits, jcache = jT.prefill(jparams, jcfg, jnp.asarray(tokens, jnp.int32))
+    for impl in ("auto", "torch", "kernel"):
+        logits, cache = registry.build(cfg).prefill_step(
+            tparams, {"tokens": torch.from_numpy(tokens)}, impl=impl,
+            device="cpu")
+        assert cache["k"].dtype == torch.bfloat16
+        got, want = _np(logits), _np(jlogits)
+        assert np.abs(got - want).max() <= 3e-2 * np.abs(want).max()
+
+
+def test_smoke_qwen_forward_matches_reference():
+    jcfg, cfg, jparams, tparams = _smoke_qwen("float32")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, size=(2, 40))
+    want, _ = jT.forward(jparams, jcfg, jnp.asarray(tokens, jnp.int32))
+    for impl in ("auto", "torch", "kernel"):
+        with torch.no_grad():
+            got, aux = transformer.forward(tparams, cfg,
+                                           torch.from_numpy(tokens), impl=impl)
+        assert float(aux) == 0.0
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+
+
+def test_dense_window_raises_and_cache_shapes():
+    cfg = base.smoke_variant(base.get("qwen2.5-3b"))
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    assert list(params) == QWEN_LEAVES
+    tokens = torch.zeros((2, 8), dtype=torch.int64)
+    cache = bundle.init_cache(2, 16, device="cpu")
+    assert tuple(cache["k"].shape) == (2, 2, 16, 1, 64)
+    assert cache["v"].dtype == torch.float32 and not cache["v"].any()
+    for call in (
+            lambda: bundle.prefill_step(params, {"tokens": tokens}, window=4,
+                                        device="cpu"),
+            lambda: bundle.serve_step(params, cache, tokens[:, :1], 8,
+                                      window=4, device="cpu"),
+            lambda: bundle.init_cache(2, 16, window=4, device="cpu"),
+            lambda: transformer.forward(params, cfg, tokens, window=4)):
+        with pytest.raises(NotImplementedError, match="sliding window"):
             call()
