@@ -8,7 +8,11 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
   1. device    — requires CUDA; prints the card, its power limit, the torch
                  and CUDA versions and the two TF32 flags.
   2. build     — compiles every kernel under src/repro_torch/kernels/csrc/
-                 with nvcc for sm_90a (one process per source, in parallel).
+                 with nvcc for sm_90a (one process per source, in parallel);
+                 for K2 prints each instantiation's registers, shared memory
+                 and spills (ptxas -v) and counts its HGMMA (wgmma), UTMALDG
+                 and UTMASTG (TMA) instructions in `cuobjdump -sass`: the bf16
+                 D = 128 body must hold all three.
   3. kernels   — K1 `ra_aggregate` in its four variants (two modes, with and
                  without a transmit mask) x {float32, bfloat16} at three
                  shapes, held to its plain PyTorch version on the same
@@ -45,13 +49,19 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
  10. serve-profile — one full-width prefill and one decode step under
                  torch.profiler: device time by kernel, launches, K3's share.
  11. k2        — K2 `flash_attention` against its plain PyTorch version
-                 (float32 logits and softmax): at the dense serving shape
-                 (B=8, S=2048, H=16, KV=2, D=128, bfloat16, causal), at the
-                 reference's test shapes in float32 and bfloat16, and one
-                 non-causal shape; times the kernel, the plain version and
+                 (float32 logits and softmax), in absolute error and against
+                 each output row's size: at the dense serving shape (B=8,
+                 S=2048, H=16, KV=2, D=128, bfloat16, causal), at the
+                 reference's test shapes in float32 and bfloat16, one
+                 non-causal shape, a ragged bf16 D = 128 shape, a bf16
+                 D = 64 one with more work tiles than SMs, inputs whose
+                 rows' maxima jump at later key tiles (the Hopper body's
+                 lazy softmax must redo tiles there, and the count of such
+                 tiles replayed from the logits must be above 0), and a
+                 negative scale; times the kernel, the plain version and
                  `F.scaled_dot_product_attention` (the library yardstick,
                  used nowhere in the port) with CUDA events, L2 cold and
-                 warm, beside the bound.
+                 warm, beside the bound, and prints the persistent grid.
  12. dense-serve — the third main path: `launch.serve.serve` on qwen2.5-3b at
                  full width and depth (bfloat16, seed 0; 8 prompts of 2048
                  tokens, 32 generated per row); K2's launch count is set to
@@ -76,6 +86,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,17 +120,34 @@ K3_CASES = [
     ("decay_floor", (1, 128, 4, 64), torch.float32, -60.0 / 64.0),
 ]
 K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
-# K2 checks: (name, (B, S, H, KV, D), dtype, causal).  The serving shape is
-# qwen2.5-3b's prefill; the others are tests/test_kernels.py's.
+# K2 checks: (name, (B, S, H, KV, D), dtype, causal, inputs as `k2_inputs`
+# draws them).  The serving shape is qwen2.5-3b's prefill; the next ones are
+# tests/test_kernels.py's; the `growth` and `scale1` cases make the Hopper
+# body's lazy softmax redo tiles exactly (`k2_lazy_redos` counts them).
 K2_CASES = [
-    ("serve", (8, 2048, 16, 2, 128), torch.bfloat16, True),
-    *((f"{'x'.join(map(str, sh))}", sh, dt, True)
+    ("serve", (8, 2048, 16, 2, 128), torch.bfloat16, True, "randn"),
+    *((f"{'x'.join(map(str, sh))}", sh, dt, True, "randn")
       for sh in ((2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16))
       for dt in (torch.float32, torch.bfloat16)),
-    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.float32, False),
-    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.bfloat16, False),
+    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.float32, False, "randn"),
+    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.bfloat16, False, "randn"),
+    ("ragged_1x257", (1, 257, 16, 2, 128), torch.bfloat16, True, "randn"),
+    ("d64_2x1000", (2, 1000, 16, 2, 64), torch.bfloat16, True, "randn"),
+    ("growth_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "growth"),
+    ("growth_1x700", (1, 700, 16, 2, 128), torch.bfloat16, False, "growth"),
+    ("growth_d64_2x520", (2, 520, 8, 2, 64), torch.bfloat16, True, "growth"),
+    ("growth_d64_2x520", (2, 520, 8, 2, 64), torch.bfloat16, False, "growth"),
+    ("scale1_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "scale1"),
+    ("negative_1x300", (1, 300, 16, 2, 128), torch.bfloat16, False,
+     "negative"),
 ]
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # absolute
+# The same errors against each output row's own size (`k2_row_err`): late
+# causal rows average many values and are small, so the absolute limit
+# alone leaves room for a fault there.  bf16: about twice the largest
+# reading on the H100 (3.27e-2, one ulp of a row's largest value); float32
+# well above its readings (3.2e-6); the readings are in PERF.md section 6.
+K2_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 # The serving paths: tag -> (architecture, the kernel its prefill runs).
 SERVE_PATHS = {"serve": ("rwkv6-1.6b", "rwkv6_scan"),
                "dense-serve": ("qwen2.5-3b", "flash_attention")}
@@ -546,19 +574,169 @@ def k3_checks(dev, timer):
     return rows
 
 
+def _k2_instance(mangled: str) -> str:
+    """'hopper<bf16, 128>' or 'simt<float, 64>' from a mangled K2 name."""
+    m = re.search(r"(hopper|simt)\d+flash_attention_kernelI(f|13__nv_bfloat16)?"
+                  r"Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    dtype = "float" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+
+
+def k2_build_report(log: str | None, so_path) -> None:
+    """Phase 2, K2: registers, shared memory and spills per instantiation
+    (``-Xptxas -v``; ``log`` is None if the library was built before this
+    run), dynamic shared memory per launch, and the wgmma and TMA
+    instructions in the built library's SASS."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    if log is None:
+        print("[build] flash_attention was built before this run: no ptxas "
+              "report")
+    name = None
+    spills = (0, 0)
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = _k2_instance(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", line)
+            print(f"[build] flash_attention {name}: {m.group(1)} registers, "
+                  f"{sm.group(1) if sm else 0} B static shared memory, "
+                  f"spill stores/loads {spills[0]}/{spills[1]} B")
+            name = None
+    lib = ops.load_library("flash_attention")
+    print("[build] flash_attention dynamic shared memory per launch: " + ", ".join(
+        f"{str(dt)[6:]} D={d} {fa.smem_bytes(lib, dt, d)} B"
+        for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("[build] flash_attention SASS: cuobjdump not found; HGMMA / "
+              "UTMALDG counts not measured")
+        return
+    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        inst = _k2_instance(chunk.split("\n", 1)[0])
+        counts[inst] = {op: len(re.findall(rf"\b{op}\b", chunk))
+                        for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
+        print(f"[build] flash_attention {inst} SASS: " + ", ".join(
+            f"{op} {n}" for op, n in counts[inst].items()))
+    wg = counts.get("hopper<bf16, 128>", {})
+    check(all(wg.get(op, 0) > 0 for op in ("HGMMA", "UTMALDG", "UTMASTG")),
+          f"the bf16 D = 128 body lacks wgmma or TMA in its SASS: {wg}")
+
+
+def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0):
+    """q (B, S, H, D), k and v (B, S, KV, D) for K2, drawn N(0, 1) in float32
+    with numpy from ``seed`` and cast to ``dtype``, and the scale.  By kind:
+
+      randn     scale D^-0.5: the logits are about N(0, 1), so no row's max
+                ever jumps far at a later key tile;
+      growth    as randn, but every 16th key from key 128 on is c q_i for a
+                query row i of one head of its group (a row of a later query
+                tile if causal), c rising from 1.5 to 3 along S: row i's
+                logit there is about c sqrt(D), far above the about 3 that
+                the randn keys give it;
+      scale1    randn at scale 1: the logits are about N(0, D);
+      negative  randn at scale -D^-0.5.
+
+    ``growth`` and ``scale1`` make the Hopper body's lazy softmax redo tiles
+    exactly (`k2_lazy_redos`); ``negative`` takes the exact softmax on every
+    tile.  Where the softmax is that peaked an output row is about one row
+    of v, so those two draw v at half scale: outputs stay below 4, where
+    one bfloat16 ulp (2^-6) lies inside the absolute 3e-2 (at 4.2 one ulp
+    is 2^-5, over it)."""
+    b, s, h, kv, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, s, n, d)).astype(np.float32)
+               for n in (h, kv, kv))
+    scale = {"randn": d ** -0.5, "growth": d ** -0.5, "scale1": 1.0,
+             "negative": -d ** -0.5}[kind]
+    if kind == "growth":
+        for bi in range(b):
+            for kvh in range(kv):
+                for j in range(128, s, 16):
+                    lo = (j // 128 + 1) * 128 if causal else 0
+                    if lo >= s:
+                        break
+                    i = rng.integers(lo, s)
+                    hq = kvh * (h // kv) + rng.integers(h // kv)
+                    k[bi, j, kvh] = (1.5 + 1.5 * j / s) * q[bi, i, hq]
+    if kind in ("growth", "scale1"):
+        v *= 0.5
+    return [torch.from_numpy(t).to(dev, dtype) for t in (q, k, v)] + [scale]
+
+
+def k2_lazy_redos(q, k, scale, causal, margin=0.5):
+    """How many (16-row warp, key tile) pairs the Hopper body's lazy softmax
+    must redo exactly on these inputs, replaying its rule on the float32
+    logits: past the first key tile, a tile with no masked entry (not on
+    the diagonal, not ragged) is redone by a warp where some row's max, in
+    the log2 domain, is above the running max by more than 8; the running
+    max takes the tile's max only on an exact tile.  Counts the pairs where
+    that excess is above 8 + ``margin``, clear of summation-order
+    differences.  Zero for a negative scale (no lazy tile)."""
+    tile, warp, lazy_log2 = 128, 16, 8.0   # kBQ = kBK, rows a warp, kLazyLog2
+    if scale <= 0:
+        return 0
+    b, s, h, _ = q.shape
+    kf = k.float().repeat_interleave(h // k.shape[2], dim=2)
+    x = torch.einsum("bihd,bjhd->bhij", q.float(), kf)
+    x = x * (scale * math.log2(math.e))
+    idx = torch.arange(s, device=q.device)
+    qt = idx // tile
+    if causal:
+        x = x.masked_fill(idx[None, :] > idx[:, None], -math.inf)
+
+    def any_in_warp(rows):       # (..., S) -> (..., warps)
+        rows = torch.nn.functional.pad(rows, (0, -s % warp))
+        return rows.unflatten(-1, (-1, warp)).any(-1)
+
+    m = x[..., :tile].amax(-1)
+    redos = 0
+    for j in range(1, -(-s // tile)):
+        tmax = x[..., tile * j:tile * (j + 1)].amax(-1)
+        seen = qt >= j if causal else torch.ones_like(qt, dtype=torch.bool)
+        edge = (causal & (qt == j)) | (tile * (j + 1) > s)
+        excess = torch.where(seen & ~edge, tmax - m, -math.inf)
+        redos += int(any_in_warp(excess > lazy_log2 + margin).sum())
+        redo = any_in_warp(excess > lazy_log2).repeat_interleave(warp, -1)
+        exact = (seen & edge) | redo[..., :s]
+        m = torch.where(exact, torch.maximum(m, tmax), m)
+    return redos
+
+
+def k2_row_err(got, want):
+    """The largest error of any output row against that row's own size:
+    max |got - want| over the row / the row's root mean square."""
+    want = want.float()
+    diff = (got.float() - want).abs().amax(-1)
+    return float((diff / want.pow(2).mean(-1).sqrt().clamp_min(1e-30)).max())
+
+
 def k2_checks(dev, timer):
     """Phase 11: K2 against its plain version, with times and bounds."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
-    gen = torch.Generator(device=dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for name, shape, dtype, causal in K2_CASES:
+    for seed, (name, shape, dtype, causal, kind) in enumerate(K2_CASES):
         b, s, h, kv, d = shape
-        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
-                   .to(dtype) for n in (h, kv, kv))
-        scale = d ** -0.5
+        q, k, v, scale = k2_inputs(shape, dtype, dev, kind=kind,
+                                   causal=causal, seed=seed)
 
         def kernel():
             return ops.flash_attention(q, k, v, scale=scale, causal=causal)
@@ -569,9 +747,13 @@ def k2_checks(dev, timer):
         launches_before = ops.LAUNCHES["flash_attention"]
         got, want = kernel().float(), plain().float()
         err = float((got - want).abs().max())
-        tol = K2_TOL[dtype]
+        row_err = k2_row_err(got, want)
+        redos = k2_lazy_redos(q, k, scale, causal)
+        tol, row_tol = K2_TOL[dtype], K2_ROW_TOL[dtype]
         row = dict(case=name, shape=shape, dtype=str(dtype)[6:],
-                   causal=causal, err=err, ok=err <= tol)
+                   causal=causal, err=err, row_err=row_err, redos=redos,
+                   ok=(err <= tol and row_err <= row_tol
+                       and (redos > 0 or kind not in ("growth", "scale1"))))
         # Bytes: q, k, v read once and out written once.  Operations: the
         # QK^T and PV products over the (query, key) pairs the mask keeps,
         # 2 x 2 D each, at the peak rate of the inputs' type.
@@ -606,13 +788,17 @@ def k2_checks(dev, timer):
                       f"{row['library_ms_warm'] * 1e3:.1f} us | bound "
                       f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}; "
                       f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)"
-                      f" [L2 cold/warm]; grid {-(-s // 64) * b * h} blocks "
-                      f"of 128 threads; sdpa gap {lib_err:.3e}")
+                      f" [L2 cold/warm]; sdpa gap {lib_err:.3e}")
+        blocks, threads, tiles, tile_rows = fa.grid((b, s, h, d), dtype, sms)
+        timing += (f" | {fa.body(dtype, d)} body: grid {blocks} blocks of "
+                   f"{threads} threads over {tiles} work tiles of "
+                   f"{tile_rows} query rows")
         ops.LAUNCHES["flash_attention"] = launches_before
         rows.append(row)
         print(f"[k2] {name:18s} {'x'.join(map(str, shape)):16s} "
               f"{row['dtype']:8s} {'causal' if causal else 'full':6s} "
-              f"max_abs_err={err:.3e} (tol {tol:g}) "
+              f"scale {scale:.4g} max_abs_err={err:.3e} (tol {tol:g}) "
+              f"row_err={row_err:.3e} (tol {row_tol:g}) lazy redos {redos} "
               f"{'ok' if row['ok'] else 'FAIL'}{timing}")
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"K2 disagrees with its plain version: {bad}")
@@ -901,6 +1087,8 @@ def main() -> int:
               f"{max(spills, default=0)} bytes")
     print(f"[build] {len(logs)} kernel source(s) built with nvcc for sm_90a "
           f"in {build_s:.2f} s")
+    k2_build_report(logs.get("flash_attention"),
+                    ops.lib_path("flash_attention"))
 
     # 3. kernels
     timer = cuda_timer(dev)

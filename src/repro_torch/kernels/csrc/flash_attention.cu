@@ -9,43 +9,72 @@
 //   s_ij = scale * q_i . k_j            (float32; -1e30 where j > i if causal)
 //   out_i = sum_j exp(s_ij - m_i) v_j / max(sum_j exp(s_ij - m_i), 1e-30)
 // with m, l and the output accumulator carried over key tiles by the online
-// softmax, key tiles wholly above the diagonal skipped, and the output cast
-// to q's type.  q is (B, S, H, D), k and v (B, S, KV, D), all float32 or all
-// bfloat16, read through their strides (the D axis contiguous); out is
-// (B, S, H, D) contiguous.  D is 16, 32, 64 or 128.
+// softmax (in the log2 domain), key tiles wholly above the diagonal skipped,
+// and the output cast to q's type.  q is (B, S, H, D), k and v (B, S, KV, D),
+// all float32 or all bfloat16, read through their strides (the D axis
+// contiguous); out is (B, S, H, D) contiguous.  D is 16, 32, 64 or 128.
 //
 // What bounds it on this card.  At the serving shape (qwen2.5-3b prefill:
 // B=8, S=2048, H=16, KV=2, D=128, bf16, causal) it must move 151 MB (q and
-// out 67 MB each, k and v 8.4 MB each: 45 us at 3.35 TB/s) and do 137 GFLOP
-// of causal QK^T and PV products (139 us at 989 TFLOP/s bf16): the tensor
-// cores bound it.  So in bf16 both products run on them, as
-// `mma.sync.m16n8k16` (bf16 in, float32 accumulate): the products of bf16
-// values are exact in float32, so QK^T equals the Pallas body's float32
-// product up to summation order.  P is rounded to bf16 for the PV product,
-// the one rounding the Pallas body does not make (the model's own `_sdpa`
-// makes it); the row sums l are taken from the unrounded P.  The logits tile
-// lives in registers only, as it lives in VMEM only on the TPU.  float32
-// inputs run the same tiling on the CUDA cores (FFMA, no TF32).
+// out 67 MB each, k and v 8.4 MB each: 45 us at 3.35 TB/s) and do 137.5
+// GFLOP of causal QK^T and PV products (139 us at 989 TFLOP/s bf16): the
+// tensor cores bound it, and only `wgmma` reaches their rate.
 //
-// Layout.  One block of four warps per (query tile of 64 rows, batch, head),
-// the heaviest causal tiles first.  Each warp owns 16 query rows; in bf16
-// their Q fragments stay in registers for the whole block.  K and V tiles of
-// 64 rows are double-buffered in shared memory: `cp.async` copies the next
-// tile (16 bytes a thread, rows padded by 16 bytes so that fragment loads
-// meet no bank conflict, rows past S zero-filled) while the warps multiply
-// this one.  Each warp computes its 16 x 64 logits tile (K's B fragments
-// through `ldmatrix`), masks only on the diagonal or a ragged last tile,
-// updates m, l and the accumulator, and multiplies P by V (V's B fragments
-// through `ldmatrix.trans`).  The accumulator of a thread holds the mma
-// C-fragment layout (rows g and g + 8 of its warp, columns 2t and 2t + 1 of
-// every 8-wide tile, g = lane / 4, t = lane % 4) in both types, so the
-// softmax code is shared.  In bf16 at D = 128 a block takes 68 KB of shared
-// memory and is held to 168 registers a thread (a few bytes spill), so that
-// three blocks (12 warps) share an SM.  Against the first version of this kernel (single
-// buffer, K fragments by 32-bit loads, every tile masked: 979 us at the
-// serving shape) this one takes 612 us (H100 SXM at 700 W; PERF.md).  No
-// TMA, no wgmma, no warp specialisation: those come in a later version.
+// Two bodies, chosen at compile time by dtype x D (`pick_d`):
+//
+// * bf16 at D = 64 or 128: the Hopper body (`hopper::`).  A persistent grid
+//   of one block an SM (its 193 KB of shared memory admit no second) walks
+//   the work tiles, one per (128-row query tile, batch, head), heaviest
+//   causal tiles first, in a snake order that evens out each block's load.
+//   A block is two warpgroups of 64 query rows.  Q, K and V arrive by TMA
+//   (`cp.async.bulk.tensor`, 4-D tensor maps over (D, S, heads, B) with the
+//   tensors' own byte strides, 128-byte swizzle, rows past S zero-filled)
+//   into a 2-stage ring of 128-key K and V tiles that runs on across work
+//   tiles, each copy completing on its stage's "full" mbarrier.  No warp
+//   waits to refill a stage: each warp counts itself out of a K, V or Q tile
+//   once its products have read it, and the last of the eight issues the
+//   next copy (so the next work tile's Q and first K/V tiles load while this
+//   one finishes).  Per key tile a warpgroup issues QK^T as `wgmma
+//   m64n128k16` (Q from registers, read once per work tile with `ldmatrix`;
+//   K from shared memory, K-major) together with the previous tile's PV,
+//   runs the online softmax on the accumulator layout (rows 16 warp +
+//   lane / 4 and + 8, columns 2t, 2t + 1 of every 8-wide chunk) while PV is
+//   on the tensor cores, masking only on the diagonal or a ragged last tile.
+//   Where nothing is masked the softmax is lazy: P is taken against the
+//   running max as it stands, so the exponentials need not wait for the
+//   tile's max, which only says whether a row grew past it by more than
+//   2^8; a warp where one did recomputes its 16 rows of logits with
+//   `mma.sync` and takes the exact softmax (the result does not depend on
+//   the reference max).  P is rounded to bf16 in place into the A fragments
+//   of the next PV
+//   (`wgmma m64nDk16`, V read [key][d] as an MN-major B through the
+//   instruction's transpose-B).  The row sums l are taken from the
+//   unrounded P.  The two warpgroups take turns to issue (named barriers),
+//   so that one's softmax runs while the other's products hold the tensor
+//   cores.  The output is divided by l, rounded to bf16 into a swizzled
+//   staging tile and written by a TMA store that skips rows past S.
+//   Products of bf16 values are exact in float32, so QK^T equals the Pallas
+//   body's float32 product up to summation order; P's rounding is the one
+//   the Pallas body does not make (the model's own `_sdpa` makes it).
+//   There is no producer warp: with one, the block has 9 or 12 warps, three
+//   of them on one SM sub-partition, and ptxas (CUDA 12.9) then allocates the
+//   whole kernel within 168 registers whatever `setmaxnreg` asks; the
+//   consumers need over 200, and at 168 they spill and their `wgmma`s
+//   serialise.
+// * float32 (any D) and bf16 at D = 16 or 32: the first body (`simt::`), no
+//   TMA, no wgmma.  One block of four warps per 64-row query tile; each warp
+//   owns 16 rows; K and V tiles of 64 rows are double-buffered with
+//   `cp.async` (rows padded by 16 bytes, rows past S zero-filled); bf16 runs
+//   `mma.sync.m16n8k16` (K's and V's B fragments through `ldmatrix`), float32
+//   FFMA (no TF32) on the same C-fragment layout.  No main path runs it at
+//   full width.
+//
+// Measured at the serving shape by chip_smoke.py (NVIDIA H100 80GB HBM3,
+// 700.00 W, L2 cold): the first body took 607.8-617.2 us (22.7 % of the
+// bound); the Hopper body's time, beside F.scaled_dot_product_attention's
+// in the same run, is in PERF.md.
 
+#include <cuda.h>   // CUtensorMap and the driver API types only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,12 +83,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;               // query rows per block
-constexpr int kBK = 64;               // keys per staged tile (== kBQ)
-constexpr int kWarps = 4;             // 16 query rows each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kNT = kBK / 8;          // 8-key column tiles per logits tile
-constexpr int kPStride = kBK + 4;     // floats per row of P (float32 path)
 constexpr float kMasked = -1e30f;     // the Pallas body's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -67,6 +90,57 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {
   long long b, s, h;
 };
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c[0..3] += a * b for one m16n8k16 tile: bf16 inputs, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int B, S, H, KV;
+  Strides sq, sk, sv;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// ---------------------------------------------------------------------------
+// The first body: cp.async staging, mma.sync (bf16) or FFMA (float32).
+// ---------------------------------------------------------------------------
+namespace simt {
+
+constexpr int kBQ = 64;               // query rows per block
+constexpr int kBK = 64;               // keys per staged tile (== kBQ)
+constexpr int kWarps = 4;             // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kNT = kBK / 8;          // 8-key column tiles per logits tile
+constexpr int kPStride = kBK + 4;     // floats per row of P (float32 path)
 
 // Shared memory: K and V tiles twice (the next tile's copies run while
 // this tile is multiplied) and the Q tile; in bf16 Q is read into registers
@@ -120,21 +194,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one m16n8k16 tile: bf16 inputs, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four 8x8 bf16 matrices from shared memory (lanes 8i..8i+7 address the
 // rows of matrix i), as mma fragments; `_trans` delivers each transposed.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -153,18 +212,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
-                                                      float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 // Blocks an SM should hold: bf16 is held to 168 registers a thread for three;
@@ -412,18 +459,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  int B, S, H, KV;
-  Strides sq, sk, sv;
-  float scale;
-  int causal;
-  cudaStream_t stream;
-};
-
 template <typename T, int D>
 cudaError_t run(const Args& a) {
   auto kern = flash_attention_kernel<T, D>;
@@ -446,24 +481,866 @@ cudaError_t run(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t pick_d(const Args& a, int d) {
-  switch (d) {
-    case 16: return run<T, 16>(a);
-    case 32: return run<T, 32>(a);
-    case 64: return run<T, 64>(a);
-    case 128: return run<T, 128>(a);
-    default: return cudaErrorInvalidValue;
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// The Hopper body: TMA copies, wgmma products, two ping-ponged warpgroups.
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int kBQ = 128;              // query rows per block
+constexpr int kBK = 128;              // keys per staged tile (== kBQ)
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kPanelBytes = 128 * 128;   // one TMA box: 128 rows x 64 bf16
+constexpr int kThreads = 256;         // two warpgroups of 64 query rows
+constexpr int kWarps = kThreads / 32;  // count themselves out of a stage
+constexpr unsigned long long kWaitLimitNs = 10000000000ull;   // 10 s
+
+// Shared memory, from a 1024-byte aligned base (the 128B swizzle's period):
+// Q, then per stage K and V, each tile D / 64 swizzled panels of 128 rows;
+// the output's staging tile (per warpgroup D / 64 panels of 64 rows); then
+// the mbarriers (Q full, and per stage K full and V full: the TMA copies
+// complete on them) and the release counts (per stage of K, per stage of V,
+// and of Q: each warp adds one once its products have read the tile).
+template <int D>
+struct Smem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTile = kPanels * kPanelBytes;
+  static constexpr int kK0 = kTile;                       // stage s: K at
+  static constexpr int kO = kTile * (1 + 2 * kStages);    // kK0 + 2 s kTile
+  static constexpr int kBar = kO + kTile;
+  static constexpr int kCount = kBar + 8 * (1 + 2 * kStages);
+  static constexpr size_t kBytes = kCount + 4 * (2 * kStages + 1) + 1024;
+};
+
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t q_full() const { return base; }
+  __device__ uint32_t k_full(int s) const { return base + 8 * (1 + s); }
+  __device__ uint32_t v_full(int s) const { return base + 8 * (1 + kStages + s); }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait that
+// outlasts kWaitLimitNs traps (the launch then fails) rather than hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const unsigned long long t0 = globaltimer();
+  while (!mbar_try(bar, parity)) {
+    if (globaltimer() - t0 > kWaitLimitNs) __trap();
   }
+}
+
+// One TMA box (64 columns x 128 rows of one head) into shared memory,
+// completing on `bar`; coordinates are (column, row, head, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int c0, int c1, int c2,
+                                        int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One TMA box (64 columns x 64 rows of one head) from shared memory to the
+// output; rows past S are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's stores have read their shared memory (`read`), or are done.
+template <bool read>
+__device__ __forceinline__ void store_wait() {
+  if constexpr (read) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// wgmma shared-memory descriptors for 128B-swizzled panels (layout type 1
+// in bits 62-63): 8-row core groups 1024 bytes apart (SBO).  K-major (Q and
+// K: one instruction's 16 columns lie inside a 128-byte row, LBO unused);
+// MN-major (V as the transposed B of PV: the next 64 columns of D lie one
+// panel further, LBO = kPanelBytes).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of these registers across the
+// asynchronous products that read or write them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// The products, d (+)= a * b for one k16 slice: the accumulator of a
+// warpgroup's 64 x N tile in the mma C-fragment layout per warp, A from
+// registers (the m16n8k16 A-fragment layout per warp), B from shared
+// memory, K-major (QK^T: K) or, with transpose-B, MN-major (PV: V).
+
+#define D64 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define D128 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" D128 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" D64 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// 2^x on the special function unit (inputs at or below -126 give 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax over one logits tile, in place: sc[4 n + e] (row
+// row[e / 2], key k0 + 8 n + 2 t + e % 2) becomes the unrounded P; m and l
+// are updated, and corr is the factor that rescales the output's rows.  In
+// the log2 domain, p = 2^(s scale log2 e - m).  Only the diagonal tile and a
+// ragged last tile hold masked entries (`edge`): there the logits are scaled
+// and then masked to -1e30, as in the Pallas body; elsewhere the scaling is
+// folded into one FFMA (the max commutes with it when scale2 > 0).  Each
+// row's max and sum run as four independent chains (chunks n % 4), so that
+// their latency does not serialise the tile.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float scale2, bool edge, int k0,
+                                             const int (&row)[2], int t, int S,
+                                             int causal) {
+  constexpr float kLowest = -3.402823466e38f;   // below every logit
+  const bool fold = !edge && scale2 > 0.0f;
+  float pm[2][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pm[0][q] = pm[1][q] = kLowest;
+  if (fold) {
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pm[e >> 1][n & 3] = fmaxf(pm[e >> 1][n & 3], sc[4 * n + e]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * n + e] * scale2;
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        if (key >= S || (causal && key > row[e >> 1])) x = kMasked;
+        sc[4 * n + e] = x;
+        pm[e >> 1][n & 3] = fmaxf(pm[e >> 1][n & 3], x);
+      }
+    }
+  }
+  float mx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(fmaxf(pm[r][0], pm[r][1]), fmaxf(pm[r][2], pm[r][3]));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fmaxf(m[r], fold ? mx[r] * scale2 : mx[r]);
+    corr[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+  float ps[2][4] = {};
+  if (fold) {
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], scale2, -m[e >> 1]));
+        ps[e >> 1][n & 3] += sc[4 * n + e];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * n + e] = ex2(sc[4 * n + e] - m[e >> 1]);
+        ps[e >> 1][n & 3] += sc[4 * n + e];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * corr[r] + ((ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]));
+}
+
+// The lazy softmax of a tile without masked entries (scale2 > 0): P is
+// taken against the running max m as it stands, so the exponentials need
+// not wait for the tile's max, and the max only says whether any row grew
+// past m by more than kLazyLog2 (P up to 2^8, far inside float32 and
+// bf16's range).  Returns that; on false sc holds no usable P and the tile
+// must be redone exactly.  lsum gets this thread's share of the row sums.
+// The softmax is the same whatever reference max a row uses; only P's
+// rounding differs, as between any two tilings.
+constexpr float kLazyLog2 = 8.0f;
+
+__device__ __forceinline__ bool softmax_lazy(float (&sc)[kBK / 2],
+                                             const float (&m)[2],
+                                             float (&lsum)[2], float scale2) {
+  constexpr float kLowest = -3.402823466e38f;   // below every logit
+  float pm[2][4], ps[2][4] = {};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pm[0][q] = pm[1][q] = kLowest;
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pm[e >> 1][n & 3] = fmaxf(pm[e >> 1][n & 3], sc[4 * n + e]);
+      sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], scale2, -m[e >> 1]));
+      ps[e >> 1][n & 3] += sc[4 * n + e];
+    }
+  }
+  bool grew = false;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mx = fmaxf(fmaxf(pm[r][0], pm[r][1]), fmaxf(pm[r][2], pm[r][3]));
+    grew |= mx * scale2 > m[r] + kLazyLog2;
+    lsum[r] = (ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]);
+  }
+  return grew;
+}
+
+// P (bf16) as PV's A fragments, 16 keys per k slice: chunks 2 kk and
+// 2 kk + 1, rows g and g + 8.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBK / 16][4],
+                                       const float (&sc)[kBK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory as mma fragments (lanes
+// 8i..8i+7 address the rows of matrix i).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The 16-byte chunk `chunk` of row r of a 128B-swizzled panel.
+__device__ __forceinline__ uint32_t swizzled(uint32_t panel, int r, int chunk) {
+  return panel + r * 128 + ((chunk ^ (r % 8)) * 16);
+}
+
+// This warp's 16 rows of Q as A fragments, read once per work tile from the
+// 128B-swizzled Q panels (matrix i = rows 0-7 / 8-15 x columns 0-7 / 8-15
+// of each k16 slice).
+template <int D>
+__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[D / 16][4],
+                                                 uint32_t qaddr, int warp,
+                                                 int lane) {
+  const int r = 16 * warp + lane % 8 + 8 * ((lane / 8) % 2);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldsm_x4(qf[kk], swizzled(qaddr + (kk / 4) * kPanelBytes, r,
+                             2 * (kk % 4) + lane / 16));
+  }
+}
+
+// S = Q K^T for this warpgroup's 64 rows (issued, not waited on).
+template <int D>
+__device__ __forceinline__ void qk_product(float (&sc)[kBK / 2],
+                                              const uint32_t (&qf)[D / 16][4],
+                                              uint32_t kaddr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_rs_n128<0>(sc, qf[kk], desc_sw128(kaddr + off, 16), kk > 0);
+  }
+}
+
+// S = Q K^T again for this warp's 16 rows alone, with `mma.sync` (the
+// lazy softmax's rare exact path; no warpgroup-wide instruction).  Q's A
+// fragments serve as they are; K's B fragments come by `ldmatrix` (matrix
+// i = keys 0-7 / 8-15 of 16 x columns 0-7 / 8-15 of a k16 slice).
+template <int D>
+__device__ __forceinline__ void qk_warp(float (&sc)[kBK / 2],
+                                        const uint32_t (&qf)[D / 16][4],
+                                        uint32_t kaddr, int lane) {
+  const int mi = lane / 8;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.0f;
+#pragma unroll
+  for (int np = 0; np < kBK / 16; ++np) {
+    const int key = 16 * np + (mi >> 1) * 8 + lane % 8;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bf[4];
+      ldsm_x4(bf, swizzled(kaddr + (kk / 4) * kPanelBytes, key,
+                           2 * (kk % 4) + (mi & 1)));
+      mma_bf16(&sc[8 * np], qf[kk], bf[0], bf[1]);
+      mma_bf16(&sc[8 * np + 4], qf[kk], bf[2], bf[3]);
+    }
+  }
+}
+
+// O += P V (issued, not waited on).
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&pa)[kBK / 16][4],
+                                           uint32_t vaddr) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t db = desc_sw128(vaddr + kk * 16 * 128, kPanelBytes);
+    if constexpr (D == 128) {
+      wgmma_rs_n128<1>(o, pa[kk], db, 1);
+    } else {
+      wgmma_rs_n64(o, pa[kk], db, 1);
+    }
+  }
+}
+
+// Ping-pong between the two warpgroups: a warpgroup issues its products
+// only on its turn (named barrier 1 + c, completed by its own 128 threads
+// and the other warpgroup's arrival), and hands the turn over once they are
+// issued, so that one warpgroup's softmax runs while the other's products
+// hold the tensor cores.
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - c) : "memory");
+}
+
+// The 128 threads of warpgroup c (named barrier 3 + c).
+__device__ __forceinline__ void group_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(3 + c) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+// A warp counts itself out of a stage once all its products have read the
+// tile; the last of the kWarps refills the stage (`refill` issues the TMA
+// copy of the tile that goes there next, if there is one).  No warp waits
+// for another to release a stage.
+template <class Refill>
+__device__ __forceinline__ void release(uint32_t* count, int lane,
+                                        Refill refill) {
+  __syncwarp();
+  if (lane == 0) {
+    __threadfence_block();
+    if (atomicAdd(count, 1u) % kWarps == kWarps - 1) refill();
+  }
+  __syncwarp();
+}
+
+// The work: one tile per (128-row query tile, batch, head), heaviest causal
+// tiles first.  Block k of the G persistent blocks takes, in round r, tile
+// r G + k in even rounds and r G + G - 1 - k in odd ones (a snake, so that
+// each block's heavy and light causal tiles even out).
+struct Tile {
+  int w, qt, nkb, b, h, kvh;   // w >= the tile count: no tile
+};
+
+struct Work {
+  int B, H, KV, nqb, tiles, causal;
+  __device__ int index(int r) const {
+    const int G = gridDim.x;
+    return r * G + ((r & 1) ? G - 1 - static_cast<int>(blockIdx.x)
+                            : static_cast<int>(blockIdx.x));
+  }
+  __device__ Tile tile(int r) const {
+    Tile t;
+    t.w = index(r);
+    t.qt = nqb - 1 - t.w / (B * H);
+    t.nkb = causal ? t.qt + 1 : nqb;
+    t.b = t.w % (B * H) / H;
+    t.h = t.w % H;
+    t.kvh = t.h / (H / KV);
+    return t;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, int B, int S,
+                       int H, int KV, float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int kDT = D / 8;            // 8-wide chunks of the output
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const Bars bars{base + L::kBar};
+  uint32_t* count = reinterpret_cast<uint32_t*>(
+      smem_raw + (base - smem_addr(smem_raw)) + L::kCount);
+  const int nqb = (S + kBQ - 1) / kBQ;
+  const Work wk{B, H, KV, nqb, nqb * B * H, causal};
+
+  // The block's key tiles form one sequence over its work tiles: key tile g
+  // goes to stage g % kStages and completes its full barrier's phase
+  // g / kStages.  `load_kv` copies key tile g, counting from g0, the first
+  // key tile of work tile `cur` (round rnd), whose successor is `nxt`: with
+  // two stages g - g0 is at most cur.nkb + 1, so g lies in `cur`, in `nxt`,
+  // or (after a one-tile `nxt`) in the work tile after it.
+  auto k_addr = [&](int s) { return base + L::kK0 + 2 * s * L::kTile; };
+  auto load_kv = [&](bool is_v, const Tile& cur, const Tile& nxt, int rnd,
+                     int g0, int g) {
+    int j = g - g0, b = cur.b, kvh = cur.kvh;
+    if (j >= cur.nkb) {
+      j -= cur.nkb;
+      b = nxt.b;
+      kvh = nxt.kvh;
+      if (nxt.w < wk.tiles && j >= nxt.nkb) {
+        const Tile after = wk.tile(rnd + 2);
+        j -= nxt.nkb;
+        b = after.b;
+        kvh = after.kvh;
+        if (after.w >= wk.tiles) return;
+      } else if (nxt.w >= wk.tiles) {
+        return;
+      }
+    }
+    const int s = g % kStages;
+    const uint32_t bar = is_v ? bars.v_full(s) : bars.k_full(s);
+    const uint32_t dst = k_addr(s) + (is_v ? L::kTile : 0);
+    mbar_expect_tx(bar, L::kTile);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_load(dst + p * kPanelBytes, is_v ? &tv : &tk, bar, 64 * p, j * kBK,
+               kvh, b);
+  };
+  auto load_q = [&](const Tile& t) {
+    mbar_expect_tx(bars.q_full(), L::kTile);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_load(base + p * kPanelBytes, &tq, bars.q_full(), 64 * p,
+               t.qt * kBQ, t.h, t.b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars.q_full(), 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars.k_full(s), 1);
+      mbar_init(bars.v_full(s), 1);
+    }
+    for (int i = 0; i < 2 * kStages + 1; ++i) count[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const Tile first = wk.tile(0), second = wk.tile(1);
+    load_q(first);
+    for (int g = 0; g < kStages; ++g) {
+      load_kv(false, first, second, 0, 0, g);
+      load_kv(true, first, second, 0, 0, g);
+    }
+  }
+  __syncthreads();
+
+  // Two warpgroups of 64 query rows.  Key tile g's QK^T is issued together
+  // with tile g - 1's PV, and its softmax runs while PV is on the tensor
+  // cores.  Each warpgroup issues products key_tiles + 1 times a work tile,
+  // warpgroup 0 first: warpgroup 1 passes the first turn here, and
+  // warpgroup 0 takes the last one it passes at the end.
+  const int c = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int rl = 16 * ((threadIdx.x / 32) % 4) + lane / 4;   // row of 64
+  const bool leader = threadIdx.x % 128 == 0;
+  const uint32_t qaddr = base + c * 64 * 128;   // this warpgroup's Q rows
+  const uint32_t oaddr = base + L::kO + c * L::kPanels * 64 * 128;
+  const float scale2 = scale * kLog2e;   // exp(x) = exp2(x log2 e)
+  float o[D / 2];
+  float sc[kBK / 2];
+  uint32_t pa[kBK / 16][4];
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.0f;
+  if (c == 1) turn_pass(c);
+
+  int g0 = 0;   // the block's first key tile of work tile `cur`
+  Tile cur = wk.tile(0);
+  for (int rnd = 0; cur.w < wk.tiles; ++rnd) {
+    const Tile nxt = wk.tile(rnd + 1);
+    const int qt = cur.qt;
+    const int q0 = qt * kBQ;
+    const int nkb = cur.nkb;
+    const int row[2] = {q0 + 64 * c + rl, q0 + 64 * c + rl + 8};
+    auto edge = [&](int j) {
+      return (causal && j == qt) || (j + 1) * kBK > S;
+    };
+    auto k_ready = [&](int g) {
+      mbar_wait(bars.k_full(g % kStages), (g / kStages) & 1);
+    };
+    auto v_ready = [&](int g) {
+      mbar_wait(bars.v_full(g % kStages), (g / kStages) & 1);
+    };
+    auto release_k = [&](int g) {
+      release(&count[g % kStages], lane,
+              [&] { load_kv(false, cur, nxt, rnd, g0, g + kStages); });
+    };
+    auto release_v = [&](int g) {
+      release(&count[kStages + g % kStages], lane,
+              [&] { load_kv(true, cur, nxt, rnd, g0, g + kStages); });
+    };
+    auto release_q = [&] {
+      release(&count[2 * kStages], lane, [&] {
+        if (nxt.w < wk.tiles) load_q(nxt);
+      });
+    };
+
+    float m[2] = {kMasked, kMasked};   // running max, log2 domain
+    float l[2] = {0.0f, 0.0f};         // this thread's share of the row sums
+    float corr[2];
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) o[k] = 0.0f;
+
+    mbar_wait(bars.q_full(), rnd & 1);
+    uint32_t qf[D / 16][4];
+    load_q_fragments<D>(qf, qaddr, (threadIdx.x / 32) % 4, lane);
+    release_q();
+    k_ready(g0);
+    reg_fence(sc);
+    turn_wait(c);
+    wgmma_fence();
+    qk_product<D>(sc, qf, k_addr(g0 % kStages));
+    wgmma_commit();
+    turn_pass(c);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    release_k(g0);
+    softmax_tile(sc, m, l, corr, scale2, edge(0), 0, row, t, S, causal);
+    pack_p(pa, sc);
+
+    for (int j = 1; j < nkb; ++j) {
+      const int g = g0 + j;
+      k_ready(g);
+      v_ready(g - 1);
+      reg_fence(sc);
+      reg_fence(o);
+      turn_wait(c);
+      wgmma_fence();
+      qk_product<D>(sc, qf, k_addr(g % kStages));
+      wgmma_commit();
+      pv_product<D>(o, pa, k_addr((g - 1) % kStages) + L::kTile);
+      wgmma_commit();
+      turn_pass(c);
+      wgmma_wait<1>();                  // QK^T of key tile g is done
+      reg_fence(sc);
+      // The lazy softmax where no entry is masked; in a warp where a row
+      // grew too far the tile is redone exactly once PV is done (its QK^T
+      // again, K still held).  Masked tiles take the exact softmax at once.
+      const bool lazy = !edge(j) && scale2 > 0.0f;
+      bool redo = false;
+      float lsum[2];
+      if (lazy) {
+        redo = __any_sync(0xffffffffu, softmax_lazy(sc, m, lsum, scale2));
+      } else {
+        softmax_tile(sc, m, l, corr, scale2, true, j * kBK, row, t, S,
+                     causal);
+      }
+      wgmma_wait<0>();                  // PV of key tile g - 1 is done
+      reg_fence(o);
+      release_v(g - 1);
+      if (redo) {
+        qk_warp<D>(sc, qf, k_addr(g % kStages), lane);
+        softmax_tile(sc, m, l, corr, scale2, false, j * kBK, row, t, S,
+                     causal);
+      }
+      release_k(g);
+      if (lazy && !redo) {
+        l[0] += lsum[0];
+        l[1] += lsum[1];
+      } else {
+#pragma unroll
+        for (int k = 0; k < D / 2; ++k) o[k] *= corr[(k >> 1) & 1];
+      }
+      pack_p(pa, sc);
+    }
+    const int gl = g0 + nkb - 1;
+    v_ready(gl);
+    reg_fence(o);
+    turn_wait(c);
+    wgmma_fence();
+    pv_product<D>(o, pa, k_addr(gl % kStages) + L::kTile);
+    wgmma_commit();
+    turn_pass(c);
+    wgmma_wait<0>();
+    reg_fence(o);
+    release_v(gl);
+
+    // Epilogue: divide by the row sums (split over the four threads of a
+    // row group; a multiply by the float32 reciprocal, one rounding far
+    // below bf16's), round to bf16 into the staging tile (128B-swizzled, as
+    // the store's tensor map reads it) and store it with TMA, which skips
+    // rows past S.  The previous work tile's store must have read the
+    // staging tile first.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+    }
+    if (leader) store_wait<true>();
+    group_sync(c);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = rl + 8 * r;
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) {
+        const uint32_t addr = oaddr + (n / 8) * 64 * 128 + rr * 128 +
+                              (((n % 8) ^ (rr % 8)) * 16) + 4 * t;
+        st_shared(addr, pack_bf16(o[4 * n + 2 * r] * l[r],
+                                  o[4 * n + 2 * r + 1] * l[r]));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(c);
+    if (leader) {
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_store(&to, oaddr + p * 64 * 128, 64 * p, q0 + 64 * c, cur.h,
+                  cur.b);
+      store_commit();
+    }
+    g0 += nkb;
+    cur = nxt;
+  }
+  if (c == 0) turn_wait(c);
+  if (leader) store_wait<false>();
+}
+
+}  // namespace hopper
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+// A return value at or above this is kEncodeFailed + the CUresult of
+// cuTensorMapEncodeTiled (kEncodeFailed + 999 if the driver does not offer
+// the function).
+constexpr int kEncodeFailed = 100000;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found in the driver at run time, so that the
+// library links no -lcuda; null if the driver does not offer it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of one bf16 (B, S, heads, D) tensor: 4-D over (D, S, heads,
+// B) with the tensor's own byte strides (so head slices of a fused QKV
+// tensor work); a box is 64 columns x 128 rows of one head, 128B-swizzled,
+// and rows past S read as zero.
+int encode_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+               int B, const Strides& st, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeFailed + 999;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+template <int D>
+int run_hopper(const Args& a) {
+  // q, k and v are read in boxes of 128 rows; out is written in boxes of
+  // 64 rows (one warpgroup's), contiguous (B, S, H, D).
+  const Strides so{static_cast<long long>(a.S) * a.H * D,
+                   static_cast<long long>(a.H) * D, D};
+  CUtensorMap tq, tk, tv, to;
+  int err = encode_map(&tq, a.q, D, a.S, a.H, a.B, a.sq, hopper::kBQ);
+  if (err == 0) err = encode_map(&tk, a.k, D, a.S, a.KV, a.B, a.sk, hopper::kBK);
+  if (err == 0) err = encode_map(&tv, a.v, D, a.S, a.KV, a.B, a.sv, hopper::kBK);
+  if (err == 0) err = encode_map(&to, a.out, D, a.S, a.H, a.B, so, 64);
+  if (err != 0) return err;
+  auto kern = hopper::flash_attention_kernel<D>;
+  constexpr size_t smem = hopper::Smem<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return e;
+  }
+  // A persistent grid: one block an SM (shared memory admits no more), each
+  // walking the work tiles.
+  const long long tiles =
+      static_cast<long long>((a.S + hopper::kBQ - 1) / hopper::kBQ) * a.B * a.H;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  kern<<<blocks, hopper::kThreads, smem, a.stream>>>(
+      tq, tk, tv, to, a.B, a.S, a.H, a.KV, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// The body by dtype x D: bf16 at D = 64 or 128 runs the Hopper body; every
+// other case the first body.
+template <typename T>
+int pick_d(const Args& a, int d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (d) {
+      case 16: return simt::run<T, 16>(a);
+      case 32: return simt::run<T, 32>(a);
+      case 64: return run_hopper<64>(a);
+      case 128: return run_hopper<128>(a);
+    }
+  } else {
+    switch (d) {
+      case 16: return simt::run<T, 16>(a);
+      case 32: return simt::run<T, 32>(a);
+      case 64: return simt::run<T, 64>(a);
+      case 128: return simt::run<T, 128>(a);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Dynamic shared memory, in bytes, that a launch for this dtype code and D
+// takes (0 for a D the kernel does not take).
+extern "C" int flash_attention_smem_bytes(int dtype, int D) {
+  if (dtype) {
+    switch (D) {
+      case 16: return static_cast<int>(simt::Layout<__nv_bfloat16, 16>::kBytes);
+      case 32: return static_cast<int>(simt::Layout<__nv_bfloat16, 32>::kBytes);
+      case 64: return static_cast<int>(hopper::Smem<64>::kBytes);
+      case 128: return static_cast<int>(hopper::Smem<128>::kBytes);
+    }
+  } else {
+    switch (D) {
+      case 16: return static_cast<int>(simt::Layout<float, 16>::kBytes);
+      case 32: return static_cast<int>(simt::Layout<float, 32>::kBytes);
+      case 64: return static_cast<int>(simt::Layout<float, 64>::kBytes);
+      case 128: return static_cast<int>(simt::Layout<float, 128>::kBytes);
+    }
+  }
+  return 0;
+}
+
 // dtype code of q / k / v / out: 0 = float32, 1 = bfloat16.  D must be 16,
 // 32, 64 or 128 and H a multiple of KV.  Strides are in elements, for the B,
 // S and head axes of q, k and v in that order (the D axis is contiguous,
-// each row 16-byte aligned).  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it neither allocates nor synchronises.
+// each row 16-byte aligned; in bf16 at D = 64 or 128 the byte strides are
+// TMA's: multiples of 16 below 2^40).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or kEncodeFailed + a CUresult if a
+// tensor map cannot be built; it neither allocates nor synchronises.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int D,
@@ -475,7 +1352,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                Strides{strides[3], strides[4], strides[5]},
                Strides{strides[6], strides[7], strides[8]},
                scale, causal, static_cast<cudaStream_t>(stream)};
-  const cudaError_t err =
-      dtype ? pick_d<__nv_bfloat16>(a, D) : pick_d<float>(a, D);
-  return static_cast<int>(err);
+  return dtype ? pick_d<__nv_bfloat16>(a, D) : pick_d<float>(a, D);
 }

@@ -50,7 +50,7 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
@@ -66,7 +66,7 @@ def build_all(names=None) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        target = _lib_path(name)
+        target = lib_path(name)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -92,7 +92,7 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = _BINDERS[name](ctypes.CDLL(str(_lib_path(name))))
+        lib = _BINDERS[name](ctypes.CDLL(str(lib_path(name))))
         _LIBS[name] = lib
     return lib
 
@@ -172,7 +172,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, S, H, D); k, v: (B, S, KV, D) with H a multiple of KV, one dtype
     (float32 or bfloat16).  Query head h reads kv head h // (H // KV).
-    Returns (B, S, H, D) in q's dtype.
+    Returns (B, S, H, D) in q's dtype.  On the card each tensor's last axis
+    must be contiguous and its rows start on 16 bytes; in bfloat16 at
+    D = 64 or 128 (read by TMA) the byte strides of the B, S and head axes
+    must also be nonzero, so a broadcast (stride-0) k or v is refused.
 
     ``device`` (default: the CUDA card) is where the call runs; every input
     must already lie there.

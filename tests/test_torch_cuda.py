@@ -13,12 +13,17 @@ bfloat16 one bfloat16 ulp plus that 1e-5, since both sides round float32
 sums that may differ by it (where a sum cancels to near zero, 1e-5 is
 many ulps of the result).  K3's are stated above its tests.
 """
+import sys
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (K2's inputs, redo count and row error)
 from _torch_parity import bf16_ulps  # noqa: E402
 from repro_torch.kernels import flash_attention, ops, ref, rwkv6_scan  # noqa: E402,E501
 from repro_torch.models import layers, ssm  # noqa: E402
@@ -222,11 +227,38 @@ def test_rwkv6_seq_auto_runs_the_kernel_on_the_card(cuda_device):
 # logits and softmax), both on the card.  Tolerances as the reference's
 # kernel tests hold Pallas to its oracle: 2e-5 absolute in float32 (sums in
 # another order), 3e-2 absolute in bfloat16 (the kernel rounds P to bfloat16
-# for the PV product, and both round the output).
+# for the PV product, and both round the output); and, tighter in late
+# causal rows, each row's error against that row's root mean square
+# (chip_smoke.K2_ROW_TOL, set from the card's readings in PERF.md).
 # ---------------------------------------------------------------------------
+# bf16 at D = 64 or 128 runs the Hopper body (TMA, wgmma): the qwen grouping
+# (G = 8) at one, two and three 128-row tiles (200 and 257 ragged: TMA
+# zero-fills K/V rows past S and the store skips output rows past it), and
+# more work tiles than the card has SMs (the persistent walk, with K/V tiles
+# and the next Q loaded across work tiles).
 K2_SHAPES = [(2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16),
-             (1, 200, 4, 1, 128), (2, 33, 2, 2, 64)]
+             (1, 200, 4, 1, 128), (2, 33, 2, 2, 64),
+             (1, 128, 16, 2, 128), (1, 200, 16, 2, 128), (1, 257, 16, 2, 128),
+             (2, 96, 4, 2, 64), (3, 640, 16, 2, 128), (2, 1000, 16, 2, 64)]
 K2_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Inputs whose rows' maxima jump at later key tiles, so that the Hopper
+# body's lazy softmax redoes those tiles exactly (randn inputs at scale
+# D^-0.5 never make it), and a negative scale (no lazy tile at all); see
+# chip_smoke.k2_inputs.
+K2_REDO_CASES = [(shape, kind) for kind in ("growth", "scale1")
+                 for shape in ((1, 700, 16, 2, 128), (2, 520, 8, 2, 64))] + [
+    ((1, 300, 16, 2, 128), "negative"), ((2, 300, 8, 2, 64), "negative")]
+
+
+def _k2_close(got, want, dtype):
+    """K2's limits: absolute, and against each output row's size (late
+    causal rows are small, so a fault there can hide under the absolute
+    limit)."""
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=K2_TOL[dtype], rtol=0)
+    assert (chip_smoke.k2_row_err(got, want)
+            <= chip_smoke.K2_ROW_TOL[getattr(torch, dtype)])
 
 
 def _k2_inputs(dev, shape, dtype=torch.float32, *, seed=0):
@@ -250,9 +282,31 @@ def test_k2_cuda_kernel_matches_plain(cuda_device, shape, dtype, causal):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(),
-                               atol=K2_TOL[dtype], rtol=0)
+    _k2_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape,kind", K2_REDO_CASES,
+                         ids=lambda c: c if isinstance(c, str)
+                         else "x".join(map(str, c)))
+def test_k2_cuda_lazy_softmax_redoes_rows_that_grow(cuda_device, shape, kind,
+                                                    causal):
+    """The Hopper body's exact redo (logits again with `mma.sync`, the
+    exact softmax, the output rescaled) and its negative-scale path, held
+    to the plain version; head slices of a fused tensor give the same bits."""
+    q, k, v, scale = chip_smoke.k2_inputs(shape, torch.bfloat16, cuda_device,
+                                          kind=kind, causal=causal, seed=5)
+    redos = chip_smoke.k2_lazy_redos(q, k, scale, causal)
+    assert (redos > 0) == (kind != "negative")
+    want = ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    got = ops.flash_attention(q, k, v, scale=scale, causal=causal)
+    _k2_close(got, want, "bfloat16")
+    h, kv = shape[2], shape[3]
+    qkv = torch.cat([q, k, v], dim=2)             # (B, S, H + 2 KV, D)
+    assert torch.equal(ops.flash_attention(
+        qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:], scale=scale,
+        causal=causal), got)
 
 
 @pytest.mark.cuda
@@ -271,6 +325,39 @@ def test_k2_cuda_reads_strided_head_slices(cuda_device, dtype):
         want.float().cpu().numpy(),
         ref.flash_attention_ref(q, k, v, scale=0.2).float().cpu().numpy(),
         atol=K2_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_cuda_reads_strided_head_slices_d128(cuda_device, dtype):
+    """As above at the qwen head dim: in bf16 the TMA tensor maps, built
+    from the slices' strides, give the contiguous result bit for bit."""
+    q, k, v = _k2_inputs(cuda_device, (2, 200, 16, 2, 128),
+                         getattr(torch, dtype), seed=4)
+    want = ops.flash_attention(q, k, v, scale=0.09)
+    qkv = torch.cat([q, k, v], dim=2)             # (B, S, H + 2 KV, D)
+    qs, ks, vs = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
+    assert not qs.is_contiguous() and not ks.is_contiguous()
+    assert torch.equal(ops.flash_attention(qs, ks, vs, scale=0.09), want)
+    np.testing.assert_allclose(
+        want.float().cpu().numpy(),
+        ref.flash_attention_ref(q, k, v, scale=0.09).float().cpu().numpy(),
+        atol=K2_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_k2_cuda_refuses_strides_tma_cannot_take(cuda_device):
+    q, k, v = _k2_inputs(cuda_device, (1, 64, 4, 1, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA cannot take"):
+        ops.flash_attention(q, k.expand(1, 64, 2, 64), v.expand(1, 64, 2, 64),
+                            scale=1.0)
+    # The first body reads a broadcast kv head through its zero stride.
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    got = ops.flash_attention(q32, k32.expand(1, 64, 2, 64),
+                              v32.expand(1, 64, 2, 64), scale=0.125)
+    want = ref.flash_attention_ref(q32, k32, v32, scale=0.125)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=K2_TOL["float32"], rtol=0)
 
 
 @pytest.mark.cuda
