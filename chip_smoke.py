@@ -12,7 +12,9 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  for K2 prints each instantiation's registers, shared memory
                  and spills (ptxas -v) and counts its HGMMA (wgmma), UTMALDG
                  and UTMASTG (TMA) instructions in `cuobjdump -sass`: the bf16
-                 D = 128 body must hold all three.
+                 D = 128 body must hold all three; for K3 the same per
+                 instantiation, and the chunked body's HMMA (tensor cores)
+                 and LDGSTS (cp.async) counts: both above 0, no spills.
   3. kernels   — K1 `ra_aggregate` in its four variants (two modes, with and
                  without a transmit mask) x {float32, bfloat16} at three
                  shapes, held to its plain PyTorch version on the same
@@ -27,18 +29,22 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  launch count is set to 0 just before and read just after.
   6. profile   — one R&A round under torch.profiler: device time by kernel.
   7. k3        — K3 `rwkv6_scan` against its plain PyTorch version (the
-                 sequential recurrence), output and final state: at the
-                 serving shape in bfloat16, at two test shapes in float32
-                 and at the decay floor; times the kernel (staging tiles of
-                 32 tokens, as the wrapper stages, and of 16 and 64) and the
-                 plain version with CUDA events, L2 cold and warm, beside
-                 the bound.
+                 sequential recurrence), output and final state, naming the
+                 body each case ran: the chunked body (bf16, D = 64) at the
+                 serving shape, at ragged lengths, on a strided head slice
+                 and with decays at, below and partly below the -60/64
+                 floor; the token body at two test shapes in float32 and at
+                 the floor; times the chunked body, the token body and the
+                 plain version at the serving shape with CUDA events, L2
+                 cold and warm, beside the bytes bound and the token form's
+                 operations bound.
   8. serve     — the second main path: `launch.serve.serve` on rwkv6-1.6b at
                  full width and depth (bfloat16, seed 0; 8 prompts of 2048
                  tokens, 32 generated per row); the kernel's launch count is
                  set to 0 just before and must read 24 (one per layer) just
-                 after.  Then the same prefill through the plain chunked
-                 scan (impl="torch") on the card: with float32 activations
+                 after, all through the chunked body.  Then the same
+                 prefill through the plain chunked scan (impl="torch") on
+                 the card: with float32 activations
                  at full depth and in bfloat16 layer by layer, kernel
                  against plain; and each bfloat16 path against the float32
                  run, where the kernel may be at most 1.1x as far from it
@@ -112,12 +118,25 @@ K1_SHAPES = [
 ]
 F32_TOL = 1e-5      # absolute; float32 sums in another order
 BF16_TOL_ULP = 1.0  # bfloat16 spacing at the result's magnitude, + F32_TOL
-# K3 checks: (name, (B, S, H, D), dtype of r/k/v, constant log decay or None).
+# K3 checks: (name, (B, S, H, D), dtype of r/k/v, w as `k3_inputs` draws
+# it, layout).  bf16 at D = 64 runs the chunked body: the serving shape,
+# ragged last steps (S = 1, 63, 257, 1000), a strided head slice, and
+# decays at the -60/64 floor, below it (-5, -60) and below it in some steps
+# only; the rest runs the token body.
 K3_CASES = [
-    ("serve", (8, 2048, 32, 64), torch.bfloat16, None),
-    ("2x96x3x16", (2, 96, 3, 16), torch.float32, None),
-    ("1x128x4x64", (1, 128, 4, 64), torch.float32, None),
-    ("decay_floor", (1, 128, 4, 64), torch.float32, -60.0 / 64.0),
+    ("serve", (8, 2048, 32, 64), torch.bfloat16, None, "contiguous"),
+    ("2x96x3x16", (2, 96, 3, 16), torch.float32, None, "contiguous"),
+    ("1x128x4x64", (1, 128, 4, 64), torch.float32, None, "contiguous"),
+    ("decay_floor", (1, 128, 4, 64), torch.float32, -60.0 / 64.0,
+     "contiguous"),
+    *((f"ragged_S{s}", (2, s, 4, 64), torch.bfloat16, None, "contiguous")
+      for s in (1, 63, 257, 1000)),
+    ("head_slice", (2, 300, 4, 64), torch.bfloat16, None, "strided"),
+    ("bf16_floor", (2, 256, 4, 64), torch.bfloat16, -60.0 / 64.0,
+     "contiguous"),
+    ("bf16_w-5", (2, 256, 4, 64), torch.bfloat16, -5.0, "contiguous"),
+    ("bf16_w-60", (2, 256, 4, 64), torch.bfloat16, -60.0, "contiguous"),
+    ("bf16_mixed", (2, 512, 4, 64), torch.bfloat16, "mixed", "contiguous"),
 ]
 K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
 # K2 checks: (name, (B, S, H, KV, D), dtype, causal, inputs as `k2_inputs`
@@ -485,93 +504,162 @@ def _bf16_ulps(got, want, atol):
     return float((((got - want).abs() - atol) / ulp).max())
 
 
+def k3_inputs(shape, dtype, dev, w_kind=None, layout="contiguous", seed=1):
+    """r, k, v (0.5 N(0, 1) in ``dtype``), w and u for K3.  ``w_kind``:
+    None draws w = -exp(N(0, 1/4) - 1) (every decay well above the -60/64
+    floor), a number makes w constant, "mixed" draws as None and sets
+    tokens 100-139 of every head to -60 (some steps far below the floor).
+    ``layout`` "strided" hands out head slices of tensors twice as wide."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = ((0.5 * torch.randn(shape, generator=gen, device=dev))
+               .to(dtype) for _ in range(3))
+    if w_kind is None or w_kind == "mixed":
+        w = -torch.exp(0.5 * torch.randn(shape, generator=gen, device=dev)
+                       - 1.0)
+        if w_kind == "mixed":
+            w[:, 100:140] = -60.0
+    else:
+        w = torch.full(shape, float(w_kind), device=dev)
+    u = 0.3 * torch.randn(shape[2:], generator=gen, device=dev)
+    if layout == "strided":
+        r, k, v, w = (torch.cat([t, torch.zeros_like(t)], dim=2)
+                      [:, :, :shape[2]] for t in (r, k, v, w))
+    return r, k, v, w, u
+
+
+def k3_bounds(shape, elem=2):
+    """(bytes, float32 operations of the token form, bf16 tensor operations
+    of the chunked form) for K3 at (B, S, H, D), r/k/v/out of ``elem``
+    bytes, with the final state.  Bytes: r, k, v, w and u read once, out and
+    the state written once.  The token form: y += r s; x = k v;
+    s = s exp(w) + x, 5 operations per (token, d, e), and 4 per (token, d)
+    for the bonus.  The
+    chunked form per token: six 64 x 64 part products for (r P) S, three for
+    (k Q)^T v, three 16 x 64 for A v (multiply-adds, 2 operations each)."""
+    b, s, h, d = shape
+    n = b * s * h
+    bytes_moved = 4 * n * d * elem + n * d * 4 + h * d * 4 + b * h * d * d * 4
+    token_ops = 5 * n * d * d + 4 * n * d
+    chunked_ops = 2 * n * (6 * d * d + 3 * d * d + 3 * 16 * d)
+    return bytes_moved, token_ops, chunked_ops
+
+
 def k3_checks(dev, timer):
     """Phase 7: K3 against its plain version, with times and bounds."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rwkv6_scan as _rwkv
 
-    gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for name, shape, dtype, w_const in K3_CASES:
-        r, k, v = ((0.5 * torch.randn(shape, generator=gen, device=dev))
-                   .to(dtype) for _ in range(3))
-        if w_const is None:
-            w = -torch.exp(0.5 * torch.randn(shape, generator=gen, device=dev)
-                           - 1.0)
-        else:
-            w = torch.full(shape, w_const, device=dev)
-        u = 0.3 * torch.randn(shape[2:], generator=gen, device=dev)
+    for name, shape, dtype, w_kind, layout in K3_CASES:
+        r, k, v, w, u = k3_inputs(shape, dtype, dev, w_kind, layout)
+        body = _rwkv.body(dtype, shape[3])
 
         def kernel():
             return ops.rwkv6_scan(r, k, v, w, u, return_state=True)
 
-        def kernel_tile(tile):   # the launch alone, at another staging tile
-            return lambda: _rwkv.launch(ops.load_library("rwkv6_scan"),
-                                        r, k, v, w, u, tile=tile,
-                                        return_state=True)
+        def token_body():   # the launch alone, through the first body
+            return _rwkv.launch(ops.load_library("rwkv6_scan"), r, k, v, w,
+                                u, tile=_rwkv.TILE, return_state=True,
+                                which="token")
 
         def plain():
             return ref.rwkv6_scan_ref(r, k, v, w, u, return_state=True)
 
         launches_before = ops.LAUNCHES["rwkv6_scan"]
+        bodies_before = dict(_rwkv.BODY_LAUNCHES)
         got, got_state = kernel()
+        ran = [b for b in _rwkv.BODIES
+               if _rwkv.BODY_LAUNCHES[b] > bodies_before[b]]
         want, want_state = plain()
         got, want = got.float(), want.float()
         err = float((got - want).abs().max())
         state_err = float((got_state - want_state).abs().max())
         state_ok = bool(torch.allclose(got_state, want_state, atol=K3_TOL,
                                        rtol=K3_TOL))
-        row = dict(case=name, shape=shape, dtype=str(dtype)[6:], err=err,
-                   state_err=state_err)
+        row = dict(case=name, shape=shape, dtype=str(dtype)[6:], body=body,
+                   err=err, state_err=state_err)
+        ok = state_ok and ran == [body] and bool(torch.isfinite(got).all())
         if dtype == torch.float32:
-            row["ok"] = state_ok and bool(torch.allclose(
+            row["ok"] = ok and bool(torch.allclose(
                 got, want, atol=K3_TOL, rtol=K3_TOL))
             desc = f"max_abs_err={err:.3e} (tol {K3_TOL:g} abs+rel)"
         else:
             row["ulp"] = _bf16_ulps(got, want, K3_TOL)
-            row["ok"] = state_ok and row["ulp"] <= 1.0
+            row["ok"] = ok and row["ulp"] <= 1.0
             desc = (f"max_abs_err={err:.3e} max_ulp={row['ulp']:.2f} (tol 1 "
                     f"ulp + {K3_TOL:g})")
-        b, s, h, d = shape
-        bytes_moved = (4 * r.numel() * r.element_size()   # r, k, v read; out
-                       + w.numel() * 4 + u.numel() * 4    # written once
-                       + b * h * d * d * 4)               # final state
-        # The recurrence: y += r s; x = k v; s = s exp(w) + x: 5 float32
-        # operations per (token, d, e); the bonus dot product and its
-        # product with v: 4 per (token, d).
-        flops = 5 * b * s * h * d * d + 4 * b * s * h * d
+        bytes_moved, token_ops, chunked_ops = k3_bounds(shape,
+                                                        r.element_size())
         t_bytes = bytes_moved / HBM_BYTES_PER_S
-        t_ops = flops / F32_FLOP_PER_S
+        t_token = token_ops / F32_FLOP_PER_S
+        t_chunked = chunked_ops / BF16_FLOP_PER_S
+        t_ops = t_chunked if body == "chunked" else t_token
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["token_bound_ms"] = 1e3 * max(t_bytes, t_token)
         timing = ""
         if name == "serve":
             for tag, cold in (("cold", True), ("warm", False)):
                 row[f"ms_{tag}"] = timer(kernel, cold)
-                for tile in (16, 64):
-                    row[f"ms_tile{tile}_{tag}"] = timer(kernel_tile(tile),
-                                                        cold)
+                row[f"token_ms_{tag}"] = timer(token_body, cold)
                 row[f"plain_ms_{tag}"] = timer(plain, cold, reps=5)
-            timing = (f" | kernel {row['ms_cold'] * 1e3:.1f}/"
-                      f"{row['ms_warm'] * 1e3:.1f} us at tile "
-                      f"{_rwkv.TILE} (tile 16: "
-                      f"{row['ms_tile16_cold'] * 1e3:.1f}/"
-                      f"{row['ms_tile16_warm'] * 1e3:.1f} us, tile 64: "
-                      f"{row['ms_tile64_cold'] * 1e3:.1f}/"
-                      f"{row['ms_tile64_warm'] * 1e3:.1f} us) plain "
-                      f"{row['plain_ms_cold']:.2f}/{row['plain_ms_warm']:.2f}"
-                      f" ms | bound {row['bound_ms'] * 1e3:.1f} us "
-                      f"({row['bound_by']}; {bytes_moved / 1e6:.1f} MB, "
-                      f"{flops / 1e9:.2f} GFLOP) [L2 cold/warm]; grid "
-                      f"{b * h} blocks of {4 * d} threads")
+            timing = (
+                f" | {body} body {row['ms_cold'] * 1e3:.1f}/"
+                f"{row['ms_warm'] * 1e3:.1f} us, token body (tile "
+                f"{_rwkv.TILE}) {row['token_ms_cold'] * 1e3:.1f}/"
+                f"{row['token_ms_warm'] * 1e3:.1f} us, plain "
+                f"{row['plain_ms_cold']:.2f}/{row['plain_ms_warm']:.2f} ms "
+                f"[L2 cold/warm] | bounds: bytes {t_bytes * 1e6:.1f} us "
+                f"({bytes_moved / 1e6:.1f} MB; "
+                f"{100 * t_bytes / (row['ms_cold'] * 1e-3):.1f}% reached "
+                f"cold), token form {t_token * 1e6:.1f} us "
+                f"({token_ops / 1e9:.2f} GFLOP float32), chunked form's "
+                f"products {t_chunked * 1e6:.1f} us ({chunked_ops / 1e9:.2f}"
+                f" GFLOP bf16); grid {shape[0] * shape[2]} blocks")
         ops.LAUNCHES["rwkv6_scan"] = launches_before
         rows.append(row)
         print(f"[k3] {name:12s} {'x'.join(map(str, shape)):14s} "
-              f"{row['dtype']:8s} {desc} state_err={state_err:.3e} "
+              f"{row['dtype']:8s} {layout:10s} w={w_kind} {body} body: "
+              f"{desc} state_err={state_err:.3e} "
               f"{'ok' if row['ok'] else 'FAIL'}{timing}")
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"K3 disagrees with its plain version: {bad}")
     return rows
+
+
+def _ptxas_report(log: str | None, instance) -> list:
+    """(instance, registers, static shared memory, spill stores, spill
+    loads, stack frame) per kernel entry of an ``-Xptxas -v`` log."""
+    rows, name, spills = [], None, (0, 0, 0)
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = instance(m.group(1)), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), int(sm.group(1)) if sm else 0,
+                         *spills))
+            name = None
+    return rows
+
+
+def _sass_counts(so_path, instance, opcodes) -> dict | None:
+    """{instance: {opcode: count}} from ``cuobjdump -sass`` of a built
+    library, or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True).stdout
+    return {instance(chunk.split("\n", 1)[0]):
+            {op: len(re.findall(rf"\b{op}\b", chunk)) for op in opcodes}
+            for chunk in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
 def _k2_instance(mangled: str) -> str:
@@ -582,6 +670,20 @@ def _k2_instance(mangled: str) -> str:
         return mangled
     dtype = "float" if m.group(2) == "f" else "bf16"
     return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+
+
+def _k3_instance(mangled: str) -> str:
+    """'chunked<bf16, 64>' or 'token<float, 16, state>' from a mangled K3
+    name."""
+    if "rwkv6_scan_chunked_kernel" in mangled:
+        return "chunked<bf16, 64>"
+    m = re.search(r"rwkv6_scan_token_kernelI(f|13__nv_bfloat16)Li(\d+)"
+                  r"ELb([01])E", mangled)
+    if not m:
+        return mangled
+    dtype = "float" if m.group(1) == "f" else "bf16"
+    state = ", state" if m.group(3) == "1" else ""
+    return f"token<{dtype}, {m.group(2)}{state}>"
 
 
 def k2_build_report(log: str | None, so_path) -> None:
@@ -595,45 +697,63 @@ def k2_build_report(log: str | None, so_path) -> None:
     if log is None:
         print("[build] flash_attention was built before this run: no ptxas "
               "report")
-    name = None
-    spills = (0, 0)
-    for line in (log or "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name, spills = _k2_instance(m.group(1)), (0, 0)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            spills = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            sm = re.search(r"(\d+) bytes smem", line)
-            print(f"[build] flash_attention {name}: {m.group(1)} registers, "
-                  f"{sm.group(1) if sm else 0} B static shared memory, "
-                  f"spill stores/loads {spills[0]}/{spills[1]} B")
-            name = None
+    for name, regs, smem, st, ld, _ in _ptxas_report(log, _k2_instance):
+        print(f"[build] flash_attention {name}: {regs} registers, {smem} B "
+              f"static shared memory, spill stores/loads {st}/{ld} B")
     lib = ops.load_library("flash_attention")
     print("[build] flash_attention dynamic shared memory per launch: " + ", ".join(
         f"{str(dt)[6:]} D={d} {fa.smem_bytes(lib, dt, d)} B"
         for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS))
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    counts = _sass_counts(so_path, _k2_instance,
+                          ("HGMMA", "UTMALDG", "UTMASTG", "HMMA"))
+    if counts is None:
         print("[build] flash_attention SASS: cuobjdump not found; HGMMA / "
               "UTMALDG counts not measured")
         return
-    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
-                          text=True, check=True).stdout
-    counts = {}
-    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        inst = _k2_instance(chunk.split("\n", 1)[0])
-        counts[inst] = {op: len(re.findall(rf"\b{op}\b", chunk))
-                        for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
+    for inst, c in counts.items():
         print(f"[build] flash_attention {inst} SASS: " + ", ".join(
-            f"{op} {n}" for op, n in counts[inst].items()))
+            f"{op} {n}" for op, n in c.items()))
     wg = counts.get("hopper<bf16, 128>", {})
     check(all(wg.get(op, 0) > 0 for op in ("HGMMA", "UTMALDG", "UTMASTG")),
           f"the bf16 D = 128 body lacks wgmma or TMA in its SASS: {wg}")
+
+
+def k3_build_report(log: str | None, so_path) -> None:
+    """Phase 2, K3: registers, shared memory and spills per instantiation,
+    dynamic shared memory per launch, and the chunked body's tensor-core
+    (HMMA) and asynchronous-copy (LDGSTS) instructions in its SASS; the
+    chunked body must hold both and spill nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as _rwkv
+
+    if log is None:
+        print("[build] rwkv6_scan was built before this run: no ptxas "
+              "report, spills not measured")
+    report = _ptxas_report(log, _k3_instance)
+    for name, regs, smem, st, ld, frame in report:
+        print(f"[build] rwkv6_scan {name}: {regs} registers, {smem} B static "
+              f"shared memory, spill stores/loads {st}/{ld} B, stack frame "
+              f"{frame} B")
+    chunked = [r for r in report if r[0] == "chunked<bf16, 64>"]
+    check(log is None or (chunked and chunked[0][3:] == (0, 0, 0)),
+          f"the chunked body spills, uses local memory or is missing: "
+          f"{chunked}")
+    lib = ops.load_library("rwkv6_scan")
+    print(f"[build] rwkv6_scan dynamic shared memory per launch: chunked "
+          f"{_rwkv.smem_bytes(lib, 'chunked')} B, token (tile {_rwkv.TILE}) "
+          + ", ".join(f"D={d} {_rwkv.smem_bytes(lib, 'token', d)} B"
+                      for d in _rwkv.HEAD_DIMS))
+    counts = _sass_counts(so_path, _k3_instance,
+                          ("HMMA", "HGMMA", "LDGSTS", "UTMALDG"))
+    check(counts is not None, "cuobjdump not found: the chunked body's SASS "
+          "cannot be checked")
+    c = counts.get("chunked<bf16, 64>", {})
+    print("[build] rwkv6_scan chunked<bf16, 64> SASS: " + ", ".join(
+        f"{op} {n}" for op, n in c.items()))
+    check(c.get("HMMA", 0) + c.get("HGMMA", 0) > 0
+          and c.get("LDGSTS", 0) + c.get("UTMALDG", 0) > 0,
+          f"the chunked body lacks tensor-core or asynchronous-copy "
+          f"instructions in its SASS: {c}")
 
 
 def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0):
@@ -810,6 +930,7 @@ def serve_full(dev, tag):
     `launch.serve.serve`; its kernel's launches are counted per phase."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as _rwkv
     from repro_torch.launch import serve
 
     arch, kernel = SERVE_PATHS[tag]
@@ -822,8 +943,11 @@ def serve_full(dev, tag):
     torch.cuda.reset_peak_memory_stats()
 
     ops.LAUNCHES[kernel] = 0
+    for body in _rwkv.BODIES:
+        _rwkv.BODY_LAUNCHES[body] = 0
     res = serve.serve(cfg, **SERVE_SHAPE, seed=0)
     launches = ops.LAUNCHES[kernel]
+    bodies = dict(_rwkv.BODY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in res.params.values())
     b, gen = SERVE_SHAPE["batch"], SERVE_SHAPE["gen"]
@@ -856,6 +980,11 @@ def serve_full(dev, tag):
     check(pre == cfg.n_layers and dec == 0 and launches == cfg.n_layers,
           f"{kernel} launched {pre} times in the prefill and {dec} in decode, "
           f"expected {cfg.n_layers} and 0")
+    if kernel == "rwkv6_scan":
+        print(f"[{tag}] rwkv6_scan launches by body: {bodies} (expected all "
+              f"{cfg.n_layers} through the chunked body)")
+        check(bodies == {"token": 0, "chunked": cfg.n_layers},
+              f"rwkv6_scan bodies on the serving path: {bodies}")
 
     serve_vs_plain(cfg, res, tag, kernel)
     return cfg, res, launches
@@ -1089,6 +1218,7 @@ def main() -> int:
           f"in {build_s:.2f} s")
     k2_build_report(logs.get("flash_attention"),
                     ops.lib_path("flash_attention"))
+    k3_build_report(logs.get("rwkv6_scan"), ops.lib_path("rwkv6_scan"))
 
     # 3. kernels
     timer = cuda_timer(dev)
@@ -1169,17 +1299,25 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:100",
+        "body": k3_row["body"],
         "launches": k3_launches,
         "max_abs_err": max(r["err"] for r in k3_rows
                            if r["dtype"] == "float32"),
+        "max_ulp_bf16": max(r["ulp"] for r in k3_rows
+                            if r["dtype"] == "bfloat16"),
+        "max_state_err": max(r["state_err"] for r in k3_rows),
         "ms": k3_row["ms_cold"],
         "ms_warm_l2": k3_row["ms_warm"],
+        "token_body_ms": k3_row["token_ms_cold"],
+        "token_body_ms_warm_l2": k3_row["token_ms_warm"],
         "plain_ms": k3_row["plain_ms_cold"],
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
+        "token_form_bound_ms": k3_row["token_bound_ms"],
         "library_ms": None,
         "shape": "B=8 S=2048 H=32 D=64, bfloat16 r/k/v, float32 w, with "
-                 "the final state, L2 cold",
+                 "the final state, L2 cold; max_abs_err over the float32 "
+                 "cases (token body)",
     })
     k2_row = next(r for r in k2_rows if r["case"] == "serve")
     check(math.isfinite(k2_row["ms_cold"]), "non-finite K2 time")

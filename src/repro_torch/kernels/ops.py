@@ -136,14 +136,18 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The rwkv6 time-mix scan (see `kernels.ref.rwkv6_scan_ref`).
 
     r, k, v: (B, S, H, D) float32 or bfloat16; w: (B, S, H, D) float32 log
-    decay; u: (H, D) bonus.  Returns out (B, S, H, D) in r's dtype and, with
-    ``return_state``, the final state (B, H, D, D) in float32.
+    decay, any value <= 0; u: (H, D) bonus.  Returns out (B, S, H, D) in
+    r's dtype and, with ``return_state``, the final state (B, H, D, D) in
+    float32.
 
-    ``chunk`` is the reference's chunk length, kept so that calls read as
-    the reference's; both paths here run the recurrence token by token, so
-    their result does not depend on it.  The CUDA kernel stages
-    ``min(S, rwkv6_scan.TILE)`` tokens of the inputs in shared memory per
-    step.
+    On the card the body is chosen by dtype and D (`rwkv6_scan.body`):
+    bf16 at D = 64 runs the chunked body (steps of 16 tokens on the tensor
+    cores, fed by a ``cp.async`` ring), which copies 16-byte pieces, so each
+    input's address and its B, S and H strides in bytes must be multiples
+    of 16; float32, and bf16 at D = 16 / 32, run the token body (the
+    recurrence token by token), which stages ``min(S, rwkv6_scan.TILE)``
+    tokens per step.  ``chunk`` is the reference's chunk length, kept so
+    that calls read as the reference's; no path's result depends on it.
     ``device`` (default: the CUDA card) is where the call runs; every input
     must already lie there.
     """

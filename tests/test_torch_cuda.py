@@ -107,11 +107,12 @@ def test_k1_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
 
 # ---------------------------------------------------------------------------
 # K3 `rwkv6_scan`: the CUDA kernel against the sequential plain version, both
-# on the card.  Tolerances: float32 2e-5 (absolute and relative; the kernel
-# sums each output over four row groups plus the bonus term, the plain
-# version in one einsum); bfloat16 outputs one ulp plus 2e-5, since both
-# round float32 values that may differ by that.  The final state is float32
-# on both sides: 2e-5.
+# on the card.  bf16 at D = 64 runs the chunked body, everything else the
+# token body (`rwkv6_scan.body`); each test checks which one ran.
+# Tolerances: float32 2e-5 (absolute and relative; the kernel sums in
+# another order than the plain version's einsum); bfloat16 outputs one ulp
+# plus 2e-5, since both round float32 values that may differ by that.  The
+# final state is float32 on both sides: 2e-5.
 # ---------------------------------------------------------------------------
 K3_SHAPES = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 128, 4, 64), (2, 96, 3, 16),
              (8, 2048, 32, 64)]
@@ -126,6 +127,16 @@ def _k3_inputs(dev, shape, dtype=torch.float32, *, seed=0, w_const=None):
     u = rng.normal(size=shape[2:]) * 0.3
     return (r, k, v, torch.from_numpy(w.astype(np.float32)).to(dev),
             torch.from_numpy(u.astype(np.float32)).to(dev))
+
+
+def _k3_launch(inputs, body, **kw):
+    """ops.rwkv6_scan with the final state, asserting that ``body`` ran."""
+    before = dict(rwkv6_scan.BODY_LAUNCHES)
+    got, got_state = ops.rwkv6_scan(*inputs, return_state=True, **kw)
+    torch.cuda.synchronize()
+    ran = {b: n - before[b] for b, n in rwkv6_scan.BODY_LAUNCHES.items()}
+    assert ran == {b: int(b == body) for b in rwkv6_scan.BODIES}, ran
+    return got, got_state
 
 
 def _k3_check(got, want, got_state, want_state):
@@ -145,8 +156,8 @@ def test_k3_cuda_kernel_matches_plain(cuda_device, shape, dtype):
                         seed=sum(shape))
     want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
     before = ops.LAUNCHES["rwkv6_scan"]
-    got, got_state = ops.rwkv6_scan(*inputs, return_state=True)
-    torch.cuda.synchronize()
+    got, got_state = _k3_launch(inputs, rwkv6_scan.body(inputs[0].dtype,
+                                                         shape[3]))
     assert ops.LAUNCHES["rwkv6_scan"] == before + 1
     assert got.dtype == inputs[0].dtype and got.shape == inputs[0].shape
     assert got_state.dtype == torch.float32
@@ -160,7 +171,10 @@ def test_k3_cuda_kernel_matches_plain(cuda_device, shape, dtype):
 
 @pytest.mark.cuda
 def test_k3_cuda_tiles_strides_and_decay_floor(cuda_device):
+    # The token body (float32 here): its staging tile, strides and the
+    # decay floor.
     r, k, v, w, u = _k3_inputs(cuda_device, (1, 96, 2, 32), seed=1)
+    assert rwkv6_scan.body(r.dtype, 32) == "token"
     want = ops.rwkv6_scan(r, k, v, w, u)
     # Neither the reference's chunk nor the staging tile changes the
     # arithmetic: bit for bit.
@@ -180,9 +194,93 @@ def test_k3_cuda_tiles_strides_and_decay_floor(cuda_device):
     inputs = _k3_inputs(cuda_device, (1, 128, 4, 64), seed=2,
                         w_const=ssm.LOG_DECAY_FLOOR)
     want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
-    got, got_state = ops.rwkv6_scan(*inputs, return_state=True)
+    got, got_state = _k3_launch(inputs, "token")
     got, want = _k3_check(got, want, got_state, want_state)
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+# The chunked body (bf16, D = 64): ragged last steps of 16 tokens (S = 1, 63,
+# 257, 1000), a strided head slice, and decays at the -60/64 floor, far
+# below it everywhere (-5, -60) and in some steps only, drawn as
+# chip_smoke.py draws them.  Its diagonal block has no data-dependent
+# branch: every decay factor is a product of e^w <= 1.
+K3_CHUNKED_CASES = [
+    *(((2, s, 4, 64), None, "contiguous") for s in (1, 63, 257, 1000)),
+    ((2, 300, 4, 64), None, "strided"),
+    ((2, 256, 4, 64), -60.0 / 64.0, "contiguous"),
+    ((2, 256, 4, 64), -5.0, "contiguous"),
+    ((2, 256, 4, 64), -60.0, "contiguous"),
+    ((2, 512, 4, 64), "mixed", "contiguous"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,w_kind,layout", K3_CHUNKED_CASES,
+                         ids=lambda x: "x".join(map(str, x))
+                         if isinstance(x, tuple) else str(x))
+def test_k3_cuda_chunked_body_matches_plain(cuda_device, shape, w_kind,
+                                            layout):
+    inputs = chip_smoke.k3_inputs(shape, torch.bfloat16, cuda_device, w_kind,
+                                  layout, seed=sum(shape))
+    if layout == "strided":
+        assert not inputs[0].is_contiguous()
+    want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
+    got, got_state = _k3_launch(inputs, "chunked")
+    assert got.shape == inputs[0].shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    got, want = _k3_check(got, want, got_state, want_state)
+    assert bf16_ulps(got, want, atol=2e-5) <= 1.0
+
+
+@pytest.mark.cuda
+def test_k3_cuda_chunked_body_ignores_chunk_and_reads_strides(cuda_device):
+    r, k, v, w, u = _k3_inputs(cuda_device, (2, 200, 3, 64), torch.bfloat16,
+                               seed=4)
+    want = ops.rwkv6_scan(r, k, v, w, u)
+    for chunk in (1, 8, 48, 96):
+        assert torch.equal(ops.rwkv6_scan(r, k, v, w, u, chunk=chunk), want)
+    # Head slices of wider tensors (rows 16-byte aligned): bit for bit.
+    wide = [torch.cat([t, torch.zeros_like(t)], dim=2) for t in (r, k, v, w)]
+    sliced = [t[:, :, 3:] for t in wide]
+    assert torch.equal(ops.rwkv6_scan(*[t[:, :, :3] for t in wide], u), want)
+    zero = ops.rwkv6_scan(*sliced, u)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    # Rows that do not start on 16 bytes are refused, not read.
+    odd = torch.zeros((2, 200, 3, 68), dtype=torch.bfloat16,
+                      device=cuda_device)[..., :64]
+    odd.copy_(r)
+    with pytest.raises(ValueError, match="16-byte pieces"):
+        ops.rwkv6_scan(odd, k, v, w, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 16), ("float32", 32),
+                                     ("float32", 64), ("bfloat16", 16),
+                                     ("bfloat16", 32)])
+def test_k3_cuda_token_body_serves_float32_and_small_heads(cuda_device,
+                                                           dtype, d):
+    inputs = _k3_inputs(cuda_device, (2, 70, 3, d), getattr(torch, dtype),
+                        seed=d)
+    want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
+    got, got_state = _k3_launch(inputs, "token")
+    got, want = _k3_check(got, want, got_state, want_state)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        assert bf16_ulps(got, want, atol=2e-5) <= 1.0
+
+
+@pytest.mark.cuda
+def test_k3_cuda_bodies_agree_at_the_serving_width(cuda_device):
+    # bf16 at D = 64 through both bodies (the token body named explicitly).
+    inputs = _k3_inputs(cuda_device, (2, 257, 4, 64), torch.bfloat16, seed=5)
+    lib = ops.load_library("rwkv6_scan")
+    want, want_state = ref.rwkv6_scan_ref(*inputs, return_state=True)
+    for body in rwkv6_scan.BODIES:
+        got, got_state = rwkv6_scan.launch(lib, *inputs, tile=rwkv6_scan.TILE,
+                                           return_state=True, which=body)
+        got, ref_out = _k3_check(got, want, got_state, want_state)
+        assert bf16_ulps(got, ref_out, atol=2e-5) <= 1.0
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as krwkv  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 
 SHAPES = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 128, 4, 64), (2, 96, 3, 16)]
@@ -185,3 +186,90 @@ def test_k3_entry_point_device_rule_and_shapes(monkeypatch):
     with pytest.raises(ValueError, match="impl must be one of"):
         ssm.rwkv6_seq({}, ssm.RWKV6Cfg(32, 2), torch.zeros(1, 4, 32),
                       impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# What the CUDA launch decides in plain Python before it calls the kernel:
+# the body by dtype x D, the strides it reads, and its refusals.
+# ---------------------------------------------------------------------------
+def _t(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("d", krwkv.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_body_by_dtype_and_head_dim(dtype, d):
+    want = "chunked" if dtype == "bfloat16" and d == 64 else "token"
+    assert krwkv.body(getattr(torch, dtype), d) == want
+    r = _t((1, 8, 2, d), getattr(torch, dtype))
+    w, u = _t((1, 8, 2, d)), _t((2, d))
+    assert krwkv.check_launch(r, r, r, w, u, tile=krwkv.TILE) == want
+    # The token body takes every dtype and D; the chunked body only its own.
+    assert krwkv.check_launch(r, r, r, w, u, tile=krwkv.TILE,
+                              which="token") == "token"
+    if want == "token":
+        with pytest.raises(ValueError, match="takes bfloat16 at D = 64"):
+            krwkv.check_launch(r, r, r, w, u, tile=1, which="chunked")
+
+
+def test_k3_kernel_strides_of_head_slices_and_size_one_axes():
+    x = _t((2, 10, 6, 64), torch.bfloat16)
+    assert krwkv.kernel_strides(x) == (10 * 6 * 64, 6 * 64, 64)
+    assert krwkv.kernel_strides(x[:, :, 2:5]) == (10 * 6 * 64, 6 * 64, 64)
+    # An axis of size 1 is never stepped along: its stride reads as D.
+    one = _t((1, 10, 6, 64), torch.bfloat16)[:, :, :1]
+    assert krwkv.kernel_strides(one) == (64, 6 * 64, 64)
+
+
+def test_k3_launch_refusals_without_a_card():
+    b, s, h, d = 1, 20, 2, 64
+    r, w, u = _t((b, s, h, d), torch.bfloat16), _t((b, s, h, d)), _t((h, d))
+    # A CPU tensor never reaches the launch: the launch refuses it.
+    with pytest.raises(ValueError, match="one CUDA device"):
+        krwkv.launch(None, r, r, r, w, u, tile=krwkv.TILE, return_state=True)
+    with pytest.raises(TypeError, match="share one dtype"):
+        krwkv.check_launch(r, r.float(), r, w, u, tile=krwkv.TILE)
+    with pytest.raises(TypeError, match="share one dtype"):
+        krwkv.check_launch(r.half(), r.half(), r.half(), w, u, tile=1)
+    with pytest.raises(TypeError, match="must be float32"):
+        krwkv.check_launch(r, r, r, w.bfloat16(), u, tile=krwkv.TILE)
+    odd = _t((b, s, h, 48), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 48"):
+        krwkv.check_launch(odd, odd, odd, _t((b, s, h, 48)), _t((h, 48)),
+                           tile=1)
+    with pytest.raises(ValueError, match="contiguous in its last axis"):
+        krwkv.check_launch(r, r.transpose(2, 3).contiguous().transpose(2, 3),
+                           r, w, u, tile=1)
+    with pytest.raises(ValueError, match="body must be one of"):
+        krwkv.check_launch(r, r, r, w, u, tile=1, which="wgmma")
+    # The token body's staging tile; the chunked body reads no tile.
+    for tile in (0, krwkv.MAX_TILE + 1):
+        with pytest.raises(ValueError, match="tile must be in"):
+            krwkv.check_launch(r, r, r, w, u, tile=tile, which="token")
+        assert krwkv.check_launch(r, r, r, w, u, tile=tile) == "chunked"
+
+
+@pytest.mark.parametrize("which", ["r", "k", "v", "w"])
+def test_k3_chunked_body_refuses_rows_the_copies_cannot_take(which):
+    b, s, h, d = 2, 20, 3, 64
+    ins = {"r": _t((b, s, h, d), torch.bfloat16),
+           "k": _t((b, s, h, d), torch.bfloat16),
+           "v": _t((b, s, h, d), torch.bfloat16), "w": _t((b, s, h, d))}
+    u = _t((h, d))
+    wide = _t((b, s, h, d + 8), ins[which].dtype)
+    # Head slices of a wider head axis: rows stay 16-byte aligned.
+    fine = dict(ins, **{which: torch.cat([ins[which]] * 2, dim=2)[:, :, 1:4]})
+    assert krwkv.check_launch(*fine.values(), u, tile=1) == "chunked"
+    assert krwkv.check_launch(*dict(ins, **{which: wide[..., 8:]}).values(),
+                              u, tile=1) == "chunked"
+    # Rows that start 8 bytes in, or an H stride 8 bytes past a multiple of
+    # 16: the 16-byte copies cannot take them.
+    pad = 8 // ins[which].element_size()
+    narrow = _t((b, s, h, d + pad), ins[which].dtype)
+    for bad in (narrow[..., pad:], narrow[..., :d]):
+        with pytest.raises(ValueError, match="16-byte pieces"):
+            krwkv.check_launch(*dict(ins, **{which: bad}).values(), u, tile=1)
+    # The token body reads element by element and takes them.
+    odd = dict(ins, **{which: narrow[..., pad:]})
+    assert krwkv.check_launch(*odd.values(), u, tile=1,
+                              which="token") == "token"
