@@ -9,17 +9,24 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  and CUDA versions and the two TF32 flags.
   2. build     — compiles every kernel under src/repro_torch/kernels/csrc/
                  with nvcc for sm_90a (one process per source, in parallel);
-                 for K2 prints each instantiation's registers, shared memory
+                 for K1 prints each instantiation's registers, shared
+                 memory, spills and stack frame, and counts its 16-byte
+                 loads and stores (LDG/STG .128) and LDGSTS (cp.async) in
+                 `cuobjdump -sass`: the register body must hold 16-byte
+                 loads, the shared-memory body LDGSTS, and none may spill
+                 or keep a stack frame; for K2 prints each instantiation's registers, shared memory
                  and spills (ptxas -v) and counts its HGMMA (wgmma), UTMALDG
                  and UTMASTG (TMA) instructions in `cuobjdump -sass`: the bf16
                  D = 128 body must hold all three; for K3 the same per
                  instantiation, and the chunked body's HMMA (tensor cores)
                  and LDGSTS (cp.async) counts: both above 0, no spills.
   3. kernels   — K1 `ra_aggregate` in its four variants (two modes, with and
-                 without a transmit mask) x {float32, bfloat16} at three
+                 without a transmit mask) x {float32, bfloat16} at four
                  shapes, held to its plain PyTorch version on the same
-                 inputs; times the kernel, the plain version and one library
-                 call (`torch.bmm` of precomputed coefficients) with CUDA
+                 inputs; prints each shape's launch (body, grid, tiles,
+                 resident blocks an SM); times the kernel, the plain
+                 version and one library call (`torch.bmm` of precomputed
+                 coefficients, B*L folded into its batch) with CUDA
                  events, L2 cold and warm, beside the memory bound.
   4. reference — a quickstart-sized run on the card against the same run on
                  the CPU's plain path, with the same weights and draws.
@@ -27,7 +34,8 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  10 clients on the Table-II network, 3 rounds of each of
                  R&A (both modes), AaYG, C-FL and ideal C-FL; the kernel's
                  launch count is set to 0 just before and read just after.
-  6. profile   — one R&A round under torch.profiler: device time by kernel.
+  6. profile   — one R&A round under torch.profiler: device time by kernel,
+                 and K1's own.
   7. k3        — K3 `rwkv6_scan` against its plain PyTorch version (the
                  sequential recurrence), output and final state, naming the
                  body each case ran: the chunked body (bf16, D = 64) at the
@@ -110,11 +118,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
-# K1 checks: the slice shape, a batched prime-L shape, and N > 16 receivers.
+# K1 checks: the slice shape, a batched prime-L shape, N > 16 receivers
+# (the shared-memory body), and one round of examples/sweep_grid.py's
+# 12-scenario grid at the slice's width (per-scenario masks; 405 MB, more
+# than the 50 MB L2).
 K1_SHAPES = [
     ("slice", dict(b=None, n=10, l=412, k=1024)),
     ("batched_primeL", dict(b=4, n=10, l=1181, k=256)),
     ("n33", dict(b=None, n=33, l=64, k=1024)),
+    ("grid12", dict(b=12, n=10, l=412, k=1024)),
 ]
 F32_TOL = 1e-5      # absolute; float32 sums in another order
 BF16_TOL_ULP = 1.0  # bfloat16 spacing at the result's magnitude, + F32_TOL
@@ -221,15 +233,27 @@ def cuda_timer(dev):
 def k1_checks(dev, shapes, timer):
     """Phase 3: K1 against its plain version, with times and bounds."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ra_aggregate as _ra
 
     refs = {"ra_normalized": ref.ra_aggregate_ref,
             "substitution": ref.ra_substitution_ref}
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
+    k1_lib = ops.load_library("ra_aggregate")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape_name, s in shapes:
         b, n, l, k = s["b"], s["n"], s["l"], s["k"]
         lead = () if b is None else (b,)
         for dtype in (torch.float32, torch.bfloat16):
+            pl = _ra.plan(k1_lib, b or 1, n, l, k, dtype)
+            waves = pl["blocks"] / (sms * pl["blocks_per_sm"])
+            print(f"[k1] {shape_name:14s} {str(dtype)[6:]:8s} launch: "
+                  f"{pl['body']} body, {pl['threads']} threads, "
+                  f"{pl['smem_bytes']} B dynamic shared memory, "
+                  f"{pl['blocks']} blocks for {pl['tiles']} tiles, "
+                  f"{pl['blocks_per_sm']} resident an SM: {waves:.2f} of "
+                  f"the card's resident blocks; {pl['receivers_per_warp']} "
+                  f"receivers a warp, {pl['slabs']} slab(s)")
             for mode in ("ra_normalized", "substitution"):
                 for with_tx in (False, True):
                     w = torch.randn(lead + (n, l, k), generator=gen,
@@ -289,18 +313,22 @@ def k1_checks(dev, shapes, timer):
                     for tag, cold in (("cold", True), ("warm", False)):
                         row[f"ms_{tag}"] = timer(kernel, cold)
                         row[f"plain_ms_{tag}"] = timer(plain, cold)
-                    if b is None and not with_tx:
+                    if not with_tx:
                         # Library yardstick: one bmm of precomputed
-                        # (L, N, N)^T coefficients with (L, N, K) segments.
-                        ef = e.float() * p[:, None, None]
+                        # (B*L, N, N)^T coefficients with (B*L, N, K)
+                        # segments.
+                        ef = e.float() * p[:, None, None]     # (.., m, n, l)
                         if mode == "ra_normalized":
-                            coef = ef / ef.sum(0, keepdim=True).clamp_min(1e-12)
+                            coef = ef / ef.sum(-3, keepdim=True).clamp_min(1e-12)
                         else:
-                            miss = (p.sum() - ef.sum(0)).T          # (L, N)
-                            coef = ef + torch.diag_embed(miss).permute(1, 2, 0)
-                        coef_t = coef.permute(2, 1, 0).contiguous().to(dtype)
-                        w_l = w.permute(1, 0, 2).contiguous()
-                        lib = torch.bmm(coef_t, w_l).permute(1, 0, 2).float()
+                            miss = p.sum() - ef.sum(-3)          # (.., n, l)
+                            coef = ef + torch.diag_embed(
+                                miss.transpose(-1, -2)).movedim(-3, -1)
+                        coef_t = (coef.movedim(-1, -3).transpose(-1, -2)
+                                  .contiguous().reshape(-1, n, n).to(dtype))
+                        w_l = w.movedim(-2, -3).contiguous().reshape(-1, n, k)
+                        lib = (torch.bmm(coef_t, w_l).reshape(lead + (l, n, k))
+                               .movedim(-3, -2).float())
                         check(float((lib - wf).abs().max())
                               <= (1e-4 if dtype == torch.float32 else 0.1),
                               f"bmm yardstick disagrees at {shape_name}")
@@ -494,6 +522,11 @@ def profile_round(sim, scenario):
     for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:10]:
         print(f"[profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
               f"x{ev.count:<5d} {ev.key[:100]}")
+    k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
+    k1_us = sum(ev.self_device_time_total for ev in k1)
+    print(f"[profile] ra_aggregate (K1): {k1_us:.1f} us in "
+          f"{sum(ev.count for ev in k1)} launch(es) = "
+          f"{100 * k1_us / 1e3 / dev_ms:.4f}% of device time")
 
 
 def _bf16_ulps(got, want, atol):
@@ -651,15 +684,64 @@ def _ptxas_report(log: str | None, instance) -> list:
 
 def _sass_counts(so_path, instance, opcodes) -> dict | None:
     """{instance: {opcode: count}} from ``cuobjdump -sass`` of a built
-    library, or None without cuobjdump."""
+    library, or None without cuobjdump.  ``opcodes``: names, or a dict of
+    name -> regular expression."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
+    if not isinstance(opcodes, dict):
+        opcodes = {op: rf"\b{op}\b" for op in opcodes}
     sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
                           text=True, check=True).stdout
     return {instance(chunk.split("\n", 1)[0]):
-            {op: len(re.findall(rf"\b{op}\b", chunk)) for op in opcodes}
+            {op: len(re.findall(pat, chunk)) for op, pat in opcodes.items()}
             for chunk in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def _k1_instance(mangled: str) -> str:
+    """'reg<float, 10>' or 'smem<bf16, 5>' from a mangled K1 name."""
+    m = re.search(r"ra_(reg|smem)_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    dtype = "float" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+
+
+# K1's SASS: 16-byte global loads and stores, cp.async, tensor-core products.
+K1_SASS = {"LDG.128": r"\bLDG(?:\.\w+)*\.128\b",
+           "STG.128": r"\bSTG(?:\.\w+)*\.128\b",
+           "LDGSTS": r"\bLDGSTS\b", "HMMA": r"\bHMMA\b"}
+
+
+def k1_build_report(log: str | None, so_path) -> None:
+    """Phase 2, K1: registers, shared memory, spills and stack frame per
+    instantiation (register body: N = 1..16; shared-memory body: R = 3..8
+    receivers a warp), and the 16-byte and cp.async instructions in each
+    one's SASS.  No instantiation may spill
+    or keep a stack frame; each register body must load 16 bytes at a
+    time, each shared-memory body copy by cp.async."""
+    if log is None:
+        print("[build] ra_aggregate was built before this run: no ptxas "
+              "report, spills not measured")
+    report = _ptxas_report(log, _k1_instance)
+    for name, regs, smem, st, ld, frame in report:
+        print(f"[build] ra_aggregate {name}: {regs} registers, {smem} B "
+              f"static shared memory, spill stores/loads {st}/{ld} B, stack "
+              f"frame {frame} B")
+    bad = [r for r in report if r[3:] != (0, 0, 0)]
+    check(log is None or (len(report) == 44 and not bad),
+          f"K1 instantiations spill, keep a stack frame or are missing "
+          f"({len(report)} of 44): {bad}")
+    counts = _sass_counts(so_path, _k1_instance, K1_SASS)
+    check(counts is not None, "cuobjdump not found: K1's SASS cannot be "
+          "checked")
+    for inst, c in sorted(counts.items()):
+        print(f"[build] ra_aggregate {inst} SASS: " + ", ".join(
+            f"{op} {n}" for op, n in c.items()))
+    missing = [inst for inst, c in counts.items()
+               if c["LDG.128" if inst.startswith("reg") else "LDGSTS"] == 0]
+    check(not missing, f"K1 bodies without 16-byte loads / cp.async in "
+          f"their SASS: {missing}")
 
 
 def _k2_instance(mangled: str) -> str:
@@ -1216,6 +1298,7 @@ def main() -> int:
               f"{max(spills, default=0)} bytes")
     print(f"[build] {len(logs)} kernel source(s) built with nvcc for sm_90a "
           f"in {build_s:.2f} s")
+    k1_build_report(logs.get("ra_aggregate"), ops.lib_path("ra_aggregate"))
     k2_build_report(logs.get("flash_attention"),
                     ops.lib_path("flash_attention"))
     k3_build_report(logs.get("rwkv6_scan"), ops.lib_path("rwkv6_scan"))

@@ -8,7 +8,9 @@ it and how it is laid out).  This module holds what surrounds the launch:
     (same messages) and lifts rank-3 inputs, and ``p`` / ``e`` / ``tx``
     shared across a batch, to rank-4 views without copying;
   * `launch` checks dtype, device and layout, allocates the output with
-    `torch.empty`, and calls the compiled kernel on the current stream.
+    `torch.empty`, and calls the compiled kernel on the current stream;
+  * `plan` reports the launch the kernel would make for a shape (body,
+    block, shared memory, grid, tiles, resident blocks an SM).
 
 The mask ``e`` and the transmit mask ``tx`` reach the kernel as they come
 (bool/uint8 or float32); only ``p`` (N floats) is cast to float32.
@@ -25,7 +27,9 @@ MODES = ("ra_normalized", "substitution")
 
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_CODES = {torch.bool: 0, torch.uint8: 0, torch.float32: 1}
-_MAX_BLOCKS = 2**31 - 1   # one block per (batch, segment): grid x limit
+BODIES = ("register", "shared")   # N <= 16, N > 16
+PLAN_KEYS = ("body", "threads", "smem_bytes", "blocks", "tiles",
+             "blocks_per_sm", "receivers_per_warp", "slabs")
 
 
 def broadcast_batch(w_seg, p, e, tx=None, *, mode):
@@ -118,8 +122,6 @@ def launch(lib: ctypes.CDLL, w4: torch.Tensor, p2: torch.Tensor,
     if not w4.is_contiguous():
         raise ValueError("ra_aggregate: w_seg must be contiguous")
     b, n, l, k = w4.shape
-    if b * l > _MAX_BLOCKS:
-        raise ValueError(f"ra_aggregate: B*L = {b * l} exceeds the grid limit")
     p2 = p2.to(torch.float32)
     e_code = _mask_code(e4, "e")
     tx_code = 0 if tx3 is None else _mask_code(tx3, "tx")
@@ -143,10 +145,26 @@ def launch(lib: ctypes.CDLL, w4: torch.Tensor, p2: torch.Tensor,
     return out
 
 
+def plan(lib: ctypes.CDLL, b: int, n: int, l: int, k: int,
+         dtype: torch.dtype) -> dict:
+    """The launch the kernel makes for w_seg (B, N, L, K) of ``dtype``
+    (16-byte aligned): `PLAN_KEYS`, with ``body`` named from `BODIES`."""
+    info = (ctypes.c_longlong * len(PLAN_KEYS))()
+    err = lib.ra_aggregate_plan(b, n, l, k, _W_CODES[dtype], info)
+    if err != 0:
+        raise RuntimeError(f"ra_aggregate plan for {(b, n, l, k)}: CUDA "
+                           f"error {err}")
+    out = dict(zip(PLAN_KEYS, info))
+    out["body"] = BODIES[out["body"]]
+    return out
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures (pointers and the stream as c_void_p)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ra_aggregate_launch.argtypes = (
         [vp] * 5 + [i32] * 4 + [i64] * 3 + [i32] * 4 + [vp])
     lib.ra_aggregate_launch.restype = i32
+    lib.ra_aggregate_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i64)]
+    lib.ra_aggregate_plan.restype = i32
     return lib

@@ -38,6 +38,31 @@ CASES = {
                                    w_dtype="bfloat16"),
     "n33_receiver_groups": dict(n=33, l=9, k=200),
     "n200_large_smem": dict(n=200, l=3, k=64),
+    # The Hopper body: element-by-element loads and stores where 16-byte
+    # vectors do not fit (a ragged K, w at a storage offset), both bodies'
+    # edges (N = 1 and 16 in registers; 17, 64 and 100 in shared memory,
+    # 100 in two passes, 200 above in two sender slabs), one segment, the
+    # 12-scenario grid's layout with p / e / tx shared at batch stride 0,
+    # and float32 masks per batch entry.
+    "ragged_k13_f32": dict(k=13),
+    "ragged_k13_bf16": dict(k=13, w_dtype="bfloat16"),
+    "offset_f32": dict(b=2, k=32, offset=1),
+    "offset_bf16": dict(k=64, offset=3, w_dtype="bfloat16"),
+    "n1": dict(n=1, k=64),
+    "n16_f32": dict(n=16, l=5, k=256),
+    "n16_bf16": dict(n=16, l=5, k=256, w_dtype="bfloat16"),
+    "n17_f32": dict(n=17, l=5, k=256),
+    "n17_bf16": dict(n=17, l=5, k=520, w_dtype="bfloat16"),
+    "n64_f32": dict(n=64, l=3, k=136),
+    "n64_bf16": dict(n=64, l=3, k=128, w_dtype="bfloat16"),
+    "n100_two_passes": dict(n=100, l=3, k=64),
+    "l1_f32": dict(l=1, k=1024),
+    "l1_bf16": dict(l=1, k=1024, w_dtype="bfloat16"),
+    "grid12_shared_f32": dict(b=12, n=10, l=5, k=1024, shared=True),
+    "grid12_shared_bf16": dict(b=12, n=10, l=5, k=1024, shared=True,
+                               w_dtype="bfloat16"),
+    "rank4_perbatch_f32mask_bf16": dict(b=3, l=7, e_dtype="float32",
+                                        w_dtype="bfloat16"),
 }
 
 
@@ -63,16 +88,30 @@ def _case(seed, *, b=None, n=5, l=13, k=24, shared=False, e_dtype="bool",
     return w.to(getattr(torch, w_dtype)), p, e, tx
 
 
+def _on_card(w, dev, offset):
+    """``w`` on the card, starting ``offset`` elements into its storage (so
+    that it is not 16-byte aligned)."""
+    if not offset:
+        return w.to(dev)
+    buf = torch.empty(w.numel() + offset, dtype=w.dtype, device=dev)
+    wd = buf[offset:].view(w.shape)
+    wd.copy_(w)
+    assert wd.is_contiguous() and wd.data_ptr() % 16 != 0
+    return wd
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_tx", [False, True], ids=["no_tx", "tx"])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k1_cuda_kernel_matches_plain(cuda_device, case, mode, with_tx):
-    w, p, e, tx = _case(7, with_tx=with_tx, **CASES[case])
+    kw = dict(CASES[case])
+    offset = kw.pop("offset", 0)   # applied on the card, by `_on_card`
+    w, p, e, tx = _case(7, with_tx=with_tx, **kw)
     want = ops.ra_aggregate(w, p, e, tx=tx, mode=mode, device="cpu")
     before = ops.LAUNCHES["ra_aggregate"]
-    got = ops.ra_aggregate(w.to(cuda_device), p.to(cuda_device),
-                           e.to(cuda_device),
+    got = ops.ra_aggregate(_on_card(w, cuda_device, offset),
+                           p.to(cuda_device), e.to(cuda_device),
                            tx=None if tx is None else tx.to(cuda_device),
                            mode=mode)
     torch.cuda.synchronize()
@@ -83,6 +122,27 @@ def test_k1_cuda_kernel_matches_plain(cuda_device, case, mode, with_tx):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     else:
         assert bf16_ulps(got, want, atol=1e-5) <= 1.0
+
+
+@pytest.mark.cuda
+def test_k1_cuda_plan_names_the_body(cuda_device):
+    """N <= 16 runs the register body (one warp a tile of 32 16-byte
+    columns), larger N the shared-memory body (R receivers a warp, two
+    column-tiles a block where they fit, sender slabs when one tile and the
+    coefficients do not both fit)."""
+    from repro_torch.kernels import ra_aggregate as ra
+
+    lib = ops.load_library("ra_aggregate")
+    slice_f32 = ra.plan(lib, 1, 10, 412, 1024, torch.float32)
+    assert slice_f32["body"] == "register" and slice_f32["tiles"] == 412 * 8
+    assert ra.plan(lib, 1, 10, 412, 1024, torch.bfloat16)["tiles"] == 412 * 4
+    n33 = ra.plan(lib, 1, 33, 64, 1024, torch.float32)
+    assert n33["body"] == "shared" and n33["receivers_per_warp"] == 5
+    assert n33["threads"] == 2 * 7 * 32 and n33["slabs"] == 1
+    assert n33["blocks"] == 64 * 8 // 2
+    assert ra.plan(lib, 1, 200, 3, 64, torch.float32)["slabs"] == 2
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ra.plan(lib, 1, 300, 2, 8, torch.float32)
 
 
 @pytest.mark.cuda
