@@ -29,14 +29,30 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  coefficients, B*L folded into its batch) with CUDA
                  events, L2 cold and warm, beside the memory bound.
   4. reference — a quickstart-sized run on the card against the same run on
-                 the CPU's plain path, with the same weights and draws.
+                 the CPU's plain path, with the same weights and draws:
+                 R&A (both modes) and AaYG, then R&A under the top-k and
+                 quantizing codecs (the same quantizer uniforms) and under
+                 the `loss` sampling policy (`advance_chunk`; the selected
+                 masks must be equal).
   5. slice     — the main path: the full-width paper CNN on 28x28x1 data,
                  10 clients on the Table-II network, 3 rounds of each of
                  R&A (both modes), AaYG, C-FL and ideal C-FL; the kernel's
                  launch count is set to 0 just before and read just after.
   6. profile   — one R&A round under torch.profiler: device time by kernel,
                  and K1's own.
-  7. k3        — K3 `rwkv6_scan` against its plain PyTorch version (the
+  7. slice-codec — the main path of slice 4 at the slice's width, 3 rounds
+                 a row: R&A under the top-k and quantizing codecs, AaYG
+                 under top-k, C-FL under quantization, R&A with a (3, 10)
+                 participation schedule and per-client epochs, under the
+                 `loss` and `budget` sampling policies, and with local
+                 AdamW; K1's launch counts (all, and those through its
+                 transmit-mask variant) are set to 0 just before and must
+                 equal what the rows give just after (1 a round for R&A,
+                 J for AaYG, 0 for C-FL; the codec rows through the
+                 transmit-mask variant); then one profiled R&A round under
+                 the quantizer: device time of the codec, the exchange
+                 (K1 in it) and the rest (local training and metrics).
+  8. k3        — K3 `rwkv6_scan` against its plain PyTorch version (the
                  sequential recurrence), output and final state, naming the
                  body each case ran: the chunked body (bf16, D = 64) at the
                  serving shape, at ragged lengths, on a strided head slice
@@ -46,7 +62,7 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  plain version at the serving shape with CUDA events, L2
                  cold and warm, beside the bytes bound and the token form's
                  operations bound.
-  8. serve     — the second main path: `launch.serve.serve` on rwkv6-1.6b at
+  9. serve     — the second main path: `launch.serve.serve` on rwkv6-1.6b at
                  full width and depth (bfloat16, seed 0; 8 prompts of 2048
                  tokens, 32 generated per row); the kernel's launch count is
                  set to 0 just before and must read 24 (one per layer) just
@@ -57,12 +73,12 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  against plain; and each bfloat16 path against the float32
                  run, where the kernel may be at most 1.1x as far from it
                  as the plain path.
-  9. serve-reference — the float32 smoke rwkv6 served on the card and on the
+ 10. serve-reference — the float32 smoke rwkv6 served on the card and on the
                  CPU's plain path from the same weights and prompts: the
                  greedy ids must be identical.
- 10. serve-profile — one full-width prefill and one decode step under
+ 11. serve-profile — one full-width prefill and one decode step under
                  torch.profiler: device time by kernel, launches, K3's share.
- 11. k2        — K2 `flash_attention` against its plain PyTorch version
+ 12. k2        — K2 `flash_attention` against its plain PyTorch version
                  (float32 logits and softmax), in absolute error and against
                  each output row's size: at the dense serving shape (B=8,
                  S=2048, H=16, KV=2, D=128, bfloat16, causal), at the
@@ -76,18 +92,18 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  `F.scaled_dot_product_attention` (the library yardstick,
                  used nowhere in the port) with CUDA events, L2 cold and
                  warm, beside the bound, and prints the persistent grid.
- 12. dense-serve — the third main path: `launch.serve.serve` on qwen2.5-3b at
+ 13. dense-serve — the third main path: `launch.serve.serve` on qwen2.5-3b at
                  full width and depth (bfloat16, seed 0; 8 prompts of 2048
                  tokens, 32 generated per row); K2's launch count is set to
                  0 just before and must read 36 (one per layer) after the
                  prefill and still 36 after decode, which runs `_sdpa` in
-                 plain PyTorch.  Then the same checks as phase 8, kernel
+                 plain PyTorch.  Then the same checks as phase 9, kernel
                  against impl="torch", with the K/V caches in place of the
                  states.
- 13. dense-serve-reference — the float32 smoke qwen2.5 served on the card
+ 14. dense-serve-reference — the float32 smoke qwen2.5 served on the card
                  and on the CPU's plain path: the greedy ids must be
                  identical.
- 14. dense-serve-profile — one full-width prefill and one decode step under
+ 15. dense-serve-profile — one full-width prefill and one decode step under
                  torch.profiler: device time by kernel, K2's share.
 
 It then prints the card line, one JSON line describing every ported kernel,
@@ -196,6 +212,29 @@ SERVE_BF16_RATIO = 1.1  # bf16 end to end: kernel's gap to the float32 run
 SLICE_PROTOCOLS = [("ra", "ra_normalized"), ("ra", "substitution"),
                    ("aayg", "ra_normalized"), ("cfl", "ra_normalized"),
                    ("ideal_cfl", "ra_normalized")]
+# Phase 7 (slice 4): (label, protocol, mode, make_scenario keywords, local
+# optimizer).  "schedule" stands for a (3, 10) participation schedule and
+# per-client epochs in {1, 2}.
+CODEC_ROWS = [
+    ("ra+topk0.25", "ra", "ra_normalized",
+     dict(codec="topk", compress_ratio=0.25), None),
+    ("ra/sub+quant0.25", "ra", "substitution",
+     dict(codec="quant", compress_ratio=0.25), None),   # 8-bit values
+    ("aayg+topk0.5", "aayg", "ra_normalized",
+     dict(codec="topk", compress_ratio=0.5), None),
+    ("cfl+quant0.5", "cfl", "ra_normalized",
+     dict(codec="quant", compress_ratio=0.5), None),
+    ("ra+schedule+epochs", "ra", "ra_normalized", "schedule", None),
+    ("ra+loss0.5", "ra", "ra_normalized",
+     dict(sampling_policy="loss", select_frac=0.5, codec="none"), None),
+    ("ra+budget0.5+topk0.5", "ra", "ra_normalized",
+     dict(sampling_policy="budget", select_frac=0.5, codec="topk",
+          compress_ratio=0.5), None),
+    ("ra+adamw", "ra", "ra_normalized", {}, "adamw"),
+]
+CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
+    np.float32)
+CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -402,10 +441,61 @@ def reference_check(devices):
               f"plain path after {cfg.n_rounds} rounds (param gap "
               f"{gap:.2e}, loss gap {loss_gap:.2e}; tol 1e-4)")
 
+    # Slice 4: the codecs (round_step, the same quantizer uniforms) and
+    # the loss policy (advance_chunk: round_step refuses a closed loop).
+    for protocol, mode, kw in (
+            ("ra", "ra_normalized", dict(codec="topk", compress_ratio=0.3)),
+            ("ra", "substitution", dict(codec="quant", compress_ratio=0.25)),
+            ("ra", "ra_normalized", dict(sampling_policy="loss",
+                                         select_frac=0.5))):
+        cfg = simulator.SimConfig(protocol=protocol, mode=mode, seg_len=256,
+                                  local_epochs=3, n_rounds=2)
+        sims = [simulator.build_sim(
+            mlp, smallnets.apply_mlp_clf, data, seg_len=cfg.seg_len,
+            local_epochs=cfg.local_epochs, n_rounds=cfg.n_rounds, device=d)
+            for d in devices]
+        sc = simulator.make_scenario(net, cfg, **kw)
+        closed = sc.policy_id is not None
+        params0 = mlp(torch.Generator().manual_seed(0))
+        states = [sim.init_scan(sc) if closed else
+                  {"params": {k: v[None].expand((10,) + tuple(v.shape))
+                              for k, v in params0.items()}} for sim in sims]
+        n_seg = sims[0].n_segments
+        for _ in range(cfg.n_rounds):
+            u = torch.from_numpy(rng.random((10, 10, n_seg),
+                                            dtype=np.float32))
+            uc = torch.from_numpy(rng.random((10, n_seg, cfg.seg_len),
+                                             dtype=np.float32))
+            outs = []
+            for i, sim in enumerate(sims):
+                if closed:
+                    states[i], m = sim.advance_chunk(states[i], sc, u=[u],
+                                                     u_codec=[uc])
+                else:
+                    states[i], m = sim.round_step(states[i], sc, u=u,
+                                                  u_codec=uc)
+                outs.append({k: v.cpu() for k, v in m.items()})
+            if closed:
+                gap = float((states[1]["w"].cpu()
+                             - states[0]["w"]).abs().max())
+                check(torch.equal(outs[0]["selected"], outs[1]["selected"]),
+                      f"loss policy: {devices[1]} selected "
+                      f"{outs[1]['selected'].tolist()}, {devices[0]} "
+                      f"{outs[0]['selected'].tolist()}")
+            else:
+                gap = max(float((states[1]["params"][k].cpu()
+                                 - states[0]["params"][k]).abs().max())
+                          for k in params0)
+            loss_gap = float((outs[1]["loss"] - outs[0]["loss"]).abs().max())
+            check(gap <= 1e-4 and loss_gap <= 1e-4,
+                  f"{protocol}/{mode} {kw}: gap {gap:.2e} / {loss_gap:.2e}")
+        print(f"[reference] {protocol}/{mode} {kw}: {devices[1]} == "
+              f"{devices[0]} plain path after {cfg.n_rounds} rounds (param "
+              f"gap {gap:.2e}, loss gap {loss_gap:.2e}; tol 1e-4)")
 
-def slice_setup(dev, *, samples_per_client=600, hw=(28, 28),
-                cnn_kwargs=None):
-    """The slice's simulator and scenarios (phase 5)."""
+
+def slice_inputs(samples_per_client=600, hw=(28, 28), cnn_kwargs=None):
+    """The slice's data, network, model init and base configuration."""
     from repro_torch.core import topology
     from repro_torch.data import synthetic
     from repro_torch.fl import simulator
@@ -424,6 +514,16 @@ def slice_setup(dev, *, samples_per_client=600, hw=(28, 28),
     def init(g):
         return smallnets.init_cnn(g, in_hw=tuple(hw), **(cnn_kwargs or {}))
 
+    return data, net, init, base
+
+
+def slice_setup(dev, *, samples_per_client=600, hw=(28, 28),
+                cnn_kwargs=None):
+    """The slice's simulator and scenarios (phase 5)."""
+    from repro_torch.fl import simulator
+    from repro_torch.models import smallnets
+
+    data, net, init, base = slice_inputs(samples_per_client, hw, cnn_kwargs)
     sim = simulator.build_sim(
         init, smallnets.apply_cnn, data, seg_len=base.seg_len,
         local_epochs=base.local_epochs, n_rounds=base.n_rounds,
@@ -490,10 +590,13 @@ def run_slice(sim, scenarios, base, sync):
     return launches
 
 
-def _profiled(fn):
+def _profiled(fn, ranges=()):
     """(wall ms, CUDA kernel events) of one call of ``fn`` under
     torch.profiler, ending in a device sync.  Kernel events only: CPU-side
-    aten ops also report the device time of the kernels they launched."""
+    aten ops also report the device time of the kernels they launched.
+    With ``ranges`` (names of `record_function` ranges opened inside
+    ``fn``) it also returns {name: device us of the kernels launched in
+    that range}, the ranges' own events left out of the kernel list."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -503,9 +606,16 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, [ev for ev in prof.key_averages()
-                     if ev.device_type.name == "CUDA"
-                     and ev.self_device_time_total > 0]
+    averages = prof.key_averages()
+    kernels = [ev for ev in averages
+               if ev.device_type.name == "CUDA"
+               and ev.self_device_time_total > 0 and ev.key not in ranges]
+    if not ranges:
+        return wall_ms, kernels
+    spans = {name: sum(ev.device_time_total for ev in averages
+                       if ev.key == name and ev.device_type.name == "CPU")
+             for name in ranges}
+    return wall_ms, kernels, spans
 
 
 def profile_round(sim, scenario):
@@ -527,6 +637,147 @@ def profile_round(sim, scenario):
     print(f"[profile] ra_aggregate (K1): {k1_us:.1f} us in "
           f"{sum(ev.count for ev in k1)} launch(es) = "
           f"{100 * k1_us / 1e3 / dev_ms:.4f}% of device time")
+
+
+def slice_codec(dev, sync, **inputs):
+    """Phase 7: `CODEC_ROWS` at the slice's width (``inputs`` go to
+    `slice_inputs`, for a smaller rehearsal); returns (K1 launches, K1
+    launches through the transmit-mask variant, the quantizing R&A row's
+    simulator and scenario for the profile)."""
+    from repro_torch.core import protocols
+    from repro_torch.fl import simulator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+    from repro_torch.models import smallnets
+
+    data, net, init, base = slice_inputs(**inputs)
+    sims = {opt: simulator.build_sim(
+        init, smallnets.apply_cnn, data, seg_len=base.seg_len,
+        local_epochs=base.local_epochs, n_rounds=base.n_rounds,
+        aayg_mixes=base.aayg_mixes, local_optimizer=opt, device=dev)
+        for opt in (None, "adamw")}
+    rows = []
+    for label, protocol, mode, kw, opt in CODEC_ROWS:
+        if kw == "schedule":
+            kw = dict(participation=CODEC_SCHEDULE, local_epochs=CODEC_EPOCHS)
+        cfg = dataclasses.replace(base, protocol=protocol, mode=mode)
+        rows.append((label, sims[opt],
+                     simulator.make_scenario(net, cfg, **kw).prepare()))
+    # Warm-up (cuDNN plans, allocator): one round on each simulator.
+    for label, sim, sc in (rows[0], rows[-1]):
+        sim.advance_chunk(sim.init_scan(sc), sc)
+    sync()
+
+    ops.LAUNCHES["ra_aggregate"] = 0
+    for name in _ra.VARIANT_LAUNCHES:
+        _ra.VARIANT_LAUNCHES[name] = 0
+    results = []
+    for label, sim, sc in rows:
+        state = sim.init_scan(sc)
+        sync()
+        out, secs = [], []
+        for _ in range(sim.n_chunks):
+            t0 = time.perf_counter()
+            state, m = sim.advance_chunk(state, sc)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            out.append({k: v.cpu() for k, v in m.items()})
+        results.append((label, sim, sc, out, secs))
+    launches = ops.LAUNCHES["ra_aggregate"]
+    tx_launches = _ra.VARIANT_LAUNCHES["tx"]
+
+    expected = expected_tx = 0
+    for label, sim, sc, out, secs in results:
+        per_round = {protocols.PROTOCOL_IDS["ra"]: 1,
+                     protocols.PROTOCOL_IDS["aayg"]: base.aayg_mixes}.get(
+                         sc.protocol_id, 0)
+        expected += per_round * base.n_rounds
+        if sc.codec_id is not None:
+            expected_tx += per_round * base.n_rounds
+        acc = torch.stack([r["acc"] for r in out])
+        loss = torch.stack([r["loss"] for r in out])
+        bias = torch.cat([r["bias"] for r in out])
+        check(tuple(acc.shape) == (base.n_rounds, 10)
+              and bool(torch.isfinite(acc).all()
+                       and torch.isfinite(loss).all()),
+              f"{label}: metric shapes {tuple(acc.shape)} or non-finite "
+              f"accuracy / loss")
+        if sc.protocol_id == protocols.PROTOCOL_IDS["ra"]:
+            check(bool(torch.isfinite(bias).all()), f"{label}: non-finite "
+                  f"bias {bias.tolist()}")
+        sel = ""
+        if sc.policy_id is not None:
+            chosen = torch.cat([r["selected"] for r in out])
+            want = math.ceil(sc.select_frac * 10 - 1e-6)
+            check(tuple(chosen.shape) == (base.n_rounds, 10)
+                  and bool((chosen.sum(1) == want).all()),
+                  f"{label}: selected {chosen.tolist()}, {want} a round "
+                  f"expected")
+            sel = f" selected/round {[int(c) for c in chosen.sum(1)]}"
+        print(f"[slice-codec] {label:21s} acc/round "
+              f"{[round(float(a), 4) for a in acc.mean(1)]} loss/round "
+              f"{[round(float(x), 4) for x in loss.mean(1)]} bias "
+              f"{[round(float(b), 5) for b in bias]}{sel} s/round "
+              f"{[round(x, 4) for x in secs]}")
+    check(launches == expected and tx_launches == expected_tx,
+          f"ra_aggregate launched {launches} times ({tx_launches} through "
+          f"the transmit-mask variant) on slice 4's path, expected "
+          f"{expected} ({expected_tx})")
+    print(f"[slice-codec] ra_aggregate launches on the main path: {launches}"
+          f" (expected {expected}), {tx_launches} through the transmit-mask"
+          f" variant (expected {expected_tx})")
+    quant = next((sim, sc) for label, sim, sc, _o, _s in results
+                 if label == "ra/sub+quant0.25")
+    return launches, tx_launches, quant
+
+
+def profile_codec_round(sim, scenario):
+    """Phase 7, last: one R&A round under the quantizer, profiled, with the
+    codec and the exchange in named ranges."""
+    from torch.profiler import record_function
+
+    from repro_torch.core import compression, protocols
+
+    names = {"encode": "slice-codec:encode",
+             "dispatch_round_seg": "slice-codec:exchange"}
+    mods = {"encode": compression, "dispatch_round_seg": protocols}
+    originals = {fn: getattr(mods[fn], fn) for fn in names}
+
+    def ranged(fn):
+        def inner(*args, **kwargs):
+            with record_function(names[fn]):
+                return originals[fn](*args, **kwargs)
+        return inner
+
+    state = sim.init_scan(scenario)
+    for fn in names:
+        setattr(mods[fn], fn, ranged(fn))
+    try:
+        wall_ms, events, spans = _profiled(
+            lambda: sim.advance_chunk(state, scenario),
+            ranges=tuple(names.values()))
+    finally:
+        for fn, orig in originals.items():
+            setattr(mods[fn], fn, orig)
+    dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
+    k1_us = sum(ev.self_device_time_total for ev in k1)
+    codec_ms = spans[names["encode"]] / 1e3
+    exch_ms = spans[names["dispatch_round_seg"]] / 1e3
+    if dev_ms <= 0 or codec_ms <= 0:
+        print(f"[slice-codec] profiled ra+quant round: wall {wall_ms:.2f} ms,"
+              f" device split not measured (device kernels {dev_ms:.3f} ms,"
+              f" codec range {codec_ms:.3f} ms)")
+        return
+    print(f"[slice-codec] profiled ra/substitution+quant0.25 round: wall "
+          f"{wall_ms:.2f} ms, device kernels {dev_ms:.3f} ms: codec "
+          f"{codec_ms:.3f} ms ({100 * codec_ms / dev_ms:.2f}%), exchange "
+          f"{exch_ms:.3f} ms of which K1 {k1_us:.1f} us in "
+          f"{sum(ev.count for ev in k1)} launch(es), local training and "
+          f"metrics {dev_ms - codec_ms - exch_ms:.3f} ms")
+    for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:8]:
+        print(f"[slice-codec]   {ev.self_device_time_total / 1e3:9.3f} ms "
+              f"x{ev.count:<5d} {ev.key[:100]}")
 
 
 def _bf16_ulps(got, want, atol):
@@ -578,7 +829,7 @@ def k3_bounds(shape, elem=2):
 
 
 def k3_checks(dev, timer):
-    """Phase 7: K3 against its plain version, with times and bounds."""
+    """Phase 8: K3 against its plain version, with times and bounds."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rwkv6_scan as _rwkv
 
@@ -927,7 +1178,7 @@ def k2_row_err(got, want):
 
 
 def k2_checks(dev, timer):
-    """Phase 11: K2 against its plain version, with times and bounds."""
+    """Phase 12: K2 against its plain version, with times and bounds."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1008,7 +1259,7 @@ def k2_checks(dev, timer):
 
 
 def serve_full(dev, tag):
-    """Phase 8 / 12: a serving path at full width through
+    """Phase 9 / 13: a serving path at full width through
     `launch.serve.serve`; its kernel's launches are counted per phase."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
@@ -1150,7 +1401,7 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel):
 
 
 def serve_vs_plain(cfg, res, tag, kernel):
-    """Phase 8 / 12, second half: the serving prefill through the kernel
+    """Phase 9 / 13, second half: the serving prefill through the kernel
     against the plain path (impl="torch") on the card, from the same
     weights and prompts (`serve_gaps`).
 
@@ -1198,7 +1449,7 @@ def serve_vs_plain(cfg, res, tag, kernel):
 
 
 def serve_reference(dev, tag):
-    """Phase 9 / 13: the float32 smoke model on the card and on the CPU's
+    """Phase 10 / 14: the float32 smoke model on the card and on the CPU's
     plain path, from the same weights and prompts."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
@@ -1230,7 +1481,7 @@ def serve_reference(dev, tag):
 
 
 def profile_serve(cfg, res, tag, kernel):
-    """Phase 10 / 14: one full-width prefill and one decode step under
+    """Phase 11 / 15: one full-width prefill and one decode step under
     torch.profiler."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
@@ -1326,32 +1577,39 @@ def main() -> int:
     profile_round(sim, scenarios[SLICE_PROTOCOLS[0]])
     del sim, scenarios
 
-    # 7. k3
+    # 7. slice-codec (the main path of slice 4)
+    codec_launches, tx_launches, (qsim, qsc) = slice_codec(
+        dev, torch.cuda.synchronize)
+    profile_codec_round(qsim, qsc)
+    del qsim, qsc
+    torch.cuda.empty_cache()
+
+    # 8. k3
     k3_rows = k3_checks(dev, timer)
     torch.cuda.synchronize()
 
-    # 8. serve (the second main path)
+    # 9. serve (the second main path)
     serve_cfg, res, k3_launches = serve_full(dev, "serve")
 
-    # 9. serve-reference
+    # 10. serve-reference
     serve_reference(dev, "serve")
 
-    # 10. serve-profile
+    # 11. serve-profile
     profile_serve(serve_cfg, res, "serve", "rwkv6_scan")
     del res
     torch.cuda.empty_cache()
 
-    # 11. k2
+    # 12. k2
     k2_rows = k2_checks(dev, timer)
     torch.cuda.synchronize()
 
-    # 12. dense-serve (the third main path)
+    # 13. dense-serve (the third main path)
     dense_cfg, res, k2_launches = serve_full(dev, "dense-serve")
 
-    # 13. dense-serve-reference
+    # 14. dense-serve-reference
     serve_reference(dev, "dense-serve")
 
-    # 14. dense-serve-profile
+    # 15. dense-serve-profile
     profile_serve(dense_cfg, res, "dense-serve", "flash_attention")
     del res
 
@@ -1365,7 +1623,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ra_aggregate.cu",
         "replaces": "src/repro/kernels/ra_aggregate.py:177",
-        "launches": launches,
+        "launches": launches + codec_launches,
+        "launches_by_path": {"slice": launches,
+                             "slice-codec": codec_launches},
+        "tx_launches": tx_launches,
         "max_abs_err": worst_f32,
         "ms": main_row["ms_cold"],
         "ms_warm_l2": main_row["ms_warm"],

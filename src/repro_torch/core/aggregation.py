@@ -161,6 +161,23 @@ def apply_mode(mode_id: int, w_seg: torch.Tensor, p: torch.Tensor,
     return _MODE_FNS[mode_id](w_seg, p, _as_f32_mask(e))
 
 
+def bias_matrix(p: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Aggregation bias matrix Lambda_l with entries p_m - p_{m,n,l} (eq. 10).
+
+    Returns (L, N, N): one (sender x receiver) bias matrix per segment.
+    """
+    coeff = aggregation_coefficients(p, e)          # (m, n, l)
+    lam = p[:, None, None] - coeff
+    return lam.permute(2, 0, 1)
+
+
+def bias_sq_norm(p: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """||Lambda_l||_F^2 per segment, shape (L,) — the Fig. 8 statistic
+    (the entry-wise sum of squares the paper's bound (26a) uses)."""
+    lam = bias_matrix(p, e)
+    return (lam * lam).sum(dim=(1, 2))
+
+
 def bias_sq_norm_fused(p: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """||Lambda_l||_F^2 per segment (Fig. 8 statistic), shape (L,).
 

@@ -15,6 +15,10 @@ matrices, and returns the segments after local aggregation.
   * `ideal_round_seg` — error-free C-FL.
   * `dispatch_round_seg` selects one of them (plus "none") by protocol id.
 
+The codec layer (`core.compression`) threads in through ``tx_mask``, the
+(N, S) per-segment transmit mask at full width, and ``w_raw``, the
+unencoded segments (`dispatch_round_seg`).
+
 Random draws: each function that samples takes its uniforms as ``u``
 (shapes below) so a test can replay the reference's draws; without them it
 draws from ``generator`` on the segments' device.
@@ -58,6 +62,7 @@ def ra_round_seg(
     mode_id: int,
     participation: torch.Tensor | None = None,
     *,
+    tx_mask: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     agg_impl: str = "auto",
@@ -67,7 +72,10 @@ def ra_round_seg(
 
     ``u``: optional (N, N, L) uniforms for the success mask.  With a
     ``participation`` mask (N,), sampled-out senders leave ``e`` and
-    sampled-out receivers keep their own segments.
+    sampled-out receivers keep their own segments.  The codec's
+    ``tx_mask`` (N, L) composes into the returned ``e`` (the realized
+    coefficients) and reaches the aggregation separately, so the kernel
+    runs its transmit-mask variant.
     """
     n, l = w_seg.shape[0], w_seg.shape[1]
     e = errors.sample_success(
@@ -75,7 +83,10 @@ def ra_round_seg(
         u=_uniform((n, n, l), u, generator, w_seg.device))
     if participation is not None:
         e = aggregation.mask_senders(e, participation)
-    out = aggregation.apply_mode(mode_id, w_seg, p, e, impl=agg_impl)
+    out = aggregation.apply_mode(mode_id, w_seg, p, e, tx=tx_mask,
+                                 impl=agg_impl)
+    if tx_mask is not None:
+        e = aggregation.apply_transmit_mask(e, tx_mask)
     if participation is not None:
         out = aggregation.keep_nonparticipants(participation, out, w_seg)
     return out, e
@@ -89,6 +100,7 @@ def aayg_round_seg(
     *,
     n_mixes: int = 1,
     participation: torch.Tensor | None = None,
+    tx_mask: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     agg_impl: str = "auto",
@@ -98,7 +110,10 @@ def aayg_round_seg(
     ``link_eps`` is the (V, V) one-hop packet success matrix; only the
     leading N-client block takes part.  ``u``: optional (J, N, N, L)
     uniforms, one (N, N, L) draw per mix.  A ``participation`` mask
-    silences sampled-out clients for the whole round.
+    silences sampled-out clients for the whole round.  The codec's
+    ``tx_mask`` (N, L) holds on every mix (the codec runs once a round);
+    it reaches the aggregation beside the mask, which composes it as the
+    reference composes it into ``e``.
     """
     n, l, _ = w_seg.shape
     eps = link_eps[:n, :n]
@@ -110,7 +125,9 @@ def aayg_round_seg(
         if participation is not None:
             e = e & (participation[:n, None, None] > 0)
         e = e | eye                                  # own model present
-        out = aggregation.apply_mode(mode_id, w, p, e, impl=agg_impl)
+        out = aggregation.apply_mode(
+            mode_id, w, p, e, tx=None if tx_mask is None else tx_mask[:n],
+            impl=agg_impl)
         if participation is not None:
             out = aggregation.keep_nonparticipants(participation[:n], out, w)
         w = out
@@ -125,6 +142,7 @@ def cfl_round_seg(
     aggregator: int,
     participation: torch.Tensor | None = None,
     *,
+    tx_mask: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
 ) -> torch.Tensor:
@@ -135,6 +153,9 @@ def cfl_round_seg(
     failure the client keeps its own segment.  ``u``: optional (2, N, L)
     uniforms, the uplink draw then the downlink draw.  The aggregator's own
     participation entry is ignored (the star center always takes part).
+    The codec's ``tx_mask`` (N, L) prunes the uplink (before the
+    aggregator's own row is restored) and, through the aggregator's row,
+    the downlink broadcast.
     """
     n, l, _ = w_seg.shape
     u = _uniform((2, n, l), u, generator, w_seg.device)
@@ -143,8 +164,12 @@ def cfl_round_seg(
         star[aggregator] = 1.0
         participation = torch.maximum(participation[:n], star)
 
+    tx_f = None if tx_mask is None else (tx_mask[:n] > 0).to(torch.float32)
+
     rho_up = rho[:n, aggregator]                                # (N,)
     e_up = (u[0] < rho_up[:, None]).to(torch.float32)
+    if tx_f is not None:
+        e_up = e_up * tx_f
     e_up[aggregator] = 1.0
     if participation is not None:
         e_up = e_up * participation[:, None]
@@ -159,6 +184,8 @@ def cfl_round_seg(
 
     rho_dn = rho[aggregator, :n]                                # (N,)
     e_dn = (u[1] < rho_dn[:, None]).to(torch.float32)
+    if tx_f is not None:
+        e_dn = e_dn * tx_f[aggregator][None, :]
     e_dn[aggregator] = 1.0
     if participation is not None:
         e_dn = e_dn * participation[:, None]
@@ -182,6 +209,8 @@ def dispatch_round_seg(
     *,
     n_mixes: int = 1,
     participation: torch.Tensor | None = None,
+    tx_mask: torch.Tensor | None = None,
+    w_raw: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     agg_impl: str = "auto",
@@ -195,30 +224,38 @@ def dispatch_round_seg(
     with ``track_bias=False``, 0 for ideal C-FL), as a 0-d float32 tensor.
     ``u`` carries the protocol's uniforms: (N, N, L) for R&A, (J, N, N, L)
     for AaYG, (2, N, L) for C-FL; ideal C-FL and "none" draw nothing.
+
+    The codec: ``tx_mask`` ((N, S) bool, full width) composes into every
+    lossy protocol's channel (R&A and AaYG masks, C-FL up- and downlink);
+    ``w_raw`` (the unencoded segments) is what ideal C-FL and "none" use,
+    since they put nothing on the air.  None keeps the codec-free round.
     """
     n, l, _ = w_seg.shape
     dev = w_seg.device
+    w_keep = w_seg if w_raw is None else w_raw
     e_ones = torch.ones((n, n, l), dtype=torch.bool, device=dev)
     nan = torch.full((), math.nan, dtype=torch.float32, device=dev)
     if protocol_id == PROTOCOL_IDS["ra"]:
-        out, e = ra_round_seg(w_seg, p, rho, mode_id, participation, u=u,
-                              generator=generator, agg_impl=agg_impl)
+        out, e = ra_round_seg(w_seg, p, rho, mode_id, participation,
+                              tx_mask=tx_mask, u=u, generator=generator,
+                              agg_impl=agg_impl)
         bias = (aggregation.bias_sq_norm_fused(p, e).mean()
                 if track_bias else nan)
         return out, e, bias
     if protocol_id == PROTOCOL_IDS["aayg"]:
         out = aayg_round_seg(w_seg, p, link_eps, mode_id, n_mixes=n_mixes,
-                             participation=participation, u=u,
-                             generator=generator, agg_impl=agg_impl)
+                             participation=participation, tx_mask=tx_mask,
+                             u=u, generator=generator, agg_impl=agg_impl)
         return out, e_ones, nan
     if protocol_id == PROTOCOL_IDS["cfl"]:
         out = cfl_round_seg(w_seg, p, rho, mode_id, aggregator,
-                            participation, u=u, generator=generator)
+                            participation, tx_mask=tx_mask, u=u,
+                            generator=generator)
         return out, e_ones, nan
     if protocol_id == PROTOCOL_IDS["ideal_cfl"]:
-        out = ideal_round_seg(w_seg, p, participation)
+        out = ideal_round_seg(w_keep, p, participation)
         return out, e_ones, torch.zeros((), dtype=torch.float32, device=dev)
     if protocol_id == PROTOCOL_IDS["none"]:
-        return w_seg, e_ones, nan
+        return w_keep, e_ones, nan
     raise ValueError(f"unknown protocol id {protocol_id}: choose from "
                      f"{PROTOCOL_IDS}")

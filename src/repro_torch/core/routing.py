@@ -5,7 +5,10 @@ between clients (m, n) maximizes the product of per-hop packet success
 rates: the all-pairs shortest path on edge weights ``-log eps_{m,n}``,
 computed by Floyd–Warshall over a dense cost matrix with next-hop pointers
 for route reconstruction.  The relaxation keeps the strict ``<`` of the
-reference, so ties resolve to the same next hops.
+reference, so ties resolve to the same next hops.  The Section-IV
+admission of homologous route-sets under limited bandwidth closes the
+module (`admission_scores`, `admit_homologous_routes`,
+`admitted_rho_mask`).
 """
 from __future__ import annotations
 
@@ -106,3 +109,68 @@ def all_routes(next_hop, n_clients: int) -> dict[tuple[int, int], list[int]]:
             if m != n:
                 routes[(m, n)] = reconstruct_route(next_hop, m, n)
     return routes
+
+
+def route_edges(route: list[int]) -> list[tuple[int, int]]:
+    """Undirected edge list (u<v canonical) of a node-sequence route."""
+    return [tuple(sorted((route[i], route[i + 1])))
+            for i in range(len(route) - 1)]
+
+
+# ---------------------------------------------------------------------------
+# Bandwidth-constrained joint routing (Section IV, final paragraphs).
+# ---------------------------------------------------------------------------
+def admission_scores(p, rho):
+    """Section-IV admission priority: ``(p_m^2 + p_m) * sum_n (1 - rho_{m,n})``.
+
+    Pure arithmetic on numpy arrays or torch tensors alike: it serves the
+    host-side admission order (`admit_homologous_routes`) and the
+    bandwidth-aware selection policies (`core.selection`).
+
+    Args: p (N,) weights; rho (N, N) client-block E2E success matrix.
+    Returns: (N,) scores (higher = admitted earlier).
+    """
+    deficiency = (1.0 - rho).sum(1)
+    return (p * p + p) * deficiency
+
+
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x)
+
+
+def admit_homologous_routes(p, rho, *, n_clients: int,
+                            max_admitted: int | None = None) -> list[int]:
+    """Priority admission of homologous route-sets under limited bandwidth:
+    per-source route sets (source m -> all destinations) in decreasing
+    `admission_scores` order (a stable sort: ties keep the lower index).
+
+    Returns the admission order (list of source client indices).
+    """
+    p = _host(p)
+    rho = _host(rho)[:n_clients, :n_clients]
+    order = list(np.argsort(-admission_scores(p, rho), kind="stable"))
+    if max_admitted is not None:
+        order = order[:max_admitted]
+    return [int(i) for i in order]
+
+
+def admitted_rho_mask(p, rho, *, n_clients: int,
+                      max_admitted: int | None = None) -> np.ndarray:
+    """``rho`` masked to the admitted homologous route-sets (host-side).
+
+    A non-admitted source's row of the client block zeroes except the
+    diagonal (a client always holds its own model); rows past
+    ``n_clients`` (routing-only relays) pass through untouched.
+    """
+    rho = np.array(_host(rho), copy=True)
+    admitted = admit_homologous_routes(
+        p, rho, n_clients=n_clients, max_admitted=max_admitted
+    )
+    cut = np.ones(rho.shape[0], dtype=bool)
+    cut[np.asarray(admitted, dtype=int)] = False
+    cut[n_clients:] = False
+    block = rho[:n_clients, :n_clients]        # view: writes through
+    diag = np.diagonal(block).copy()
+    block[cut[:n_clients]] = 0.0
+    np.fill_diagonal(block, diag)
+    return rho

@@ -13,12 +13,30 @@ of a row as the model's parameters (reshape/split/slice), so the codec
 padding past the last parameter gets zero gradient.
 
 The loop is a Python loop over rounds (the reference scans).  Each
-`Scenario` is one static network (rank-2 ``link_eps``).  Random draws come
-from a ``torch.Generator`` on the run's device seeded with the scenario
-seed; model init draws from a CPU generator with the same seed, so a model
-starts from the same weights on every device.  `SimPrograms.round_step`
-also takes a round's uniforms explicitly, which is how the parity tests
-replay the reference's key chain.
+`Scenario` is one static network (rank-2 ``link_eps``; link schedules are
+ROADMAP Queue 1 item 5).  A scenario may also carry, as in the reference:
+
+  * a ``participation`` mask (N,) or (T, N) (client sampling: sampled-out
+    clients keep their parameters and take no part in any aggregation)
+    and a per-client ``local_epochs`` vector (N,) (clipped to the static
+    bound ``build_sim(local_epochs=)``);
+  * a closed-loop sampling policy (``policy_id`` / ``select_frac``,
+    `core.selection`): each round's mask is chosen from per-client
+    signals carried in the loop's state;
+  * an exchange codec (``codec_id`` / ``compress_ratio``,
+    `core.compression`) between local training and delivery.
+
+``build_sim(local_optimizer=)`` replaces plain GD by an `optim.optimizers`
+rule, with fresh state every round.
+
+Random draws come from a ``torch.Generator`` on the run's device seeded
+with the scenario seed (in each round: the codec's uniforms under
+``quant``, then the protocol's); model init draws from a CPU generator
+with the same seed, so a model starts from the same weights on every
+device.  `SimPrograms.round_step` and `SimPrograms.advance_chunk` also
+take a round's uniforms explicitly (``u`` for the protocol, ``u_codec``
+for the quantizer), which is how the parity tests replay the reference's
+key chain.
 
 Entry points `build_sim` and `run` run on the CUDA card unless the caller
 passes ``device="cpu"``.  On CUDA, TF32 is off for matmuls and cuDNN
@@ -30,23 +48,28 @@ Public API
   SimConfig                 static + default per-scenario knobs
   Scenario / make_scenario  one static grid point
   build_sim(...)            bind (init, apply, data, statics) -> SimPrograms
-  SimPrograms.round_step    (state, scenario, u=) -> (state, metrics)
+  Scenario.at_round(t)      per-round view of a participation schedule
+  SimPrograms.round_step    (state, scenario, u=, u_codec=) -> (state, metrics)
+  SimPrograms.advance_chunk (state, scenario, u=, u_codec=) -> (state, metrics)
   SimPrograms.run_scenario  scenario -> metrics dict (n_rounds)
   run                       scalar one-scenario entry point -> SimResult
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import aggregation, errors, protocols, routing, topology
+from ..core import (aggregation, compression, errors, protocols, routing,
+                    selection, topology)
 from ..data.synthetic import FederatedDataset
 from ..models.smallnets import accuracy, ce_loss
+from ..optim import optimizers
 
 
 class PacketLengthMismatchWarning(UserWarning):
@@ -74,6 +97,9 @@ class SimConfig:
     agg_impl: str = "auto"        # auto | torch | kernel (aggregation substrate)
     eval_every: int = 1           # evaluate acc/loss every k-th round
     track_bias: bool = True       # False: skip the R&A bias diagnostic
+    codec: str | None = None      # None | none | topk | quant
+    compress_ratio: float = 1.0   # codec intensity, (0, 1]
+    local_optimizer: Any = None   # None | optimizers name | Optimizer | factory
 
     @property
     def packet_len_bits(self) -> int:
@@ -86,10 +112,17 @@ class SimConfig:
 
 
 class Scenario(NamedTuple):
-    """One static grid point.
+    """One grid point, or a trajectory of them.
 
     ``link_eps`` is the (V, V) per-link packet success matrix; ``rho`` the
     derived min-E2E-PER success matrix (None until `prepare`).
+    ``participation`` is an optional (N,) or (T, N) client sampling mask
+    (round t uses row ``t % T``); ``local_epochs`` an optional (N,)
+    per-client epoch vector.  ``policy_id`` / ``select_frac`` select a
+    closed-loop sampling policy (`core.selection.POLICY_IDS`), with the
+    ``participation`` schedule as the availability base; ``codec_id`` /
+    ``compress_ratio`` an exchange codec (`core.compression.CODEC_IDS`).
+    Every optional field defaults to the static behaviour.
     """
 
     link_eps: torch.Tensor        # (V, V) float32
@@ -99,6 +132,12 @@ class Scenario(NamedTuple):
     aggregator: int               # C-FL star center
     lr: float                     # local GD step size
     rho: torch.Tensor | None = None
+    participation: torch.Tensor | None = None   # (N,) / (T, N) float32
+    local_epochs: torch.Tensor | None = None    # (N,) int32
+    policy_id: int | None = None                # selection.POLICY_IDS
+    select_frac: float | None = None            # participant fraction
+    codec_id: int | None = None                 # compression.CODEC_IDS
+    compress_ratio: float | None = None         # codec intensity, (0, 1]
 
     def prepare(self) -> "Scenario":
         """Fill the derived min-E2E-PER success matrix (idempotent)."""
@@ -107,10 +146,22 @@ class Scenario(NamedTuple):
         rho, _ = routing.e2e_success(self.link_eps)
         return self._replace(rho=rho)
 
+    def at_round(self, t: int) -> "Scenario":
+        """The per-round view: a (T, N) participation schedule sliced at
+        ``t % T``; every other field passes through."""
+        part = self.participation
+        if part is not None and part.ndim == 2:
+            return self._replace(participation=part[t % part.shape[0]])
+        return self
+
     def to(self, device: torch.device) -> "Scenario":
+        def move(x):
+            return None if x is None else x.to(device)
+
         return self._replace(
-            link_eps=self.link_eps.to(device),
-            rho=None if self.rho is None else self.rho.to(device))
+            link_eps=self.link_eps.to(device), rho=move(self.rho),
+            participation=move(self.participation),
+            local_epochs=move(self.local_epochs))
 
 
 # One-time-warned (packet_len_bits, seg_len, bits_per_value) triples.
@@ -162,15 +213,48 @@ def check_packet_consistency(net: topology.Network, seg_len: int,
                             bits_per_value=bits_per_value)
 
 
-def make_scenario(net: topology.Network, cfg: SimConfig) -> Scenario:
-    """Lift a (Network, SimConfig) pair into a Scenario."""
+def make_scenario(
+    net: topology.Network,
+    cfg: SimConfig,
+    *,
+    participation=None,
+    local_epochs=None,
+    sampling_policy: str | None = None,
+    select_frac: float = 0.5,
+    codec: str | None = None,
+    compress_ratio: float | None = None,
+) -> Scenario:
+    """Lift a (Network, SimConfig) pair into a Scenario.
+
+    Optional axes: ``participation`` an (N,) or (T, N) sampling mask;
+    ``local_epochs`` an (N,) per-client vector; ``sampling_policy`` (a
+    `core.selection.POLICY_IDS` name) makes participation closed-loop,
+    each round selecting ``ceil(select_frac * N)`` clients from live
+    signals, with ``participation`` as the availability base; ``codec`` (a
+    `core.compression.CODEC_IDS` name, default ``cfg.codec``) encodes the
+    exchange at ``compress_ratio`` (default ``cfg.compress_ratio``).
+    """
     if cfg.protocol not in protocols.PROTOCOL_IDS:
         raise ValueError(f"unknown protocol {cfg.protocol!r}: choose from "
                          f"{sorted(protocols.PROTOCOL_IDS)}")
     if cfg.mode not in protocols.MODE_IDS:
         raise ValueError(f"unknown mode {cfg.mode!r}: choose from "
                          f"{sorted(protocols.MODE_IDS)}")
+    codec = cfg.codec if codec is None else codec
+    if codec is not None and codec not in compression.CODEC_IDS:
+        raise ValueError(
+            f"unknown codec {codec!r}: "
+            f"choose from {sorted(compression.CODEC_IDS)}"
+        )
+    ratio = cfg.compress_ratio if compress_ratio is None else compress_ratio
+    if codec is not None and not 0.0 < float(ratio) <= 1.0:
+        raise ValueError(f"compress_ratio must be in (0, 1], got {ratio}")
     check_packet_consistency(net, cfg.seg_len)
+    if sampling_policy is not None and sampling_policy not in selection.POLICY_IDS:
+        raise ValueError(
+            f"unknown sampling_policy {sampling_policy!r}: "
+            f"choose from {sorted(selection.POLICY_IDS)}"
+        )
     return Scenario(
         link_eps=torch.as_tensor(net.link_eps, dtype=torch.float32),
         seed=int(cfg.seed),
@@ -178,6 +262,15 @@ def make_scenario(net: topology.Network, cfg: SimConfig) -> Scenario:
         mode_id=protocols.MODE_IDS[cfg.mode],
         aggregator=int(cfg.cfl_aggregator),
         lr=float(cfg.lr),
+        participation=(None if participation is None else
+                       torch.as_tensor(participation, dtype=torch.float32)),
+        local_epochs=(None if local_epochs is None else
+                      torch.as_tensor(local_epochs, dtype=torch.int32)),
+        policy_id=(None if sampling_policy is None
+                   else selection.POLICY_IDS[sampling_policy]),
+        select_frac=None if sampling_policy is None else float(select_frac),
+        codec_id=None if codec is None else compression.CODEC_IDS[codec],
+        compress_ratio=None if codec is None else float(ratio),
     )
 
 
@@ -208,13 +301,16 @@ def _pad_shards(data: FederatedDataset) -> tuple[np.ndarray, np.ndarray]:
 class SimPrograms:
     """The round loop bound to one (init, apply, data, statics) binding.
 
-    ``round_step(state, scenario, *, u=None, generator=None)`` advances one
-    round on pytree-like state ``{"params": client-stacked dict}`` and
-    evaluates it; ``u`` carries the round's uniforms (see
-    `protocols.dispatch_round_seg`).  ``init_scan(scenario)`` builds the
-    segment-native state ``{"w": (N, S, K) rows, "gen": Generator}`` and
-    ``advance_chunk(state, scenario)`` advances one chunk (``eval_every``
-    rounds, one metrics row); ``run_scenario`` loops it.
+    ``round_step(state, scenario, *, u=None, u_codec=None, generator=None)``
+    advances one round on pytree-like state ``{"params": client-stacked
+    dict}`` and evaluates it; ``u`` carries the round's protocol uniforms
+    (see `protocols.dispatch_round_seg`) and ``u_codec`` the quantizer's
+    (N, S, K) uniforms.  ``init_scan(scenario)`` builds the segment-native
+    state ``{"w": (N, S, K) rows, "gen": Generator, "t": next round[,
+    "sig": SelectionSignals]}`` and ``advance_chunk(state, scenario, *,
+    u=None, u_codec=None)`` advances one chunk (``eval_every`` rounds, one
+    metrics row; ``u`` / ``u_codec`` are then per-round lists);
+    ``run_scenario`` loops it.
     """
 
     round_step: Callable
@@ -230,6 +326,33 @@ class SimPrograms:
     device: torch.device
 
 
+def _optimizer_factory(local_optimizer) -> Callable | None:
+    """``lr -> Optimizer`` for a `build_sim(local_optimizer=)` value."""
+    if local_optimizer is None:
+        return None
+    if isinstance(local_optimizer, str):
+        optimizers.get(local_optimizer, 0.0)   # fail on unknown names now
+        return functools.partial(optimizers.get, local_optimizer)
+    if isinstance(local_optimizer, optimizers.Optimizer):
+        return lambda lr: local_optimizer
+    if callable(local_optimizer):
+        return local_optimizer
+    raise ValueError(
+        "local_optimizer must be None, an optimizer name, an "
+        f"Optimizer, or a factory lr -> Optimizer; got {local_optimizer!r}"
+    )
+
+
+def _per_round(draws, count: int, name: str) -> list:
+    """``advance_chunk``'s explicit draws: None, or one entry a round."""
+    if draws is None:
+        return [None] * count
+    if len(draws) != count:
+        raise ValueError(f"{name} needs one entry per round of the chunk "
+                         f"({count}), got {len(draws)}")
+    return list(draws)
+
+
 def build_sim(
     init_fn: Callable[[torch.Generator], dict],
     apply_fn: Callable[[dict, torch.Tensor], torch.Tensor],
@@ -242,6 +365,7 @@ def build_sim(
     agg_impl: str = "auto",
     eval_every: int = 1,
     track_bias: bool = True,
+    local_optimizer: Any = None,
     device: str | torch.device | None = None,
 ) -> SimPrograms:
     """Bind data + statics into the round loop on ``device``.
@@ -253,7 +377,8 @@ def build_sim(
       data: federated dataset; client shards are padded to a common size by
         tiling (full-batch GD per the paper).
       seg_len: K values per packet segment.
-      local_epochs: I full-batch GD epochs per round.
+      local_epochs: I full-batch epochs per round (the bound that
+        per-client ``Scenario.local_epochs`` clip to).
       n_rounds: rounds in `run_scenario`.
       aayg_mixes: J one-hop mix iterations for AaYG.
       agg_impl: aggregation substrate (auto | torch | kernel; see
@@ -261,6 +386,12 @@ def build_sim(
       eval_every: evaluate test accuracy / train loss only every k-th round
         (must divide ``n_rounds``); ``bias`` stays per-round.
       track_bias: False skips the R&A ||Lambda||^2 diagnostic (NaN).
+      local_optimizer: the local-update rule.  None is the paper's plain
+        full-batch GD; otherwise an `optim.optimizers` name ("sgd",
+        "adamw"), an `optimizers.Optimizer` (its own lr wins over the
+        scenario's) or a factory ``lr -> Optimizer``.  Optimizer state is
+        fresh every round; it acts on all clients' rows at once (its
+        updates are elementwise), outside the vmapped gradient.
       device: where the loop runs; default the CUDA card (raises without
         one).  Pass ``"cpu"`` for the plain path.
     """
@@ -269,6 +400,7 @@ def build_sim(
     if agg_impl not in aggregation.IMPLS:
         raise ValueError(f"agg_impl must be one of {aggregation.IMPLS}, got "
                          f"{agg_impl!r}")
+    opt_factory = _optimizer_factory(local_optimizer)
 
     n = data.n_clients
     p = torch.tensor(data.weights(), dtype=torch.float32, device=dev)
@@ -285,11 +417,20 @@ def build_sim(
     sizes = [int(t.numel()) for t in params_like.values()]
     m_params = sum(sizes)
     s_total = errors.num_segments(m_params, seg_len)
+    # Segments carry the promoted state dtype; the quantizer prices it.
+    bits_per_value = errors.dtype_bits(functools.reduce(
+        torch.promote_types, (t.dtype for t in params_like.values())))
 
     def _leaf_views(row: torch.Tensor) -> dict:
         """One client's params as layout views of its (S, K) row."""
         parts = torch.split(row.reshape(-1)[:m_params], sizes)
         return {nm: pt.reshape(sh) for nm, pt, sh in zip(names, parts, shapes)}
+
+    def _stacked_views(rows: torch.Tensor) -> dict:
+        """Every client's params as layout views of the (N, S, K) rows."""
+        parts = torch.split(rows.reshape(n, -1)[:, :m_params], sizes, dim=1)
+        return {nm: pt.reshape((n,) + sh)
+                for nm, pt, sh in zip(names, parts, shapes)}
 
     def _row_loss(row, x, y):
         return ce_loss(apply_fn(_leaf_views(row), x), y)
@@ -302,10 +443,32 @@ def build_sim(
 
     _batched_acc = torch.func.vmap(_row_acc)
 
-    def local_train(rows: torch.Tensor, lr: float) -> torch.Tensor:
-        """``local_epochs`` full-batch GD steps per client (paper eq. 3)."""
-        for _ in range(local_epochs):
-            rows = rows - lr * _batched_grad(rows, xs, ys)
+    def local_train(rows: torch.Tensor, lr: float,
+                    epochs: torch.Tensor | None = None) -> torch.Tensor:
+        """``local_epochs`` full-batch steps per client (paper eq. 3).
+
+        With a per-client ``epochs`` vector (N,) the loop still runs the
+        static bound, but client m's row and optimizer moments freeze after
+        its own count (values clip to the bound).  The optimizer's step
+        count is shared: once frozen a client stays frozen, so it never
+        reads the count again.
+        """
+        opt = None if opt_factory is None else opt_factory(lr)
+        state = None if opt is None else opt.init(rows)
+        for i in range(local_epochs):
+            g = _batched_grad(rows, xs, ys)
+            if opt is None:
+                new, new_state = rows - lr * g, None
+            else:
+                new, new_state = opt.update(rows, g, state)
+            if epochs is not None:
+                keep = (i < epochs).reshape(n, 1, 1)
+                new = torch.where(keep, new, rows)
+                if new_state is not None:
+                    new_state = {k: v if k == "step" else
+                                 torch.where(keep, v, state[k])
+                                 for k, v in new_state.items()}
+            rows, state = new, new_state
         return rows
 
     def _init_rows(seed: int) -> torch.Tensor:
@@ -314,70 +477,172 @@ def build_sim(
                    for k, v in params0.items()}
         return protocols._to_segments(stacked, seg_len)[0].contiguous()
 
-    def _round_core(w: torch.Tensor, scenario: Scenario, u, generator):
-        """Train -> exchange: returns (new rows, bias)."""
-        trained = local_train(w, scenario.lr)
+    def _participation(scenario_t: Scenario):
+        part = scenario_t.participation
+        return None if part is None else part[:n]
+
+    def _round_core(w: torch.Tensor, scenario: Scenario, part, u, u_codec,
+                    generator, ratio_override=None):
+        """Train -> keep non-participants -> encode -> exchange.
+
+        ``part`` is the realized (N,) participation mask (None: everyone).
+        Returns (new rows, trained rows, bias).  The exchange sees the
+        encoded rows under the codec's transmit mask; the exchange-free
+        protocols and every sampled-out receiver keep the unencoded rows.
+        ``ratio_override`` ((N,), optional) is the budget policy's
+        per-client ratio.
+        """
+        trained = local_train(w, scenario.lr, scenario.local_epochs)
+        if part is not None:
+            trained = torch.where(part[:, None, None] > 0, trained, w)
+        w_send, tx_mask, w_raw = trained, None, None
+        if scenario.codec_id is not None:
+            ratio = (scenario.compress_ratio if ratio_override is None
+                     else ratio_override)
+            w_send, tx_mask = compression.encode(
+                scenario.codec_id, trained, ratio, u=u_codec,
+                generator=generator, n_real=s_total,
+                dtype_bits=bits_per_value)
+            w_raw = trained
         new, _e, bias = protocols.dispatch_round_seg(
-            trained, p, scenario.rho, scenario.link_eps,
+            w_send, p, scenario.rho, scenario.link_eps,
             scenario.protocol_id, scenario.mode_id, scenario.aggregator,
-            n_mixes=aayg_mixes, u=u, generator=generator,
-            agg_impl=agg_impl, track_bias=track_bias,
+            n_mixes=aayg_mixes, participation=part, tx_mask=tx_mask,
+            w_raw=w_raw, u=u, generator=generator, agg_impl=agg_impl,
+            track_bias=track_bias,
         )
-        return new, bias
+        if scenario.codec_id is not None and part is not None:
+            # dispatch restores sampled-out receivers to its input, the
+            # encoded rows; a client that sat the round out keeps its
+            # unencoded state instead.
+            new = torch.where(part[:, None, None] > 0, new, w_raw)
+        return new, trained, bias
+
+    def _advance_closed(w: torch.Tensor, scenario_t: Scenario,
+                        signals: selection.SelectionSignals, u, u_codec,
+                        generator):
+        """Closed-loop round: select -> train -> exchange -> refresh the
+        participants' signals.  Returns (rows, signals, mask, bias)."""
+        base = _participation(scenario_t)
+        base = (torch.ones(n, dtype=torch.float32, device=dev)
+                if base is None else base)
+        rho = scenario_t.rho[:n, :n]
+        mask = selection.select_clients(
+            scenario_t.policy_id, base, signals, p, rho,
+            scenario_t.select_frac)
+        ratio_override = None
+        if scenario_t.codec_id is not None:
+            # Under "budget" the waterfill also sets each client's ratio.
+            ratio_override = selection.budget_ratio(
+                scenario_t.policy_id, base, p, rho, scenario_t.select_frac,
+                scenario_t.compress_ratio)
+        new, trained, bias = _round_core(w, scenario_t, mask, u, u_codec,
+                                         generator, ratio_override)
+        upd = selection.update_norms(_stacked_views(trained),
+                                     _stacked_views(w))
+        chosen = mask > 0
+        signals = selection.SelectionSignals(
+            loss=torch.where(chosen, _batched_loss(new, xs, ys),
+                             signals.loss),
+            upd_norm=torch.where(chosen, upd, signals.upd_norm))
+        return new, signals, mask, bias
 
     def _metrics(rows: torch.Tensor) -> dict:
         return {"acc": _batched_acc(rows), "loss": _batched_loss(rows, xs, ys)}
 
     @torch.no_grad()
-    def round_step(state: dict, scenario: Scenario, *, u=None,
+    def round_step(state: dict, scenario: Scenario, *, u=None, u_codec=None,
                    generator: torch.Generator | None = None):
         """One D-FL round: local training + protocol exchange + metrics.
 
         state: {"params": client-stacked dict (leaves (N, ...))}.  ``u``:
-        this round's uniforms for the protocol (else drawn from
-        ``generator``).
+        this round's protocol uniforms, ``u_codec`` the quantizer's (else
+        both are drawn from ``generator``).  ``scenario`` must be a
+        per-round view (slice a (T, N) schedule with `Scenario.at_round`)
+        of an open-loop scenario.
         """
+        if scenario.policy_id is not None:
+            raise ValueError(
+                "round_step cannot run a closed-loop scenario: the "
+                "sampling policy needs the signal carry that only "
+                "init_scan / advance_chunk thread"
+            )
+        if scenario.participation is not None and \
+                scenario.participation.ndim == 2:
+            raise ValueError(
+                "round_step takes a per-round scenario; slice a dynamic "
+                "scenario with scenario.at_round(t) (advance_chunk does "
+                "this inside its loop)"
+            )
         scenario = scenario.prepare().to(dev)
         stacked = {k: v.to(dev) for k, v in state["params"].items()}
         w_seg, spec, mp = protocols._to_segments(stacked, seg_len)
-        new, bias = _round_core(w_seg, scenario, u, generator)
+        new, _trained, bias = _round_core(
+            w_seg, scenario, _participation(scenario), u, u_codec, generator)
         metrics = {**_metrics(new), "bias": bias}
         return {"params": protocols._from_segments(new, spec, mp)}, metrics
 
     n_chunks = n_rounds // eval_every
 
+    @torch.no_grad()
     def init_scan(scenario: Scenario) -> dict:
-        """The segment-native state at round 0 (before training)."""
+        """The segment-native state at round 0 (before training); a
+        closed-loop scenario's state also carries its signals."""
         gen = torch.Generator(device=dev).manual_seed(int(scenario.seed))
-        return {"w": _init_rows(int(scenario.seed)), "gen": gen}
+        state = {"w": _init_rows(int(scenario.seed)), "gen": gen, "t": 0}
+        if scenario.policy_id is not None:
+            state["sig"] = selection.init_signals(
+                _batched_loss(state["w"], xs, ys))
+        return state
 
     @torch.no_grad()
-    def advance_chunk(state: dict, scenario: Scenario):
-        """Advance ``eval_every`` rounds, drawing from the state's
-        generator; returns (state, metrics row) with per-round ``bias`` and
-        chunk-end ``acc`` / ``loss``."""
+    def advance_chunk(state: dict, scenario: Scenario, *, u=None,
+                      u_codec=None):
+        """Advance ``eval_every`` rounds; returns (state, metrics row) with
+        per-round ``bias`` (and ``selected`` masks for a closed-loop
+        scenario) and chunk-end ``acc`` / ``loss``.  ``u`` / ``u_codec``:
+        optional lists of one round's draws each (see `round_step`), else
+        the state's generator draws."""
         scenario = scenario.prepare().to(dev)
-        w, biases = state["w"], []
-        for _ in range(eval_every):
-            w, bias = _round_core(w, scenario, None, state["gen"])
+        us = _per_round(u, eval_every, "u")
+        ucs = _per_round(u_codec, eval_every, "u_codec")
+        closed = scenario.policy_id is not None
+        w, t, sig = state["w"], state["t"], state.get("sig")
+        biases, chosen = [], []
+        for i in range(eval_every):
+            sc_t = scenario.at_round(t + i)
+            if closed:
+                w, sig, mask, bias = _advance_closed(
+                    w, sc_t, sig, us[i], ucs[i], state["gen"])
+                chosen.append(mask)
+            else:
+                w, _trained, bias = _round_core(
+                    w, sc_t, _participation(sc_t), us[i], ucs[i],
+                    state["gen"])
             biases.append(bias)
-        return ({"w": w, "gen": state["gen"]},
-                {**_metrics(w), "bias": torch.stack(biases)})
+        new_state = {"w": w, "gen": state["gen"], "t": t + eval_every}
+        metrics = {**_metrics(w), "bias": torch.stack(biases)}
+        if closed:
+            new_state["sig"] = sig
+            metrics["selected"] = torch.stack(chosen)
+        return new_state, metrics
 
     def run_scenario(scenario: Scenario) -> dict:
         """Run ``n_rounds`` rounds; metrics as CPU tensors: acc / loss
-        (n_chunks, N), bias (n_rounds,)."""
+        (n_chunks, N), bias (n_rounds,), and for a closed-loop scenario
+        selected (n_rounds, N)."""
         scenario = scenario.prepare().to(dev)
         state = init_scan(scenario)
-        accs, losses, biases = [], [], []
+        rows = []
         for _ in range(n_chunks):
             state, m = advance_chunk(state, scenario)
-            accs.append(m["acc"])
-            losses.append(m["loss"])
-            biases.append(m["bias"])
-        return {"acc": torch.stack(accs).cpu(),
-                "loss": torch.stack(losses).cpu(),
-                "bias": torch.cat(biases).cpu()}
+            rows.append(m)
+        out = {"acc": torch.stack([m["acc"] for m in rows]).cpu(),
+               "loss": torch.stack([m["loss"] for m in rows]).cpu(),
+               "bias": torch.cat([m["bias"] for m in rows]).cpu()}
+        if scenario.policy_id is not None:
+            out["selected"] = torch.cat([m["selected"] for m in rows]).cpu()
+        return out
 
     return SimPrograms(
         round_step=round_step,
@@ -417,6 +682,7 @@ def run(
         seg_len=cfg.seg_len, local_epochs=cfg.local_epochs,
         n_rounds=cfg.n_rounds, aayg_mixes=cfg.aayg_mixes,
         agg_impl=cfg.agg_impl, eval_every=cfg.eval_every,
-        track_bias=cfg.track_bias, device=device,
+        track_bias=cfg.track_bias, local_optimizer=cfg.local_optimizer,
+        device=device,
     )
     return metrics_to_result(sim.run_scenario(make_scenario(net, cfg)))

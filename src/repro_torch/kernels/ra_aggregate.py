@@ -30,6 +30,9 @@ _MASK_CODES = {torch.bool: 0, torch.uint8: 0, torch.float32: 1}
 BODIES = ("register", "shared")   # N <= 16, N > 16
 PLAN_KEYS = ("body", "threads", "smem_bytes", "blocks", "tiles",
              "blocks_per_sm", "receivers_per_warp", "slabs")
+# Launches by variant (without / with a transmit mask), counted where
+# `launch` starts one.
+VARIANT_LAUNCHES = {"plain": 0, "tx": 0}
 
 
 def broadcast_batch(w_seg, p, e, tx=None, *, mode):
@@ -142,6 +145,7 @@ def launch(lib: ctypes.CDLL, w4: torch.Tensor, p2: torch.Tensor,
         raise RuntimeError(f"ra_aggregate kernel launch failed for w_seg "
                            f"{tuple(w4.shape)}: CUDA error {err} (a refused "
                            f"launch: e.g. N too large for shared memory)")
+    VARIANT_LAUNCHES["plain" if tx3 is None else "tx"] += 1
     return out
 
 

@@ -3,7 +3,8 @@
 The reference and the port cannot draw the same random numbers (threefry vs
 Philox), so the tests replay the reference's draws: `round_uniforms`
 rebuilds, from a round key, exactly the uniforms each reference protocol
-draws, in the shapes the port's ``u=`` arguments take.  This module imports
+draws, in the shapes the port's ``u=`` arguments take, and
+`codec_uniforms` the quantizer's (the port's ``u_codec=``).  This module imports
 JAX only inside that function, so the card-only tests can use the rest on
 a machine without JAX.
 """
@@ -32,6 +33,19 @@ def round_uniforms(protocol: str, key, n: int, l: int, n_mixes: int = 1):
                       np.asarray(jax.random.uniform(kdn, (n, l)))])
     else:               # ideal_cfl / none draw nothing
         return None
+    return torch.from_numpy(np.array(u, dtype=np.float32))
+
+
+def codec_uniforms(key, n: int, s: int, k: int):
+    """The reference's quantizer uniforms for the round key ``key``: its
+    simulator draws them from ``fold_in(key, _CODEC_KEY_TAG)`` at the
+    (N, S, K) width, which the port's ``u_codec`` takes."""
+    import jax
+
+    from repro.fl.simulator import _CODEC_KEY_TAG
+
+    u = jax.random.uniform(jax.random.fold_in(key, _CODEC_KEY_TAG),
+                           (n, s, k))
     return torch.from_numpy(np.array(u, dtype=np.float32))
 
 

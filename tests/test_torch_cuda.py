@@ -558,3 +558,36 @@ def test_attention_auto_runs_the_kernel_on_the_card(cuda_device):
     assert ops.LAUNCHES["flash_attention"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["ra", "aayg"])
+def test_codec_exchange_runs_k1_transmit_mask_variant(cuda_device, protocol):
+    """A top-k round's bool (N, S) transmit mask, straight from the codec,
+    reaches K1's transmit-mask variant: once for R&A, once a mix for AaYG,
+    and the result matches the CPU's plain path (1e-5)."""
+    from repro_torch.core import compression, protocols
+    from repro_torch.kernels import ra_aggregate
+
+    rng = np.random.default_rng(0)
+    n, s, k, mixes = 10, 37, 256, 2
+    w = torch.from_numpy(rng.normal(size=(n, s, k)).astype(np.float32))
+    p = torch.from_numpy(rng.dirichlet(np.ones(n)).astype(np.float32))
+    eps = torch.from_numpy(rng.uniform(0.3, 1.0, (n, n)).astype(np.float32))
+    shape = (n, n, s) if protocol == "ra" else (mixes, n, n, s)
+    u = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    w_tx, tx = compression.encode(compression.CODEC_IDS["topk"], w, 0.3)
+    assert tx.dtype == torch.bool and int(tx[0].sum()) == 12
+    pid = protocols.PROTOCOL_IDS[protocol]
+    before = dict(ra_aggregate.VARIANT_LAUNCHES)
+    got, e_got, _ = protocols.dispatch_round_seg(
+        w_tx.to(cuda_device), p.to(cuda_device), eps.to(cuda_device),
+        eps.to(cuda_device), pid, 0, 6, n_mixes=mixes,
+        tx_mask=tx.to(cuda_device), u=u.to(cuda_device))
+    want, e_want, _ = protocols.dispatch_round_seg(
+        w_tx, p, eps, eps, pid, 0, 6, n_mixes=mixes, tx_mask=tx, u=u,
+        agg_impl="kernel")
+    ran = {v: c - before[v] for v, c in ra_aggregate.VARIANT_LAUNCHES.items()}
+    assert ran == {"plain": 0, "tx": 1 if protocol == "ra" else mixes}
+    np.testing.assert_array_equal(e_got.cpu().numpy(), e_want.numpy())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)

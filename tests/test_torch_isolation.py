@@ -45,7 +45,10 @@ def test_every_module_imports_without_jax_or_reference():
     for mod in ("repro_torch.models.transformer",
                 "repro_torch.kernels.rwkv6_scan", "repro_torch.launch.serve",
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.configs.qwen2_5_3b"):
+                "repro_torch.configs.qwen2_5_3b",
+                "repro_torch.core.compression", "repro_torch.core.selection",
+                "repro_torch.optim.optimizers",
+                "repro_torch.core.convergence", "repro_torch.core.overhead"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 

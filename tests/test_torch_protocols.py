@@ -148,3 +148,45 @@ def test_uniform_shapes_are_checked_and_own_draws_work():
     with pytest.raises(ValueError, match="unknown protocol id"):
         protocols.dispatch_round_seg(_t(w), _t(p), _t(rho), _t(link_eps),
                                      9, 0, 6)
+
+
+# The codec threading (tx_mask / w_raw) with the aggregation on the kernel
+# path: the reference's Pallas kernel in interpret mode against the port's
+# K1 plain version.  Static agg_impl, so one compiled program for every
+# protocol and mode.
+J_DISPATCH_PALLAS = jax.jit(
+    lambda *a, **kw: jprot.dispatch_round_seg(*a, agg_impl="pallas", **kw),
+    static_argnames=("n_mixes",))
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["all", "sampled"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("protocol", sorted(protocols.PROTOCOL_IDS))
+def test_dispatch_round_seg_with_codec_masks(protocol, mode, sampled):
+    w, p, link_eps, rho, part = _setup(6, l=6)
+    rng = np.random.default_rng(7)
+    tx = rng.random((N, w.shape[1])) < 0.6
+    w_raw = w + rng.normal(size=w.shape).astype(np.float32)
+    part = part if sampled else None
+    key = jax.random.PRNGKey(5)
+    pid, mid = protocols.PROTOCOL_IDS[protocol], protocols.MODE_IDS[mode]
+    out_j, e_j, bias_j = J_DISPATCH_PALLAS(
+        jnp.asarray(w), jnp.asarray(p), jnp.asarray(rho),
+        jnp.asarray(link_eps), key, jnp.asarray(pid), jnp.asarray(mid),
+        jnp.asarray(6), n_mixes=2,
+        participation=None if part is None else jnp.asarray(part),
+        tx_mask=jnp.asarray(tx), w_raw=jnp.asarray(w_raw))
+    out_t, e_t, bias_t = protocols.dispatch_round_seg(
+        _t(w), _t(p), _t(rho), _t(link_eps), pid, mid, 6, n_mixes=2,
+        participation=None if part is None else _t(part),
+        tx_mask=_t(tx), w_raw=_t(w_raw), agg_impl="kernel",
+        u=round_uniforms(protocol, key, N, w.shape[1], 2))
+    np.testing.assert_array_equal(e_t.numpy(), np.asarray(e_j))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5)
+    np.testing.assert_allclose(float(bias_t), float(bias_j), rtol=1e-5,
+                               equal_nan=True)
+    if protocol in ("ideal_cfl", "none"):   # nothing on the air
+        base = protocols.dispatch_round_seg(
+            _t(w_raw), _t(p), _t(rho), _t(link_eps), pid, mid, 6,
+            participation=None if part is None else _t(part))[0]
+        assert torch.equal(out_t, base)

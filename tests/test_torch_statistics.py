@@ -10,7 +10,8 @@ cannot draw the same numbers (threefry vs Philox; model init from a JAX
 key vs a torch generator), so their runs are held to each other as
 samples: per protocol, the mean over 16 seeds of the final accuracy
 (averaged over clients) may differ by at most four standard errors of
-the difference, taken from the runs' own spread,
+the difference, taken from the runs' own spread (R&A under the top-k codec
+at ratio 0.5 too, through the reference grid's codec axis),
 
     |mean_ref - mean_port| <= 4 * sqrt(s_ref^2 / n + s_port^2 / n),
 
@@ -40,6 +41,8 @@ from repro_torch.models import smallnets  # noqa: E402
 SEEDS = tuple(range(16))
 PROTOCOLS = (("ra", "ra_normalized"), ("ra", "substitution"),
              ("aayg", "ra_normalized"))
+CODEC = ("topk", 0.5)           # R&A normalized under this codec, too
+CODEC_CASE = ("ra", "ra_normalized", "topk0.5")
 STATICS = dict(n_rounds=15, local_epochs=3, seg_len=256)
 NET = dict(edge_density=0.5, packet_len_bits=100_000, n_clients=10,
            tx_power_dbm=17.0)
@@ -69,6 +72,14 @@ def _reference_finals() -> dict:
         finals[(proto, mode)] = np.array([
             float(res.result(f"quickstart/{proto}+{mode}/s{s}").mean_acc[-1])
             for s in SEEDS])
+    codec_grid = jscenarios.ScenarioGrid.product(
+        networks=[("quickstart", net)], protocols=[CODEC_CASE[:2]],
+        seeds=SEEDS, codecs=[(CODEC_CASE[2], *CODEC)])
+    res = jscenarios.run_grid(init, jsmall.apply_mlp_clf, data, codec_grid,
+                              jsimulator.SimConfig(**STATICS))
+    finals[CODEC_CASE] = np.array([
+        float(res.result(f"quickstart/ra+ra_normalized/s{s}").mean_acc[-1])
+        for s in SEEDS])
     return finals
 
 
@@ -89,10 +100,18 @@ def _port_finals() -> dict:
             m = sim.run_scenario(simulator.make_scenario(net, cfg))
             accs.append(float(simulator.metrics_to_result(m).mean_acc[-1]))
         finals[(proto, mode)] = np.array(accs)
+    accs = []
+    for s in SEEDS:
+        cfg = simulator.SimConfig(protocol="ra", seed=s, **STATICS)
+        m = sim.run_scenario(simulator.make_scenario(
+            net, cfg, codec=CODEC[0], compress_ratio=CODEC[1]))
+        accs.append(float(simulator.metrics_to_result(m).mean_acc[-1]))
+    finals[CODEC_CASE] = np.array(accs)
     return finals
 
 
-@pytest.mark.parametrize("protocol", PROTOCOLS, ids=lambda pm: "+".join(pm))
+@pytest.mark.parametrize("protocol", PROTOCOLS + (CODEC_CASE,),
+                         ids=lambda pm: "+".join(pm))
 def test_final_accuracy_matches_reference_over_seeds(protocol):
     ref, port = _reference_finals()[protocol], _port_finals()[protocol]
     n = len(SEEDS)
@@ -104,6 +123,8 @@ def test_final_accuracy_matches_reference_over_seeds(protocol):
     assert s_ref > 0 and s_port > 0
     gap = abs(ref.mean() - port.mean())
     bound = N_SE * math.sqrt(s_ref ** 2 / n + s_port ** 2 / n)
+    print(f"{'+'.join(protocol)}: reference {ref.mean():.4f}, port "
+          f"{port.mean():.4f}, {N_SE * gap / bound:.1f} standard errors")
     assert gap <= bound, (
         f"{protocol}: mean final accuracy {ref.mean():.4f} (reference) vs "
         f"{port.mean():.4f} (port), gap {gap:.4f} > {N_SE:g} standard "
