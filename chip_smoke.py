@@ -105,6 +105,28 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  identical.
  15. dense-serve-profile — one full-width prefill and one decode step under
                  torch.profiler: device time by kernel, K2's share.
+ 16. grid      — the scenario-grid engine (`fl.scenarios.GridRunner`) at the
+                 slice's width (paper CNN, 10 clients, 600 samples of
+                 28x28x1, 3 rounds, 2 local epochs), three sub-grids:
+                 grid12 (examples/sweep_grid.py's axes: 32,768- and
+                 400,000-bit Table-II networks x R&A normalized, R&A
+                 substitution, AaYG x seeds 0, 1: 3 groups of 4), relays
+                 (Fig. 9: ideal C-FL on the Table-II network plus R&A on
+                 10 clients with 0 / 7 / 14 / 28 routing-only relays, V
+                 padded to 38) and dynamic (R&A under a Markov and a fading
+                 link schedule, a (3, 10) sampling schedule, top-k 0.5).
+                 K1's launch counts are set to 0 before the three batched
+                 runs and must read 15 after them (one a round per R&A
+                 group: 9 + 3 + 3; 3 through the transmit-mask variant),
+                 each launch's B the group's size (`BATCH_LAUNCHES`).
+                 Every batched row is held to the same scenario through
+                 `run_sequential` on the card (the same seeds, so the same
+                 draws): per-client train loss within 1e-4, accuracy within
+                 one test sample.  Prints each sub-grid's wall seconds,
+                 scenarios per second and peak device memory, batched and
+                 sequential; then one profiled batched round of a grid12
+                 group: local training's gradient passes, the exchange and
+                 K1 in it, by device time.
 
 It then prints the card line, one JSON line describing every ported kernel,
 and last a JSON line with the device.  Without CUDA, or without the rest of
@@ -232,6 +254,16 @@ CODEC_ROWS = [
           compress_ratio=0.5), None),
     ("ra+adamw", "ra", "ra_normalized", {}, "adamw"),
 ]
+# Phase 16 (the scenario-grid engine): Fig. 9's relay counts, the Markov
+# churn of the dynamic sub-grid, K1's launches over the three sub-grids
+# (grid12: 3 groups x 3 rounds; relays: 3, ideal C-FL launches none;
+# dynamic: 3, through the transmit-mask variant), and the limit on a batched
+# row's per-client train loss against the same scenario run alone (sums
+# taken in another order by the grouped convolutions over 3 rounds).
+GRID_RELAYS = (0, 7, 14, 28)
+GRID_P_DROP = 0.3
+GRID_K1_LAUNCHES = 15
+GRID_LOSS_TOL = 1e-4
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -596,7 +628,9 @@ def _profiled(fn, ranges=()):
     aten ops also report the device time of the kernels they launched.
     With ``ranges`` (names of `record_function` ranges opened inside
     ``fn``) it also returns {name: device us of the kernels launched in
-    that range}, the ranges' own events left out of the kernel list."""
+    that range}, the ranges' own events left out of the kernel list; a
+    name ending in ``*`` sums every CPU event whose name starts with the
+    rest (none of which may nest in another)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -612,8 +646,13 @@ def _profiled(fn, ranges=()):
                and ev.self_device_time_total > 0 and ev.key not in ranges]
     if not ranges:
         return wall_ms, kernels
+    def matches(key, name):
+        return (key.startswith(name[:-1]) if name.endswith("*")
+                else key == name)
+
     spans = {name: sum(ev.device_time_total for ev in averages
-                       if ev.key == name and ev.device_type.name == "CPU")
+                       if matches(ev.key, name)
+                       and ev.device_type.name == "CPU")
              for name in ranges}
     return wall_ms, kernels, spans
 
@@ -1512,6 +1551,217 @@ def profile_serve(cfg, res, tag, kernel):
                   f"ms x{ev.count:<5d} {ev.key[:100]}")
 
 
+def grid_grids():
+    """Phase 16's three sub-grids at the slice's width: (name, grid)."""
+    from repro_torch.core import topology
+    from repro_torch.fl import scenarios
+
+    grid = scenarios.ScenarioGrid
+    table_ii = topology.paper_network(packet_len_bits=32768)
+    grid12 = grid.product(
+        networks=[(f"pkt{bits}", topology.paper_network(packet_len_bits=bits))
+                  for bits in (32768, 400_000)],
+        protocols=[("ra", "ra_normalized"), ("ra", "substitution"),
+                   ("aayg", "ra_normalized")],
+        seeds=[0, 1])
+    relays = grid.concat(
+        grid.product(networks=[("standard", table_ii)],
+                     protocols=[("ideal_cfl", "ra_normalized")]),
+        grid.product(networks=[
+            (f"relays{r}", topology.paper_network_with_relays(
+                r, edge_density=0.15, tx_power_dbm=17.0,
+                packet_len_bits=32768))
+            for r in GRID_RELAYS]))
+    dynamic = grid.product(
+        schedules=[
+            ("markov", topology.markov_link_schedule(
+                table_ii, 3, p_drop=GRID_P_DROP, seed=0)),
+            ("fading", topology.fading_per_schedule(table_ii, 3, seed=0))],
+        participation=[("half", scenarios.sampling_schedule(10, 3, 0.5,
+                                                            seed=0))],
+        codecs=[("topk", "topk", 0.5)])
+    return [("grid12", grid12), ("relays", relays), ("dynamic", dynamic)]
+
+
+def grid_phase(dev, sync, **inputs):
+    """Phase 16: the scenario-grid engine at the slice's width.  Returns
+    (K1 launches, those through the transmit-mask variant, launches by
+    batch size, the runner and grid12 for the profile)."""
+    import warnings
+
+    from repro_torch.core import protocols
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+    from repro_torch.models import smallnets
+
+    data, _net, init, base = slice_inputs(**inputs)
+    runner = scenarios.GridRunner(init, smallnets.apply_cnn, data, base,
+                                  device=dev)
+    grids = grid_grids()
+    # grid12's 400,000-bit PER packets against 32,768-bit segments.
+    warnings.filterwarnings("ignore",
+                            category=simulator.PacketLengthMismatchWarning)
+    expected, expected_tx, expected_b = 0, 0, {}
+    for name, grid in grids:
+        print(f"[grid] {name}: {len(grid)} scenarios, V = "
+              f"{grid.scenarios.link_eps.shape[-1]}, groups "
+              f"{[len(g) for g in runner._index_groups(grid)]}; programs "
+              f"built: {runner.warmup(grid)}")
+        for idx in runner._index_groups(grid):
+            sc = grid.scenario(idx[0])
+            per_round = {protocols.PROTOCOL_IDS["ra"]: 1,
+                         protocols.PROTOCOL_IDS["aayg"]: base.aayg_mixes}.get(
+                             sc.protocol_id, 0)
+            expected += per_round * base.n_rounds
+            if sc.codec_id is not None:
+                expected_tx += per_round * base.n_rounds
+            if per_round:
+                expected_b[len(idx)] = (expected_b.get(len(idx), 0)
+                                        + per_round * base.n_rounds)
+        runner.run(grid)                 # warm-up: cuDNN plans, allocator
+    sync()
+
+    ops.LAUNCHES["ra_aggregate"] = 0
+    for key in _ra.VARIANT_LAUNCHES:
+        _ra.VARIANT_LAUNCHES[key] = 0
+    _ra.BATCH_LAUNCHES.clear()
+    batched = {}
+    for name, grid in grids:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = runner.run(grid)
+        sync()
+        batched[name] = (res, time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated(dev))
+    launches = ops.LAUNCHES["ra_aggregate"]
+    tx_launches = _ra.VARIANT_LAUNCHES["tx"]
+    by_batch = dict(sorted(_ra.BATCH_LAUNCHES.items()))
+    check(launches == expected and tx_launches == expected_tx
+          and by_batch == dict(sorted(expected_b.items()))
+          and launches == GRID_K1_LAUNCHES,
+          f"ra_aggregate launched {launches} times on the grid path "
+          f"({tx_launches} through the transmit-mask variant; by batch size "
+          f"{by_batch}), expected {expected} ({expected_tx}; "
+          f"{expected_b})")
+    print(f"[grid] ra_aggregate launches on the grid path: {launches} "
+          f"(expected {expected}; one per round per group, not per "
+          f"scenario), {tx_launches} through the transmit-mask variant "
+          f"(expected {expected_tx}); launches by batch size B: {by_batch}")
+
+    test_n = len(data.test_y)
+    for name, grid in grids:
+        res, secs, peak = batched[name]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        seq = runner.run_sequential(grid)
+        sync()
+        seq_secs = time.perf_counter() - t0
+        seq_peak = torch.cuda.max_memory_allocated(dev)
+        check(res.acc.shape == (len(grid), base.n_rounds, 10)
+              and bool(np.isfinite(res.acc).all()
+                       and np.isfinite(res.loss).all()),
+              f"{name}: metric shapes {res.acc.shape} or non-finite values")
+        loss_gap = float(np.abs(res.loss - seq.loss).max())
+        acc_gap = float(np.abs(res.acc - seq.acc).max())
+        check(loss_gap <= GRID_LOSS_TOL and acc_gap <= 1.0 / test_n + 1e-6,
+              f"{name}: batched rows depart from run_sequential: loss "
+              f"{loss_gap:.3e} (tol {GRID_LOSS_TOL:g}), accuracy "
+              f"{acc_gap:.4f} (tol 1/{test_n})")
+        rounds = len(grid) * base.n_rounds
+        print(f"[grid] {name}: batched {secs:.4f} s ({len(grid) / secs:.3f} "
+              f"scenarios/s, {secs / base.n_rounds:.4f} s a round of the "
+              f"grid), peak {peak / 2**30:.3f} GiB | run_sequential "
+              f"{seq_secs:.4f} s ({len(grid) / seq_secs:.3f} scenarios/s, "
+              f"{seq_secs / rounds:.4f} s a scenario-round), peak "
+              f"{seq_peak / 2**30:.3f} GiB | speedup "
+              f"{seq_secs / secs:.3f}x | max |loss gap| {loss_gap:.3e}, "
+              f"max acc gap {acc_gap:.4f}")
+        for i, label in enumerate(res.labels):
+            bias = res.bias[i, -1]
+            print(f"[grid]   {label:40s} final acc {res.mean_acc[i, -1]:.4f}"
+                  f" loss {res.loss[i, -1].mean():.4f} bias "
+                  f"{'n/a' if bias != bias else f'{bias:.5f}'}")
+    return launches, tx_launches, by_batch, runner, grids[0][1]
+
+
+def profile_grid_round(runner, grid, **inputs):
+    """Phase 16, last: one batched round of a grid12 group (R&A normalized,
+    G = 4) under torch.profiler (``inputs`` as `grid_phase` takes them).
+    Local training's forward passes run in a named range around each
+    `torch.func.grad` call; their backward passes run on the autograd
+    engine's device thread, outside it, and are read from its
+    ``evaluate_function`` events; the exchange is a range around
+    `protocols.dispatch_round_seg`, K1 its kernel's events."""
+    from torch.profiler import record_function
+
+    from repro_torch.core import protocols
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.models import smallnets
+
+    orig_grad, orig_dispatch = torch.func.grad, protocols.dispatch_round_seg
+
+    def ranged_grad(fn, *args, **kwargs):
+        inner = orig_grad(fn, *args, **kwargs)
+
+        def call(*a, **k):
+            with record_function("grid:local_train"):
+                return inner(*a, **k)
+        return call
+
+    def ranged_dispatch(*args, **kwargs):
+        with record_function("grid:exchange"):
+            return orig_dispatch(*args, **kwargs)
+
+    sim = runner.sim
+    torch.func.grad = ranged_grad    # the sim below binds the ranged grad
+    try:
+        data, _net, init, base = slice_inputs(**inputs)
+        psim = simulator.build_sim(
+            init, smallnets.apply_cnn, data, seg_len=base.seg_len,
+            local_epochs=base.local_epochs, n_rounds=base.n_rounds,
+            device=sim.device)
+    finally:
+        torch.func.grad = orig_grad
+    idx = runner._index_groups(grid)[0]
+    axes, args = scenarios._hoist_uniform(grid.take(idx).scenarios)
+    sb = psim.prepare_batch(args, axes)
+    state = psim.init_scan_batch(sb)
+    psim.advance_chunk_batch(state, sb)          # warm-up
+    protocols.dispatch_round_seg = ranged_dispatch
+    try:
+        backward = "autograd::engine::evaluate_function*"
+        wall_ms, events, spans = _profiled(
+            lambda: psim.advance_chunk_batch(state, sb),
+            ranges=("grid:local_train", "grid:exchange", backward))
+    finally:
+        protocols.dispatch_round_seg = orig_dispatch
+    dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
+    k1_us = sum(ev.self_device_time_total for ev in k1)
+    fwd_ms = spans["grid:local_train"] / 1e3
+    bwd_ms = spans[backward] / 1e3
+    train_ms = fwd_ms + bwd_ms
+    exch_ms = spans["grid:exchange"] / 1e3
+    if dev_ms <= 0 or train_ms <= 0:
+        print(f"[grid-profile] one batched round: wall {wall_ms:.2f} ms, "
+              f"device split not measured (device kernels {dev_ms:.3f} ms, "
+              f"local-training range {train_ms:.3f} ms)")
+        return
+    print(f"[grid-profile] one batched round of {grid.labels[idx[0]]!r}'s "
+          f"group (G = {len(idx)}): wall {wall_ms:.2f} ms, device kernels "
+          f"{dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}% of wall busy): "
+          f"local training's gradient passes {train_ms:.3f} ms "
+          f"({100 * train_ms / dev_ms:.1f}%: forward {fwd_ms:.3f}, "
+          f"backward {bwd_ms:.3f}), exchange {exch_ms:.3f} ms of "
+          f"which K1 {k1_us:.1f} us in {sum(ev.count for ev in k1)} "
+          f"launch(es), the rest (updates, metrics) "
+          f"{dev_ms - train_ms - exch_ms:.3f} ms")
+    for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:8]:
+        print(f"[grid-profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
+              f"x{ev.count:<5d} {ev.key[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1612,6 +1862,13 @@ def main() -> int:
     # 15. dense-serve-profile
     profile_serve(dense_cfg, res, "dense-serve", "flash_attention")
     del res
+    torch.cuda.empty_cache()
+
+    # 16. grid (the scenario-grid engine)
+    grid_launches, grid_tx, grid_batches, runner, grid12 = grid_phase(
+        dev, torch.cuda.synchronize)
+    profile_grid_round(runner, grid12)
+    del runner
 
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
@@ -1623,10 +1880,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ra_aggregate.cu",
         "replaces": "src/repro/kernels/ra_aggregate.py:177",
-        "launches": launches + codec_launches,
+        "launches": launches + codec_launches + grid_launches,
         "launches_by_path": {"slice": launches,
-                             "slice-codec": codec_launches},
-        "tx_launches": tx_launches,
+                             "slice-codec": codec_launches,
+                             "grid": grid_launches},
+        "tx_launches": tx_launches + grid_tx,
+        "grid_launches_by_batch": {str(b): c for b, c in
+                                   grid_batches.items()},
         "max_abs_err": worst_f32,
         "ms": main_row["ms_cold"],
         "ms_warm_l2": main_row["ms_warm"],

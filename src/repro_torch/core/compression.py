@@ -52,11 +52,12 @@ def quant_bits(compress_ratio, dtype_bits: int = 32) -> torch.Tensor:
 
 def descending_ranks(scores: torch.Tensor) -> torch.Tensor:
     """Rank of each entry along the last axis under a stable descending
-    sort (ties toward the lower index), built by scatter."""
+    sort (ties toward the lower index), built by scatter (out of place:
+    `torch.func.vmap` batches it, where it loops over an in-place one)."""
     order = torch.argsort(-scores, dim=-1, stable=True)
     pos = torch.arange(scores.shape[-1], device=scores.device)
-    return torch.empty_like(order).scatter_(-1, order,
-                                            pos.expand_as(order))
+    return torch.scatter(torch.empty_like(order), -1, order,
+                         pos.expand_as(order))
 
 
 def topk_transmit_mask(w_rows: torch.Tensor, compress_ratio, *,

@@ -12,9 +12,11 @@ State is segment-native, as in the reference: client-stacked segment rows
 of a row as the model's parameters (reshape/split/slice), so the codec
 padding past the last parameter gets zero gradient.
 
-The loop is a Python loop over rounds (the reference scans).  Each
-`Scenario` is one static network (rank-2 ``link_eps``; link schedules are
-ROADMAP Queue 1 item 5).  A scenario may also carry, as in the reference:
+The loop is a Python loop over rounds (the reference scans).  A
+`Scenario` is one network (rank-2 ``link_eps``) or a link schedule
+(rank-3 (T, V, V) ``link_eps``; round t uses entry ``t % T``, each entry
+routed once by `Scenario.prepare`).  A scenario may also carry, as in the
+reference:
 
   * a ``participation`` mask (N,) or (T, N) (client sampling: sampled-out
     clients keep their parameters and take no part in any aggregation)
@@ -38,6 +40,19 @@ take a round's uniforms explicitly (``u`` for the protocol, ``u_codec``
 for the quantizer), which is how the parity tests replay the reference's
 key chain.
 
+A batch of G scenarios (`SimPrograms.prepare_batch`, then
+`init_scan_batch` / `advance_chunk_batch` / `run_scenario_batch`; the
+engine that builds such batches is `fl.scenarios`) runs the same round
+under `torch.func.vmap` over the G scenarios.  Fields equal across the
+batch are hoisted out of the vmap; the discrete ids (protocol, mode,
+aggregator, codec, policy) must be, since the round branches on them in
+Python.  No draw happens inside the vmap: each scenario draws its round's
+uniforms from its own generator, seeded with its seed, in the order and
+shapes of the scalar path (`_round_draws`), so row i of a batch uses the
+numbers the scalar path uses for that scenario.  A round of the batch runs
+one local-training pass over G * N clients and one K1 launch for R&A (J
+for AaYG), whatever G is.
+
 Entry points `build_sim` and `run` run on the CUDA card unless the caller
 passes ``device="cpu"``.  On CUDA, TF32 is off for matmuls and cuDNN
 convolutions (`repro_torch.resolve_device`): the reference computes in
@@ -46,12 +61,16 @@ float32.
 Public API
 ----------
   SimConfig                 static + default per-scenario knobs
-  Scenario / make_scenario  one static grid point
+  Scenario / make_scenario  one grid point or a trajectory of them
   build_sim(...)            bind (init, apply, data, statics) -> SimPrograms
-  Scenario.at_round(t)      per-round view of a participation schedule
+  Scenario.prepare()        route (each entry of a link schedule, once)
+  Scenario.at_round(t)      per-round view of a dynamic scenario
   SimPrograms.round_step    (state, scenario, u=, u_codec=) -> (state, metrics)
   SimPrograms.advance_chunk (state, scenario, u=, u_codec=) -> (state, metrics)
   SimPrograms.run_scenario  scenario -> metrics dict (n_rounds)
+  SimPrograms.prepare_batch (batch, axes) -> ScenarioBatch (G scenarios)
+  SimPrograms.{init_scan,advance_chunk,run_scenario}_batch
+                            the same over a ScenarioBatch, (G, ...) metrics
   run                       scalar one-scenario entry point -> SimResult
 """
 from __future__ import annotations
@@ -114,18 +133,21 @@ class SimConfig:
 class Scenario(NamedTuple):
     """One grid point, or a trajectory of them.
 
-    ``link_eps`` is the (V, V) per-link packet success matrix; ``rho`` the
-    derived min-E2E-PER success matrix (None until `prepare`).
-    ``participation`` is an optional (N,) or (T, N) client sampling mask
-    (round t uses row ``t % T``); ``local_epochs`` an optional (N,)
-    per-client epoch vector.  ``policy_id`` / ``select_frac`` select a
-    closed-loop sampling policy (`core.selection.POLICY_IDS`), with the
-    ``participation`` schedule as the availability base; ``codec_id`` /
-    ``compress_ratio`` an exchange codec (`core.compression.CODEC_IDS`).
-    Every optional field defaults to the static behaviour.
+    ``link_eps`` is the (V, V) per-link packet success matrix, or a
+    (T, V, V) schedule of them (round t uses entry ``t % T``); networks of
+    fewer nodes may be padded with isolated nodes, which leaves the routed
+    client block unchanged.  ``rho`` is the derived min-E2E-PER success
+    matrix of matching rank (None until `prepare`).  ``participation`` is
+    an optional (N,) or (T, N) client sampling mask; ``local_epochs`` an
+    optional (N,) per-client epoch vector.  ``policy_id`` / ``select_frac``
+    select a closed-loop sampling policy (`core.selection.POLICY_IDS`),
+    with the ``participation`` schedule as the availability base;
+    ``codec_id`` / ``compress_ratio`` an exchange codec
+    (`core.compression.CODEC_IDS`).  Every optional field defaults to the
+    static behaviour.
     """
 
-    link_eps: torch.Tensor        # (V, V) float32
+    link_eps: torch.Tensor        # (V, V) / (T, V, V) float32
     seed: int
     protocol_id: int              # protocols.PROTOCOL_IDS
     mode_id: int                  # protocols.MODE_IDS
@@ -140,19 +162,38 @@ class Scenario(NamedTuple):
     compress_ratio: float | None = None         # codec intensity, (0, 1]
 
     def prepare(self) -> "Scenario":
-        """Fill the derived min-E2E-PER success matrix (idempotent)."""
+        """Fill the derived min-E2E-PER success matrix (idempotent).  A
+        rank-3 schedule is routed entry by entry, once, here, outside the
+        round loop."""
         if self.rho is not None:
             return self
-        rho, _ = routing.e2e_success(self.link_eps)
-        return self._replace(rho=rho)
+        return self._replace(rho=route(self.link_eps))
+
+    @property
+    def is_dynamic(self) -> bool:
+        """True if any trajectory axis is active (a link schedule, client
+        sampling, or per-client local epochs)."""
+        return (self.link_eps.ndim == 3 or self.participation is not None
+                or self.local_epochs is not None)
+
+    @property
+    def is_closed_loop(self) -> bool:
+        """True if a live sampling policy decides participation."""
+        return self.policy_id is not None
 
     def at_round(self, t: int) -> "Scenario":
-        """The per-round view: a (T, N) participation schedule sliced at
-        ``t % T``; every other field passes through."""
-        part = self.participation
+        """The static per-round view: a link schedule (and its ``rho``) and
+        a (T, N) participation schedule are sliced at ``t`` modulo their
+        own length; static fields pass through."""
+        s = self
+        if s.link_eps.ndim == 3:
+            tt = t % s.link_eps.shape[0]
+            s = s._replace(link_eps=s.link_eps[tt],
+                           rho=None if s.rho is None else s.rho[tt])
+        part = s.participation
         if part is not None and part.ndim == 2:
-            return self._replace(participation=part[t % part.shape[0]])
-        return self
+            s = s._replace(participation=part[t % part.shape[0]])
+        return s
 
     def to(self, device: torch.device) -> "Scenario":
         def move(x):
@@ -162,6 +203,71 @@ class Scenario(NamedTuple):
             link_eps=self.link_eps.to(device), rho=move(self.rho),
             participation=move(self.participation),
             local_epochs=move(self.local_epochs))
+
+
+def route(link_eps: torch.Tensor) -> torch.Tensor:
+    """The min-E2E-PER success matrix of a (V, V) link matrix, or of each
+    entry of a (T, V, V) schedule (`routing.e2e_success`, one call per
+    entry: a scenario batch routes each entry with the same call, so its
+    rows match the scalar path's bit for bit)."""
+    link_eps = torch.as_tensor(link_eps, dtype=torch.float32)
+    if link_eps.ndim == 3:
+        return torch.stack([routing.e2e_success(le)[0] for le in link_eps])
+    return routing.e2e_success(link_eps)[0]
+
+
+# The fields a scenario batch must hold one value of (the round branches on
+# them in Python), and how every field is held for one scenario.
+BATCH_IDS = ("protocol_id", "mode_id", "aggregator", "codec_id", "policy_id")
+_INT_FIELDS = ("seed",) + BATCH_IDS
+_FLOAT_FIELDS = ("lr", "select_frac", "compress_ratio")
+_TENSOR_DTYPES = {"link_eps": torch.float32, "rho": torch.float32,
+                  "participation": torch.float32,
+                  "local_epochs": torch.int32}
+
+
+def field_value(name: str, value):
+    """One scenario's field as the scalar path holds it (a Python int or
+    float, or a CPU tensor), from a host value such as a grid's numpy
+    leaf."""
+    if value is None:
+        return None
+    if name in _INT_FIELDS:
+        return int(value)
+    if name in _FLOAT_FIELDS:
+        return float(value)
+    if torch.is_tensor(value):
+        return value.to(_TENSOR_DTYPES[name])
+    return torch.tensor(np.asarray(value), dtype=_TENSOR_DTYPES[name])
+
+
+class ScenarioBatch(NamedTuple):
+    """G scenarios prepared for the batched round (`prepare_batch`).
+
+    ``scenario`` holds every hoisted field as the scalar path holds it and
+    every field named in ``mapped`` as a (G, ...) tensor on the run's
+    device; ``rho`` is routed.  ``seeds`` are the G scenario seeds.
+    """
+
+    scenario: Scenario
+    mapped: tuple[str, ...]
+    seeds: tuple[int, ...]
+
+    def at_round(self, t: int) -> Scenario:
+        """`Scenario.at_round` applied row by row: time axes sliced at
+        ``t`` modulo their length (axis 1 of a mapped field)."""
+        s = self.scenario
+        out = {}
+        for name, rank in (("link_eps", 3), ("rho", 3),
+                           ("participation", 2)):
+            x = getattr(s, name)
+            if x is None:
+                continue
+            mapped = name in self.mapped
+            if x.ndim == rank + mapped:
+                tt = t % x.shape[mapped]
+                out[name] = x[:, tt] if mapped else x[tt]
+        return s._replace(**out)
 
 
 # One-time-warned (packet_len_bits, seg_len, bits_per_value) triples.
@@ -179,12 +285,13 @@ def validate_eval_schedule(n_rounds: int, eval_every: int) -> None:
 
 
 def check_packet_len(recorded_bits: int | None, seg_len: int,
-                     *, bits_per_value: int = errors.FLOAT_BITS) -> bool:
+                     *, bits_per_value: int = errors.FLOAT_BITS,
+                     strict: bool = False) -> bool:
     """Validate the codec segment size against a recorded PER packet length.
 
     Returns True when ``bits_per_value * seg_len`` equals the recorded
     packet length (or none was recorded); otherwise warns once per distinct
-    triple.
+    triple, or with ``strict`` (admission) raises ValueError.
     """
     if recorded_bits is None:
         return True
@@ -199,6 +306,8 @@ def check_packet_len(recorded_bits: int | None, seg_len: int,
         "for a self-consistent channel (the paper's own defaults "
         "carry this mismatch)"
     )
+    if strict:
+        raise ValueError(msg)
     key = (int(recorded_bits), int(seg_len), int(bits_per_value))
     if key not in _WARNED_PACKET_PAIRS:
         _WARNED_PACKET_PAIRS.add(key)
@@ -217,6 +326,7 @@ def make_scenario(
     net: topology.Network,
     cfg: SimConfig,
     *,
+    link_schedule=None,
     participation=None,
     local_epochs=None,
     sampling_policy: str | None = None,
@@ -226,7 +336,10 @@ def make_scenario(
 ) -> Scenario:
     """Lift a (Network, SimConfig) pair into a Scenario.
 
-    Optional axes: ``participation`` an (N,) or (T, N) sampling mask;
+    Optional axes: ``link_schedule`` replaces the network's link matrix by
+    a (T, V, V) stack (`topology.markov_link_schedule` /
+    `mobility_link_schedule` / `fading_per_schedule`); ``participation``
+    an (N,) or (T, N) sampling mask;
     ``local_epochs`` an (N,) per-client vector; ``sampling_policy`` (a
     `core.selection.POLICY_IDS` name) makes participation closed-loop,
     each round selecting ``ceil(select_frac * N)`` clients from live
@@ -250,13 +363,15 @@ def make_scenario(
     if codec is not None and not 0.0 < float(ratio) <= 1.0:
         raise ValueError(f"compress_ratio must be in (0, 1], got {ratio}")
     check_packet_consistency(net, cfg.seg_len)
+    link_eps = (net.link_eps if link_schedule is None
+                else np.array(link_schedule, np.float32))
     if sampling_policy is not None and sampling_policy not in selection.POLICY_IDS:
         raise ValueError(
             f"unknown sampling_policy {sampling_policy!r}: "
             f"choose from {sorted(selection.POLICY_IDS)}"
         )
     return Scenario(
-        link_eps=torch.as_tensor(net.link_eps, dtype=torch.float32),
+        link_eps=torch.as_tensor(link_eps, dtype=torch.float32),
         seed=int(cfg.seed),
         protocol_id=protocols.PROTOCOL_IDS[cfg.protocol],
         mode_id=protocols.MODE_IDS[cfg.mode],
@@ -311,12 +426,27 @@ class SimPrograms:
     u=None, u_codec=None)`` advances one chunk (``eval_every`` rounds, one
     metrics row; ``u`` / ``u_codec`` are then per-round lists);
     ``run_scenario`` loops it.
+
+    The batched counterparts run G scenarios at once:
+    ``prepare_batch(batch, axes)`` takes a Scenario of (G, ...) leaves and
+    a Scenario of axes (0: the field varies across the batch, None: it is
+    hoisted, its leaf one scenario's value) and returns a `ScenarioBatch`;
+    ``init_scan_batch(sb)`` builds ``{"w": (G, N, S, K), "gens": G
+    generators, "t"[, "sig"]}``, ``advance_chunk_batch(state, sb, *,
+    u=None, u_codec=None)`` advances one chunk (``u`` / ``u_codec``: None
+    or one entry per scenario, each None or a per-round list as
+    ``advance_chunk`` takes), and ``run_scenario_batch(sb)`` loops it,
+    returning metrics with a leading G axis.
     """
 
     round_step: Callable
     run_scenario: Callable[[Scenario], dict]
     init_scan: Callable[[Scenario], dict]
     advance_chunk: Callable
+    prepare_batch: Callable[[Scenario, Scenario], ScenarioBatch]
+    init_scan_batch: Callable[[ScenarioBatch], dict]
+    advance_chunk_batch: Callable
+    run_scenario_batch: Callable[[ScenarioBatch], dict]
     n_clients: int
     n_rounds: int
     n_chunks: int
@@ -324,6 +454,7 @@ class SimPrograms:
     n_segments: int       # S: segment count of the bound model
     seg_len: int
     device: torch.device
+    bits_per_value: int = errors.FLOAT_BITS   # from the bound state dtype
 
 
 def _optimizer_factory(local_optimizer) -> Callable | None:
@@ -477,6 +608,24 @@ def build_sim(
                    for k, v in params0.items()}
         return protocols._to_segments(stacked, seg_len)[0].contiguous()
 
+    def _round_draws(scenario: Scenario, generator, u, u_codec):
+        """The round's (u, u_codec), drawing the missing ones from
+        ``generator`` in the round's order: the quantizer's (N, S, K)
+        uniforms under ``quant``, then the protocol's (R&A (N, N, S), AaYG
+        (J, N, N, S), C-FL (2, N, S); ideal C-FL and "none" draw
+        nothing)."""
+        if (u_codec is None and scenario.codec_id
+                == compression.CODEC_IDS["quant"]):
+            u_codec = torch.rand((n, s_total, seg_len), generator=generator,
+                                 device=dev)
+        shape = {protocols.PROTOCOL_IDS["ra"]: (n, n, s_total),
+                 protocols.PROTOCOL_IDS["aayg"]: (aayg_mixes, n, n, s_total),
+                 protocols.PROTOCOL_IDS["cfl"]: (2, n, s_total)}.get(
+                     scenario.protocol_id)
+        if u is None and shape is not None:
+            u = torch.rand(shape, generator=generator, device=dev)
+        return u, u_codec
+
     def _participation(scenario_t: Scenario):
         part = scenario_t.participation
         return None if part is None else part[:n]
@@ -490,8 +639,10 @@ def build_sim(
         encoded rows under the codec's transmit mask; the exchange-free
         protocols and every sampled-out receiver keep the unencoded rows.
         ``ratio_override`` ((N,), optional) is the budget policy's
-        per-client ratio.
+        per-client ratio.  Missing uniforms come from ``generator``
+        (`_round_draws`); inside a batch's vmap both are given.
         """
+        u, u_codec = _round_draws(scenario, generator, u, u_codec)
         trained = local_train(w, scenario.lr, scenario.local_epochs)
         if part is not None:
             trained = torch.where(part[:, None, None] > 0, trained, w)
@@ -567,8 +718,9 @@ def build_sim(
                 "sampling policy needs the signal carry that only "
                 "init_scan / advance_chunk thread"
             )
-        if scenario.participation is not None and \
-                scenario.participation.ndim == 2:
+        if scenario.link_eps.ndim == 3 or (
+                scenario.participation is not None
+                and scenario.participation.ndim == 2):
             raise ValueError(
                 "round_step takes a per-round scenario; slice a dynamic "
                 "scenario with scenario.at_round(t) (advance_chunk does "
@@ -644,11 +796,150 @@ def build_sim(
             out["selected"] = torch.cat([m["selected"] for m in rows]).cpu()
         return out
 
+    # ------------------------------------------------------------------
+    # The batched round: G scenarios under one torch.func.vmap.
+    # ------------------------------------------------------------------
+    def prepare_batch(batch: Scenario, axes: Scenario) -> ScenarioBatch:
+        """Route, type and move a batch of G scenarios (see SimPrograms).
+
+        Each distinct link matrix (or schedule) of the batch is routed
+        once, by `route`, the scalar path's own call; ``seed`` must be
+        mapped.
+        """
+        for name in BATCH_IDS:
+            if getattr(axes, name) is not None:
+                raise ValueError(
+                    f"a scenario batch must hold one {name}: the round "
+                    f"branches on it in Python; split the batch by it "
+                    f"(fl.scenarios.GridRunner does)")
+        if axes.seed != 0:
+            raise ValueError("a scenario batch maps its seed (axis 0)")
+        seeds = tuple(int(x) for x in np.asarray(batch.seed))
+        fields, mapped = {"seed": None}, []
+        for name in Scenario._fields:
+            if name == "seed":
+                continue
+            leaf = getattr(batch, name)
+            if leaf is None or getattr(axes, name) is None:
+                fields[name] = field_value(name, leaf)
+            else:
+                mapped.append(name)
+                fields[name] = torch.tensor(np.asarray(leaf), dtype=(
+                    _TENSOR_DTYPES.get(name, torch.float32)))
+        if fields["rho"] is None and "link_eps" in mapped:
+            routed = {}
+            for row in fields["link_eps"]:
+                key = row.numpy().tobytes()
+                if key not in routed:
+                    routed[key] = route(row)
+            fields["rho"] = torch.stack([routed[row.numpy().tobytes()]
+                                         for row in fields["link_eps"]])
+            mapped.append("rho")
+        elif fields["rho"] is None:
+            fields["rho"] = route(fields["link_eps"])
+        fields = {k: v.to(dev) if torch.is_tensor(v) else v
+                  for k, v in fields.items()}
+        return ScenarioBatch(Scenario(**fields), tuple(mapped), seeds)
+
+    @torch.no_grad()
+    def init_scan_batch(sb: ScenarioBatch) -> dict:
+        """`init_scan` for each scenario of the batch: (G, N, S, K) rows,
+        one generator per scenario (each distinct seed's weights built
+        once)."""
+        rows = {seed: _init_rows(seed) for seed in dict.fromkeys(sb.seeds)}
+        w = torch.stack([rows[seed] for seed in sb.seeds])
+        state = {"w": w, "t": 0,
+                 "gens": [torch.Generator(device=dev).manual_seed(seed)
+                          for seed in sb.seeds]}
+        if sb.scenario.policy_id is not None:
+            state["sig"] = selection.init_signals(torch.func.vmap(
+                lambda r: _batched_loss(r, xs, ys))(w))
+        return state
+
+    def _stack_draws(draws):
+        if all(d is None for d in draws):
+            return None
+        return torch.stack([d.to(dev) for d in draws])
+
+    def _batch_round(w, sc_t: Scenario, mapped, sig, u, u_codec):
+        """One round of every scenario of the batch, under one vmap."""
+        closed = sc_t.policy_id is not None
+
+        def one(w_i, sig_i, u_i, uc_i, *vals):
+            sc_i = sc_t._replace(**dict(zip(mapped, vals)))
+            if closed:
+                return _advance_closed(w_i, sc_i, sig_i, u_i, uc_i, None)
+            new, _trained, bias = _round_core(
+                w_i, sc_i, _participation(sc_i), u_i, uc_i, None)
+            return new, bias
+
+        dims = ((0, 0 if closed else None, None if u is None else 0,
+                 None if u_codec is None else 0) + (0,) * len(mapped))
+        out = torch.func.vmap(one, in_dims=dims)(
+            w, sig, u, u_codec, *(getattr(sc_t, nm) for nm in mapped))
+        return out if closed else (out[0], None, None, out[1])
+
+    @torch.no_grad()
+    def advance_chunk_batch(state: dict, sb: ScenarioBatch, *, u=None,
+                            u_codec=None):
+        """`advance_chunk` for every scenario of the batch: metrics with a
+        leading G axis.  ``u`` / ``u_codec``: None, or one entry per
+        scenario (None, or a per-round list as `advance_chunk` takes);
+        what is missing each scenario draws from its own generator."""
+        g = len(sb.seeds)
+        us = [_per_round(x, eval_every, "u")
+              for x in _per_round(u, g, "u (scenarios)")]
+        ucs = [_per_round(x, eval_every, "u_codec")
+               for x in _per_round(u_codec, g, "u_codec (scenarios)")]
+        closed = sb.scenario.policy_id is not None
+        w, t, sig, gens = state["w"], state["t"], state.get("sig"), \
+            state["gens"]
+        biases, chosen = [], []
+        for i in range(eval_every):
+            sc_t = sb.at_round(t + i)
+            draws = [_round_draws(sc_t, gens[j], us[j][i], ucs[j][i])
+                     for j in range(g)]
+            w, sig_new, mask, bias = _batch_round(
+                w, sc_t, sb.mapped, sig, _stack_draws([d[0] for d in draws]),
+                _stack_draws([d[1] for d in draws]))
+            if closed:
+                sig = sig_new
+                chosen.append(mask)
+            biases.append(bias)
+        new_state = {"w": w, "gens": gens, "t": t + eval_every}
+        metrics = {**torch.func.vmap(_metrics)(w),
+                   "bias": torch.stack(biases, dim=1)}
+        if closed:
+            new_state["sig"] = sig
+            metrics["selected"] = torch.stack(chosen, dim=1)
+        return new_state, metrics
+
+    def run_scenario_batch(sb: ScenarioBatch) -> dict:
+        """`run_scenario` for every scenario of the batch: acc / loss
+        (G, n_chunks, N), bias (G, n_rounds)[, selected (G, n_rounds, N)],
+        as CPU tensors."""
+        state = init_scan_batch(sb)
+        rows = []
+        for _ in range(n_chunks):
+            state, m = advance_chunk_batch(state, sb)
+            rows.append(m)
+        out = {"acc": torch.stack([m["acc"] for m in rows], dim=1).cpu(),
+               "loss": torch.stack([m["loss"] for m in rows], dim=1).cpu(),
+               "bias": torch.cat([m["bias"] for m in rows], dim=1).cpu()}
+        if sb.scenario.policy_id is not None:
+            out["selected"] = torch.cat([m["selected"] for m in rows],
+                                        dim=1).cpu()
+        return out
+
     return SimPrograms(
         round_step=round_step,
         run_scenario=run_scenario,
         init_scan=init_scan,
         advance_chunk=advance_chunk,
+        prepare_batch=prepare_batch,
+        init_scan_batch=init_scan_batch,
+        advance_chunk_batch=advance_chunk_batch,
+        run_scenario_batch=run_scenario_batch,
         n_clients=n,
         n_rounds=n_rounds,
         n_chunks=n_chunks,
@@ -656,6 +947,7 @@ def build_sim(
         n_segments=s_total,
         seg_len=seg_len,
         device=dev,
+        bits_per_value=bits_per_value,
     )
 
 

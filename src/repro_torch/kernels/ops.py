@@ -11,6 +11,11 @@
   * `LAUNCHES` counts kernel launches by name, incremented where the kernel
     is launched and nowhere else, so a run can show that its main path went
     through the kernel.
+  * K1 is the custom operator ``repro_torch::ra_aggregate``
+    (`torch.library.custom_op`) with a fake (meta) version and a
+    `torch.func.vmap` rule, the counterpart of the reference's
+    ``custom_vmap`` rules: any vmap over a scenario grid, nested or not,
+    folds into one rank-4 launch (`_ra_vmap_rule`).
 """
 from __future__ import annotations
 
@@ -101,6 +106,97 @@ _REFS = {"ra_normalized": ref.ra_aggregate_ref,
          "substitution": ref.ra_substitution_ref}
 
 
+@torch.library.custom_op("repro_torch::ra_aggregate", mutates_args=())
+def _ra_aggregate_op(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor,
+                     tx: torch.Tensor | None, mode: str) -> torch.Tensor:
+    """K1 on tensors of one device: the plain version on the CPU, the CUDA
+    kernel on the card (one launch, counted here)."""
+    w4, p2, e4, tx3 = _ra.broadcast_batch(w_seg, p, e, tx, mode=mode)
+    if w4.device.type == "cpu":
+        out = _REFS[mode](w4, p2, e4, tx3)
+    else:
+        out = _ra.launch(load_library("ra_aggregate"), w4, p2, e4, tx3,
+                         mode=mode)
+        LAUNCHES["ra_aggregate"] += 1
+    return out if w_seg.ndim == 4 else out[0]
+
+
+@_ra_aggregate_op.register_fake
+def _ra_aggregate_fake(w_seg, p, e, tx, mode):
+    return torch.empty_like(w_seg)
+
+
+def _kernel_batch(t: torch.Tensor) -> torch.Tensor:
+    """A batched (B, ...) operand laid out as the kernel reads it: trailing
+    axes contiguous and the batch stride one entry.  A vmapped ``e`` or
+    ``tx`` can arrive as a strided view (a vmap over a non-leading axis);
+    that costs one copy of the operand here, once per folded launch."""
+    ok = t[0].is_contiguous() and (t.shape[0] == 1
+                                   or t.stride(0) == t[0].numel())
+    return t if ok else t.contiguous()
+
+
+def _fold(t, dim, shared_rank: int, b: int, g: int):
+    """``p`` / ``e`` / ``tx`` for the launch of a vmapped call.
+
+    ``dim`` is the operand's vmapped axis (None: not vmapped at this
+    level); ``shared_rank`` its rank when shared across the call's own
+    batch (1, 3, 2).  ``g`` is None for a rank-3 call, which becomes one
+    rank-4 launch of B = ``b``: an unvmapped operand stays shared, at batch
+    stride 0, with no copy.  For a rank-4 call of G = ``g`` entries the
+    launch has B = b * g entries and one batch stride, so an operand
+    shared along only one of the two axes is expanded and copied (N floats
+    for ``p``; a whole mask for ``e`` or ``tx``, which no caller of the
+    port passes).
+    """
+    if t is None:
+        return None
+    if dim is not None:
+        t = t.movedim(dim, 0)
+    if g is None:
+        return t.contiguous() if dim is None else _kernel_batch(t)
+    per_rank = t.ndim - (0 if dim is None else 1)
+    if dim is None:
+        if per_rank == shared_rank:
+            return t.contiguous()
+        t = t[None].expand((b,) + tuple(t.shape))
+    elif per_rank == shared_rank:
+        t = t[:, None].expand((b, g) + tuple(t.shape[1:]))
+    return _kernel_batch(t.reshape((b * g,) + tuple(t.shape[2:])))
+
+
+def _ra_vmap_rule(info, in_dims, w_seg, p, e, tx, mode):
+    """Fold a vmapped K1 call into one launch.
+
+    Each vmapped axis moves to the front.  A vmapped rank-3 call becomes
+    one rank-4 call of B = batch size; a vmapped rank-4 call of G entries
+    becomes one rank-4 call of B * G.  Nested vmaps reach this rule one
+    level at a time, innermost first: the inner level's rank-4 call is
+    folded again by the outer level, so they too end in one launch.  The
+    call below goes to the next vmap level or, at the last one, to the
+    operator itself (the kernel on the card, the plain version on the
+    CPU).
+    """
+    b = info.batch_size
+    w_dim, p_dim, e_dim, tx_dim = in_dims[:4]
+    if w_dim is None:          # one model, many masks: w is copied B times
+        w = w_seg[None].expand((b,) + tuple(w_seg.shape))
+    else:
+        w = w_seg.movedim(w_dim, 0)
+    g = None if w.ndim == 4 else w.shape[1]
+    if g is not None:
+        w = w.reshape((b * g,) + tuple(w.shape[2:]))
+    out = torch.ops.repro_torch.ra_aggregate(
+        w.contiguous(), _fold(p, p_dim, 1, b, g), _fold(e, e_dim, 3, b, g),
+        _fold(tx, tx_dim, 2, b, g), mode)
+    if g is not None:
+        out = out.reshape((b, g) + tuple(out.shape[1:]))
+    return out, 0
+
+
+_ra_aggregate_op.register_vmap(_ra_vmap_rule)
+
+
 def ra_aggregate(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor, *,
                  tx: torch.Tensor | None = None, mode: str = "ra_normalized",
                  device: str | torch.device | None = None) -> torch.Tensor:
@@ -113,20 +209,18 @@ def ra_aggregate(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor, *,
 
     ``device`` (default: the CUDA card) is where the call runs; every
     input must already lie there.  Without a card, pass ``device="cpu"``.
+
+    Under `torch.func.vmap` (a scenario grid) the call folds into one
+    rank-4 launch per call site, however many vmap levels wrap it
+    (`_ra_vmap_rule`).
     """
     dev = resolve_device(device)
     for name, t in (("w_seg", w_seg), ("p", p), ("e", e), ("tx", tx)):
         if t is not None and t.device.type != dev.type:
             raise ValueError(f"ra_aggregate: {name} is on {t.device}, the "
                              f"call runs on {dev}")
-    w4, p2, e4, tx3 = _ra.broadcast_batch(w_seg, p, e, tx, mode=mode)
-    if w4.device.type == "cpu":
-        out = _REFS[mode](w4, p2, e4, tx3)
-    else:
-        out = _ra.launch(load_library("ra_aggregate"), w4, p2, e4, tx3,
-                         mode=mode)
-        LAUNCHES["ra_aggregate"] += 1
-    return out if w_seg.ndim == 4 else out[0]
+    _ra.broadcast_batch(w_seg, p, e, tx, mode=mode)    # the shape checks
+    return torch.ops.repro_torch.ra_aggregate(w_seg, p, e, tx, mode)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -30,9 +30,10 @@ _MASK_CODES = {torch.bool: 0, torch.uint8: 0, torch.float32: 1}
 BODIES = ("register", "shared")   # N <= 16, N > 16
 PLAN_KEYS = ("body", "threads", "smem_bytes", "blocks", "tiles",
              "blocks_per_sm", "receivers_per_warp", "slabs")
-# Launches by variant (without / with a transmit mask), counted where
-# `launch` starts one.
+# Launches by variant (without / with a transmit mask), and by batch size
+# B, counted where `launch` starts one.
 VARIANT_LAUNCHES = {"plain": 0, "tx": 0}
+BATCH_LAUNCHES: dict[int, int] = {}
 
 
 def broadcast_batch(w_seg, p, e, tx=None, *, mode):
@@ -146,6 +147,7 @@ def launch(lib: ctypes.CDLL, w4: torch.Tensor, p2: torch.Tensor,
                            f"{tuple(w4.shape)}: CUDA error {err} (a refused "
                            f"launch: e.g. N too large for shared memory)")
     VARIANT_LAUNCHES["plain" if tx3 is None else "tx"] += 1
+    BATCH_LAUNCHES[b] = BATCH_LAUNCHES.get(b, 0) + 1
     return out
 
 

@@ -13,6 +13,7 @@ bfloat16 one bfloat16 ulp plus that 1e-5, since both sides round float32
 sums that may differ by it (where a sum cancels to near zero, 1e-5 is
 many ulps of the result).  K3's are stated above its tests.
 """
+import math
 import sys
 from pathlib import Path
 
@@ -591,3 +592,104 @@ def test_codec_exchange_runs_k1_transmit_mask_variant(cuda_device, protocol):
     assert ran == {"plain": 0, "tx": 1 if protocol == "ra" else mixes}
     np.testing.assert_array_equal(e_got.cpu().numpy(), e_want.numpy())
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+# K1 through its vmap rule (`kernels.ops._ra_vmap_rule`): every vmapped call,
+# nested or not, must be one launch of the folded batch, and match the plain
+# version of the rank-4 call.
+VMAP_CASES = {
+    # (a, b, n, l, k): vmap over a of vmap over b (a=None: one level).
+    "single": (None, 4, 10, 37, 256),
+    "nested": (2, 3, 10, 37, 256),
+    "nested_grid12": (3, 4, 10, 412, 1024),    # B * G = 12, the slice width
+    "nested_smem": (2, 2, 20, 9, 256),         # N > 16: shared-memory body
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tx_kind", ["none", "shared", "batched"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", sorted(VMAP_CASES))
+def test_k1_cuda_vmap_folds_into_one_launch(cuda_device, case, mode, tx_kind):
+    from repro_torch.kernels import ra_aggregate
+
+    a, b, n, l, k = VMAP_CASES[case]
+    lead = (b,) if a is None else (a, b)
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.normal(size=lead + (n, l, k)).astype(np.float32))
+    p = torch.from_numpy(rng.dirichlet(np.ones(n)).astype(np.float32))
+    e = torch.from_numpy(rng.random(lead + (n, n, l)) < 0.6)
+    tx = {"none": None,
+          "shared": torch.from_numpy(rng.random((n, l)) < 0.5),
+          "batched": torch.from_numpy(rng.random(lead + (n, l)) < 0.5)}[tx_kind]
+    flat = math.prod(lead)
+    want = ops.ra_aggregate(
+        w.reshape((flat, n, l, k)), p, e.reshape((flat, n, n, l)),
+        tx=None if tx is None else (tx if tx.ndim == 2
+                                    else tx.reshape(flat, n, l)),
+        mode=mode, device="cpu")
+    dev = cuda_device
+    # The mask reaches the rule as a strided view: the batch axis last.
+    e_dev = e.movedim(-4, -1).contiguous().to(dev)
+    tx_dev = None if tx is None else tx.to(dev)
+
+    def k1(w_, e_, tx_):
+        return ops.ra_aggregate(w_, p.to(dev), e_, tx=tx_, mode=mode)
+
+    tx_dim = 0 if tx_kind == "batched" else None
+    fn = torch.func.vmap(k1, in_dims=(0, 3, tx_dim))
+    if a is not None:
+        fn = torch.func.vmap(fn, in_dims=(0, 0, tx_dim))
+    before = ops.LAUNCHES["ra_aggregate"]
+    batches = dict(ra_aggregate.BATCH_LAUNCHES)
+    got = fn(w.to(dev), e_dev, tx_dev)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ra_aggregate"] == before + 1
+    assert ra_aggregate.BATCH_LAUNCHES.get(flat, 0) == batches.get(flat, 0) + 1
+    np.testing.assert_allclose(got.reshape(want.shape).cpu().numpy(),
+                               want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_grid_runner_on_the_card_matches_run_sequential(cuda_device):
+    """A small grid through `GridRunner.run` on the card: one K1 launch a
+    round per R&A group, of B = the group's size, none for C-FL; every
+    launch runs the transmit-mask variant, since concat gives the
+    codec-free rows the `none` codec (an all-ones mask).  Rows agree with
+    `run_sequential` (the same draws) within 1e-4 in loss and one test
+    sample in accuracy."""
+    from repro_torch.core import topology
+    from repro_torch.data import synthetic
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.kernels import ra_aggregate
+    from repro_torch.models import smallnets
+
+    data = synthetic.fed_image_classification(n_clients=10,
+                                              samples_per_client=40)
+    net = topology.paper_network(packet_len_bits=8192)
+    init = lambda g: smallnets.init_mlp_clf(g, d_in=32, d_hidden=16)  # noqa
+    cfg = simulator.SimConfig(seg_len=256, local_epochs=2, n_rounds=3)
+    grid = scenarios.ScenarioGrid.concat(
+        scenarios.ScenarioGrid.product(
+            networks=[("a", net), ("b", topology.paper_network_with_relays(
+                5, packet_len_bits=8192))],
+            protocols=[("ra", "ra_normalized"), ("cfl", "ra_normalized")],
+            seeds=[0, 1]),
+        scenarios.ScenarioGrid.product(
+            schedules=[("m", topology.markov_link_schedule(net, 3,
+                                                           p_drop=0.3))],
+            codecs=[("k", "topk", 0.5)], seeds=[2, 3]))
+    runner = scenarios.GridRunner(init, smallnets.apply_mlp_clf, data, cfg,
+                                  device=cuda_device)
+    seq = runner.run_sequential(grid)
+    ops.LAUNCHES["ra_aggregate"] = 0
+    for name in ra_aggregate.VARIANT_LAUNCHES:
+        ra_aggregate.VARIANT_LAUNCHES[name] = 0
+    ra_aggregate.BATCH_LAUNCHES.clear()
+    got = runner.run(grid)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ra_aggregate"] == 6
+    assert ra_aggregate.VARIANT_LAUNCHES == {"plain": 0, "tx": 6}
+    assert ra_aggregate.BATCH_LAUNCHES == {4: 3, 2: 3}
+    np.testing.assert_allclose(got.loss, seq.loss, atol=1e-4, rtol=0)
+    assert np.abs(got.acc - seq.acc).max() <= 1.0 / len(data.test_y) + 1e-6

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.configs.qwen2_5_3b",
                 "repro_torch.core.compression", "repro_torch.core.selection",
                 "repro_torch.optim.optimizers",
-                "repro_torch.core.convergence", "repro_torch.core.overhead"):
+                "repro_torch.core.convergence", "repro_torch.core.overhead",
+                "repro_torch.fl.scenarios", "repro_torch.launch.tracker"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 
