@@ -127,6 +127,29 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  sequential; then one profiled batched round of a grid12
                  group: local training's gradient passes, the exchange and
                  K1 in it, by device time.
+ 17. serve-tier — the serving tier on phase 16's model, data and statics:
+                 (a) `launch.serving.ScenarioServer` (max_batch 4, one
+                 bucket of 4) serves grid12's 12 scenarios as 12
+                 single-scenario requests from two tenants, a quarter at
+                 priority 1; (b) `launch.router.ScenarioRouter.in_process`
+                 with two replicas on the card serves the same 12, and the
+                 replica owning grid12's first family is killed (its
+                 server hard-stopped while it holds a dispatch) after the
+                 first delivery: all 12 must deliver exactly once, with a
+                 retry; (c) `checkpoint.run_resumable` on the slice's R&A
+                 scenario, interrupted after one chunk and resumed.  K1 is
+                 launched from the servers' dispatcher threads: its counts
+                 are set to 0 before each part and must equal one a round
+                 per dispatched group (from the servers' dispatch logs),
+                 each launch's B the group's padded size, and one a round
+                 of each resumable run.  Served, routed and resumed rows
+                 are held to phase 16's `run_sequential` (and the resumed
+                 run to an uninterrupted one and to `run_scenario`) within
+                 1e-4 in loss and one test sample in accuracy; prints
+                 req/s, p50 / p99 latency, mean coalesced scenarios, batch
+                 fill, the router's counters, peak device memory, whether
+                 the resumed rows are bit-identical and save / restore
+                 seconds.
 
 It then prints the card line, one JSON line describing every ported kernel,
 and last a JSON line with the device.  Without CUDA, or without the rest of
@@ -264,6 +287,11 @@ GRID_RELAYS = (0, 7, 14, 28)
 GRID_P_DROP = 0.3
 GRID_K1_LAUNCHES = 15
 GRID_LOSS_TOL = 1e-4
+# Phase 17 (the serving tier): the servers' batch cap (one bucket of it),
+# their coalescing window, and the bound of every wait on a future.
+SERVE_TIER_BATCH = 4
+SERVE_TIER_DELAY_S = 0.05
+SERVE_TIER_WAIT_S = 600.0
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -1551,6 +1579,24 @@ def profile_serve(cfg, res, tag, kernel):
                   f"ms x{ev.count:<5d} {ev.key[:100]}")
 
 
+def _reset_k1_counts():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+
+    ops.LAUNCHES["ra_aggregate"] = 0
+    for key in _ra.VARIANT_LAUNCHES:
+        _ra.VARIANT_LAUNCHES[key] = 0
+    _ra.BATCH_LAUNCHES.clear()
+
+
+def _k1_counts():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+
+    return ops.LAUNCHES["ra_aggregate"], dict(sorted(
+        _ra.BATCH_LAUNCHES.items()))
+
+
 def grid_grids():
     """Phase 16's three sub-grids at the slice's width: (name, grid)."""
     from repro_torch.core import topology
@@ -1586,7 +1632,8 @@ def grid_grids():
 def grid_phase(dev, sync, **inputs):
     """Phase 16: the scenario-grid engine at the slice's width.  Returns
     (K1 launches, those through the transmit-mask variant, launches by
-    batch size, the runner and grid12 for the profile)."""
+    batch size, the runner and grid12 for the profile, and grid12's
+    `run_sequential` result for phase 17)."""
     import warnings
 
     from repro_torch.core import protocols
@@ -1622,10 +1669,7 @@ def grid_phase(dev, sync, **inputs):
         runner.run(grid)                 # warm-up: cuDNN plans, allocator
     sync()
 
-    ops.LAUNCHES["ra_aggregate"] = 0
-    for key in _ra.VARIANT_LAUNCHES:
-        _ra.VARIANT_LAUNCHES[key] = 0
-    _ra.BATCH_LAUNCHES.clear()
+    _reset_k1_counts()
     batched = {}
     for name, grid in grids:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1650,11 +1694,12 @@ def grid_phase(dev, sync, **inputs):
           f"(expected {expected_tx}); launches by batch size B: {by_batch}")
 
     test_n = len(data.test_y)
+    seqs = {}
     for name, grid in grids:
         res, secs, peak = batched[name]
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        seq = runner.run_sequential(grid)
+        seq = seqs[name] = runner.run_sequential(grid)
         sync()
         seq_secs = time.perf_counter() - t0
         seq_peak = torch.cuda.max_memory_allocated(dev)
@@ -1682,7 +1727,8 @@ def grid_phase(dev, sync, **inputs):
             print(f"[grid]   {label:40s} final acc {res.mean_acc[i, -1]:.4f}"
                   f" loss {res.loss[i, -1].mean():.4f} bias "
                   f"{'n/a' if bias != bias else f'{bias:.5f}'}")
-    return launches, tx_launches, by_batch, runner, grids[0][1]
+    return launches, tx_launches, by_batch, runner, grids[0][1], \
+        seqs["grid12"]
 
 
 def profile_grid_round(runner, grid, **inputs):
@@ -1760,6 +1806,258 @@ def profile_grid_round(runner, grid, **inputs):
     for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:8]:
         print(f"[grid-profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
               f"x{ev.count:<5d} {ev.key[:100]}")
+
+
+def _expected_k1(runner, probes, base):
+    """K1 launches of the dispatches the probes logged: one a round per R&A
+    group (J per AaYG round), each of B = the group's padded size."""
+    from repro_torch.core import protocols
+    from repro_torch.fl import scenarios
+
+    total, by_b, groups = 0, {}, 0
+    for probe in probes:
+        for grid, pad in probe.ran:
+            for idx in runner._index_groups(grid):
+                groups += 1
+                per_round = {protocols.PROTOCOL_IDS["ra"]: 1,
+                             protocols.PROTOCOL_IDS["aayg"]:
+                             base.aayg_mixes}.get(
+                                 grid.scenario(idx[0]).protocol_id, 0)
+                if per_round:
+                    b = scenarios._bucket_target(len(idx), pad)
+                    total += per_round * base.n_rounds
+                    by_b[b] = by_b.get(b, 0) + per_round * base.n_rounds
+    return total, dict(sorted(by_b.items())), groups
+
+
+def _hold_to_sequential(tag, labels, results, seq, test_n):
+    """Each served row against the same scenario of phase 16's
+    `run_sequential`: loss within GRID_LOSS_TOL, accuracy within one test
+    sample.  Returns the largest gaps."""
+    loss_gap = acc_gap = 0.0
+    for lbl, res in zip(labels, results):
+        check(res.labels == [lbl], f"{tag}: {lbl} came back as {res.labels}")
+        i = seq.labels.index(lbl)
+        check(bool(np.isfinite(res.loss).all() and np.isfinite(res.acc).all()),
+              f"{tag}: {lbl}: non-finite values")
+        loss_gap = max(loss_gap, float(np.abs(res.loss[0] - seq.loss[i]).max()))
+        acc_gap = max(acc_gap, float(np.abs(res.acc[0] - seq.acc[i]).max()))
+    check(loss_gap <= GRID_LOSS_TOL and acc_gap <= 1.0 / test_n + 1e-6,
+          f"{tag}: served rows depart from run_sequential: loss "
+          f"{loss_gap:.3e} (tol {GRID_LOSS_TOL:g}), accuracy {acc_gap:.4f} "
+          f"(tol 1/{test_n})")
+    return loss_gap, acc_gap
+
+
+def serve_tier_phase(dev, sync, runner, grid12, seq12, **inputs):
+    """Phase 17: the serving tier on the card (see the module docstring).
+    ``runner`` / ``grid12`` / ``seq12`` come from phase 16; ``inputs`` as
+    `grid_phase` takes them.  Returns K1's launches by path."""
+    import tempfile
+    import threading
+    import warnings
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_serving_faults import install, kill_replica
+
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.core import topology
+    from repro_torch.fl import simulator
+    from repro_torch.launch import router, serving
+    from repro_torch.models import smallnets
+
+    warnings.filterwarnings("ignore",
+                            category=simulator.PacketLengthMismatchWarning)
+    data, _net, init, base = slice_inputs(**inputs)
+    test_n = len(data.test_y)
+    # grid12's 400,000-bit PER packets against 32,768-bit segments, as in
+    # phase 16: admitted, not refused.
+    serve_cfg = serving.ServeConfig(max_batch=SERVE_TIER_BATCH,
+                                    batch_buckets=(SERVE_TIER_BATCH,),
+                                    max_delay_s=SERVE_TIER_DELAY_S,
+                                    strict_packet_check=False)
+    requests = [grid12.take([i]) for i in range(len(grid12))]
+    labels = [r.labels[0] for r in requests]
+
+    def submit_all(target):
+        futures = [target.submit(r, priority=int(i % 4 == 0),
+                                 tenant=f"tenant{i % 2}")
+                   for i, r in enumerate(requests)]
+        return futures
+
+    out = {}
+    t_phase = time.perf_counter()
+    # (a) one server.
+    server = serving.ScenarioServer(init, smallnets.apply_cnn, data, base,
+                                    serve=serve_cfg, device=dev)
+    built = server.warmup(grid12, *requests)
+    probe = install(server)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_k1_counts()
+    t0 = time.perf_counter()
+    with server:
+        futures = submit_all(server)
+        results = [f.result(timeout=SERVE_TIER_WAIT_S) for f in futures]
+    secs = time.perf_counter() - t0
+    launches, by_b = _k1_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want, want_b, groups = _expected_k1(runner, [probe], base)
+    check(launches == want and by_b == want_b,
+          f"serve: ra_aggregate launched {launches} times (by batch size "
+          f"{by_b}) from the dispatcher thread; the dispatch log gives "
+          f"{want} ({want_b})")
+    loss_gap, acc_gap = _hold_to_sequential("serve", labels, results, seq12,
+                                            test_n)
+    snap = server.tracker.snapshot()
+    print(f"[serve-tier] server: {len(requests)} requests (3 at priority 1, "
+          f"2 tenants), {built} program(s) built by warmup; {probe.calls} "
+          f"dispatches of {[len(g) for g, _ in probe.ran]} scenarios, "
+          f"{groups} groups; {secs:.4f} s, {len(requests) / secs:.3f} req/s; "
+          f"latency p50 {snap['serve/latency_s_p50']:.4f} s p99 "
+          f"{snap['serve/latency_s_p99']:.4f} s; mean coalesced "
+          f"{snap['serve/coalesced_scenarios_mean']:.3f} scenarios, batch "
+          f"fill {snap['grid/batch_fill_mean']:.3f}; peak "
+          f"{peak / 2**30:.3f} GiB; K1 launches {launches} (expected {want}; "
+          f"by B {by_b}); max |loss gap| {loss_gap:.3e}, max acc gap "
+          f"{acc_gap:.4f} vs run_sequential")
+    out["serve"] = launches
+
+    # (b) two in-process replicas behind a router; kill the owner of
+    # grid12's first family while it holds a dispatch.
+    rt = router.ScenarioRouter.in_process(
+        init, smallnets.apply_cnn, data, base, n_replicas=2,
+        serve=serve_cfg, device=dev,
+        route=router.RouterConfig(max_attempts=4, backoff_base_s=0.01,
+                                  breaker_cooldown_s=0.3, heartbeat_s=0.05,
+                                  attempt_timeout_s=SERVE_TIER_WAIT_S))
+    victim = rt._ring.preference(router.grid_signature(requests[0]))[0]
+    owned = sum(rt._ring.preference(router.grid_signature(r))[0] == victim
+                for r in requests)
+    # More than one batch of the victim's requests: hold its second
+    # dispatch (the first delivery may then be its own first); else hold
+    # its first, and the other replica delivers first.
+    hold_at = 1 if owned > SERVE_TIER_BATCH else 0
+    release = threading.Event()
+    probes = {}
+    for name, rep in rt.replicas.items():
+        plan = ({} if name != victim else dict(
+            stall_on={hold_at: release},
+            raise_on={hold_at: RuntimeError(f"{name} killed")}))
+        probes[name] = install(rep.server, **plan)
+    built = rt.warmup(requests, fanout=2)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_k1_counts()
+    t0 = time.perf_counter()
+    delivered = threading.Event()
+    try:
+        with rt:
+            futures = submit_all(rt)
+            for f in futures:
+                f.add_done_callback(lambda _f: delivered.set())
+            check(delivered.wait(SERVE_TIER_WAIT_S)
+                  and probes[victim].stalled.wait(SERVE_TIER_WAIT_S),
+                  "router: no first delivery, or the victim never held "
+                  "its dispatch")
+            first_done = sum(f.done() for f in futures)
+            kill_replica(rt.replicas[victim], release)
+            results = [f.result(timeout=SERVE_TIER_WAIT_S) for f in futures]
+    finally:
+        release.set()
+        rt.stop(drain=False)
+    secs = time.perf_counter() - t0
+    launches, by_b = _k1_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want, want_b, groups = _expected_k1(runner, probes.values(), base)
+    snap = rt.tracker.snapshot()
+    served = sum(snap.get(f"router/replica/{n}/served", 0) for n in probes)
+    check(all(f.done() for f in futures) and snap["router/requests"] == 12
+          and served == 12 and snap.get("router/retries", 0) >= 1,
+          f"router: requests {snap.get('router/requests')}, served {served}, "
+          f"retries {snap.get('router/retries', 0)}")
+    check(launches == want and by_b == want_b,
+          f"router: ra_aggregate launched {launches} times (by batch size "
+          f"{by_b}) from two dispatcher threads; the dispatch logs give "
+          f"{want} ({want_b})")
+    loss_gap, acc_gap = _hold_to_sequential("router", labels, results, seq12,
+                                            test_n)
+    counters = {k.removeprefix("router/"): snap[k] for k in sorted(snap)
+                if k.startswith("router/") and not k.startswith(
+                    "router/latency") and "/healthy" not in k}
+    print(f"[serve-tier] router: 2 replicas, {built} program(s) built by "
+          f"warmup; killed {victim} (owner of {owned} of 12, held its "
+          f"dispatch {hold_at}) after {first_done} deliveries; dispatches "
+          f"{ {n: [len(g) for g, _ in p.ran] for n, p in probes.items()} }; "
+          f"{secs:.4f} s, {len(requests) / secs:.3f} req/s; latency p50 "
+          f"{snap['router/latency_s_p50']:.4f} s p99 "
+          f"{snap['router/latency_s_p99']:.4f} s; peak {peak / 2**30:.3f} "
+          f"GiB; K1 launches {launches} (expected {want}; by B {by_b}); "
+          f"max |loss gap| {loss_gap:.3e}, max acc gap {acc_gap:.4f} vs "
+          f"run_sequential")
+    print(f"[serve-tier] router counters: {counters}")
+    out["router"] = launches
+
+    # (c) the resumable loop on the slice's R&A normalized scenario.
+    sim = runner.sim
+    sc = simulator.make_scenario(
+        topology.paper_network(packet_len_bits=base.packet_len_bits),
+        dataclasses.replace(base, protocol="ra", mode="ra_normalized"))
+    with tempfile.TemporaryDirectory() as d:
+        _reset_k1_counts()
+        t0 = time.perf_counter()
+        full = checkpoint.run_resumable(sim, sc, ckpt_dir=f"{d}/full",
+                                        save_every=1)
+        t1 = time.perf_counter()
+        check(checkpoint.run_resumable(sim, sc, ckpt_dir=f"{d}/cut",
+                                       save_every=1, stop_after=1) is None
+              and checkpoint.latest_step(f"{d}/cut") == 0,
+              "resumable: stop_after=1 did not stop after chunk 0")
+        resumed = checkpoint.run_resumable(sim, sc, ckpt_dir=f"{d}/cut",
+                                           save_every=1)
+        t2 = time.perf_counter()
+        launches, _ = _k1_counts()
+        want = (sim.n_chunks + 1 + (sim.n_chunks - 1)) * sim.eval_every
+        check(launches == want,
+              f"resumable: ra_aggregate launched {launches} times, expected "
+              f"{want} (one a round of each run)")
+        # A second uninterrupted run: are the card's rows reproducible
+        # from run to run at all?
+        again = checkpoint.run_resumable(sim, sc, ckpt_dir=f"{d}/again")
+        ref = {k: v.numpy() for k, v in sim.run_scenario(sc).items()}
+        state = checkpoint._saved_state(sim.init_scan(sc.prepare().to(dev)))
+        sync()
+        t3 = time.perf_counter()
+        checkpoint.save(f"{d}/one", state, step=0)
+        t4 = time.perf_counter()
+        checkpoint.restore(f"{d}/one", state)
+        sync()
+        t5 = time.perf_counter()
+    readings = []
+    for other, tag in ((full, "uninterrupted"), (again, "uninterrupted "
+                       "again"), (ref, "run_scenario")):
+        gap = float(np.abs(resumed["loss"] - other["loss"]).max())
+        agap = float(np.abs(resumed["acc"] - other["acc"]).max())
+        check(gap <= GRID_LOSS_TOL and agap <= 1.0 / test_n + 1e-6
+              and resumed["loss"].shape == (sim.n_chunks, 10),
+              f"resumable: resumed rows depart from {tag}: loss {gap:.3e}, "
+              f"accuracy {agap:.4f}")
+        same = all(np.array_equal(resumed[k], other[k], equal_nan=True)
+                   for k in other)
+        readings.append(f"{tag}: bit for bit {same}, max |loss gap| "
+                        f"{gap:.3e}")
+    run_to_run = all(np.array_equal(full[k], again[k], equal_nan=True)
+                     for k in full)
+    print(f"[serve-tier] resumable: R&A normalized, {sim.n_chunks} chunks, "
+          f"save_every 1; uninterrupted {t1 - t0:.4f} s, stop_after=1 then "
+          f"resume {t2 - t1:.4f} s; K1 launches {launches} (expected "
+          f"{want}); resumed vs {'; vs '.join(readings)}; two "
+          f"uninterrupted runs bit for bit: {run_to_run}; one save of the "
+          f"round state ({state['w'].numel() * 4 / 2**20:.1f} MiB) "
+          f"{t4 - t3:.4f} s, restore {t5 - t4:.4f} s")
+    out["resumable"] = launches
+    print(f"[serve-tier] phase 17 took {time.perf_counter() - t_phase:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -1865,9 +2163,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 16. grid (the scenario-grid engine)
-    grid_launches, grid_tx, grid_batches, runner, grid12 = grid_phase(
+    grid_launches, grid_tx, grid_batches, runner, grid12, seq12 = grid_phase(
         dev, torch.cuda.synchronize)
     profile_grid_round(runner, grid12)
+
+    # 17. serve-tier (the serving tier, the router, checkpointing)
+    tier_launches = serve_tier_phase(dev, torch.cuda.synchronize, runner,
+                                     grid12, seq12)
     del runner
 
     main_row = next(r for r in rows if r["shape"] == "slice"
@@ -1880,10 +2182,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ra_aggregate.cu",
         "replaces": "src/repro/kernels/ra_aggregate.py:177",
-        "launches": launches + codec_launches + grid_launches,
+        "launches": (launches + codec_launches + grid_launches
+                     + sum(tier_launches.values())),
         "launches_by_path": {"slice": launches,
                              "slice-codec": codec_launches,
-                             "grid": grid_launches},
+                             "grid": grid_launches, **tier_launches},
         "tx_launches": tx_launches + grid_tx,
         "grid_launches_by_batch": {str(b): c for b, c in
                                    grid_batches.items()},

@@ -11,6 +11,11 @@
   * `LAUNCHES` counts kernel launches by name, incremented where the kernel
     is launched and nowhere else, so a run can show that its main path went
     through the kernel.
+  * Threads: a scenario server's dispatcher and a router's replicas launch
+    K1 outside the main thread.  `load_library` builds and binds a kernel
+    once under one lock, `build_all` stages each build in a file of its own
+    process and thread, and every launch counter is incremented under a
+    lock (`kernels.count_launch`).
   * K1 is the custom operator ``repro_torch::ra_aggregate``
     (`torch.library.custom_op`) with a fake (meta) version and a
     `torch.func.vmap` rule, the counterpart of the reference's
@@ -24,11 +29,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
 from .. import resolve_device
+from . import count_launch
 from . import flash_attention as _fa
 from . import ra_aggregate as _ra
 from . import ref
@@ -45,6 +52,7 @@ LAUNCHES: dict[str, int] = {"ra_aggregate": 0, "rwkv6_scan": 0,
 _BINDERS = {"ra_aggregate": _ra.bind, "rwkv6_scan": _rwkv.bind,
             "flash_attention": _fa.bind}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LIB_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -74,7 +82,8 @@ def build_all(names=None) -> dict[str, str]:
         target = lib_path(name)
         if target.exists():
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        tmp = target.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -93,13 +102,15 @@ def build_all(names=None) -> dict[str, str]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = _BINDERS[name](ctypes.CDLL(str(lib_path(name))))
-        _LIBS[name] = lib
-    return lib
+    """The kernel's shared library, built on first use (once, whichever
+    thread gets here first; the others wait for it)."""
+    with _LIB_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _BINDERS[name](ctypes.CDLL(str(lib_path(name))))
+            _LIBS[name] = lib
+        return lib
 
 
 _REFS = {"ra_normalized": ref.ra_aggregate_ref,
@@ -117,7 +128,7 @@ def _ra_aggregate_op(w_seg: torch.Tensor, p: torch.Tensor, e: torch.Tensor,
     else:
         out = _ra.launch(load_library("ra_aggregate"), w4, p2, e4, tx3,
                          mode=mode)
-        LAUNCHES["ra_aggregate"] += 1
+        count_launch(LAUNCHES, "ra_aggregate")
     return out if w_seg.ndim == 4 else out[0]
 
 
@@ -258,7 +269,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tile = max(1, min(r.shape[1], _rwkv.TILE))
     out, state = _rwkv.launch(load_library("rwkv6_scan"), r, k, v, w, u,
                               tile=tile, return_state=return_state)
-    LAUNCHES["rwkv6_scan"] += 1
+    count_launch(LAUNCHES, "rwkv6_scan")
     return (out, state) if return_state else out
 
 
@@ -288,5 +299,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
     out = _fa.launch(load_library("flash_attention"), q, k, v, scale=scale,
                      causal=causal)
-    LAUNCHES["flash_attention"] += 1
+    count_launch(LAUNCHES, "flash_attention")
     return out

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from . import count_launch
+
 MODES = ("ra_normalized", "substitution")
 
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -146,8 +148,8 @@ def launch(lib: ctypes.CDLL, w4: torch.Tensor, p2: torch.Tensor,
         raise RuntimeError(f"ra_aggregate kernel launch failed for w_seg "
                            f"{tuple(w4.shape)}: CUDA error {err} (a refused "
                            f"launch: e.g. N too large for shared memory)")
-    VARIANT_LAUNCHES["plain" if tx3 is None else "tx"] += 1
-    BATCH_LAUNCHES[b] = BATCH_LAUNCHES.get(b, 0) + 1
+    count_launch(VARIANT_LAUNCHES, "plain" if tx3 is None else "tx")
+    count_launch(BATCH_LAUNCHES, b)
     return out
 
 

@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from . import count_launch
+
 HEAD_DIMS = (16, 32, 64)
 BODIES = ("token", "chunked")
 MAX_TILE = 64             # most tokens the token body stages in shared memory
@@ -148,7 +150,7 @@ def launch(lib: ctypes.CDLL, r, k, v, w, u, *, tile: int,
         raise RuntimeError(f"rwkv6_scan kernel launch failed for r "
                            f"{tuple(r.shape)} ({which} body): CUDA error "
                            f"{err}")
-    BODY_LAUNCHES[which] += 1
+    count_launch(BODY_LAUNCHES, which)
     return out, state
 
 

@@ -693,3 +693,178 @@ def test_grid_runner_on_the_card_matches_run_sequential(cuda_device):
     assert ra_aggregate.BATCH_LAUNCHES == {4: 3, 2: 3}
     np.testing.assert_allclose(got.loss, seq.loss, atol=1e-4, rtol=0)
     assert np.abs(got.acc - seq.acc).max() <= 1.0 / len(data.test_y) + 1e-6
+
+
+@pytest.mark.cuda
+def test_k1_first_use_from_two_threads_builds_once_and_counts_each_launch(
+        cuda_device, monkeypatch):
+    """Two threads first-use K1 together (the loaded library dropped):
+    the library is bound once, both threads launch, and every launch is
+    counted (the counters are incremented under a lock)."""
+    import threading
+
+    from repro_torch.kernels import ra_aggregate
+
+    monkeypatch.setattr(ops, "_LIBS", {})
+    w, p, e, tx = _case(3, b=4, n=10, l=9, k=256)
+    want = ops.ra_aggregate(w, p, e, mode="ra_normalized", device="cpu")
+    wd, pd, ed = w.to(cuda_device), p.to(cuda_device), e.to(cuda_device)
+    before = ops.LAUNCHES["ra_aggregate"]
+    batches = ra_aggregate.BATCH_LAUNCHES.get(4, 0)
+    barrier = threading.Barrier(2)
+    outs, errors = [[], []], []
+
+    def body(i):
+        try:
+            barrier.wait(60)
+            for _ in range(50):
+                outs[i].append(ops.ra_aggregate(wd, pd, ed,
+                                                mode="ra_normalized"))
+            torch.cuda.synchronize()
+        except BaseException as exc:    # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert list(ops._LIBS) == ["ra_aggregate"]
+    assert ops.LAUNCHES["ra_aggregate"] == before + 100
+    assert ra_aggregate.BATCH_LAUNCHES[4] == batches + 100
+    for got in outs[0][:1] + outs[1][-1:]:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-5, rtol=0)
+
+
+def _serving_toy():
+    from repro_torch.core import topology
+    from repro_torch.data import synthetic
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.models import smallnets
+
+    data = synthetic.fed_image_classification(n_clients=3,
+                                              samples_per_client=20, seed=0)
+    nets = [topology.make_network(topology.TABLE_II_COORDS[:3],
+                                  edge_density=d, packet_len_bits=32 * 64,
+                                  n_clients=3, tx_power_dbm=tx)
+            for d, tx in ((0.6, 17.0), (0.8, 17.0), (0.8, 11.0))]
+    cfg = simulator.SimConfig(n_rounds=3, local_epochs=2, seg_len=64)
+    pool = [scenarios.ScenarioGrid.product(
+                networks=[(f"n{i}", nets[i % 3])],
+                protocols=[(proto, "ra_normalized")], seeds=[i])
+            for i, proto in enumerate(("ra", "ra", "aayg", "ra", "aayg",
+                                       "ra"))]
+    init = lambda g: smallnets.init_mlp_clf(g, d_in=32, d_hidden=16)  # noqa
+    return data, init, smallnets.apply_mlp_clf, cfg, pool
+
+
+def _served_vs_dispatched(dev, results, pool, probes, data, init, apply_fn,
+                          cfg):
+    """Each served row against `GridRunner.run` of the coalesced grid its
+    server dispatched, on the same card: returns whether every row is the
+    same bits (printed), after holding all within 1e-4 / one sample."""
+    from repro_torch.fl import scenarios
+
+    runner = scenarios.GridRunner(init, apply_fn, data, cfg, device=dev)
+    replays = [(g, runner.run(g, pad_to=pad, validate=False))
+               for p in probes for g, pad in p.ran]
+    bitwise = True
+    for res, req in zip(results, pool):
+        g, rows = next((g, r) for g, r in replays
+                       if req.labels[0] in g.labels)
+        i = g.labels.index(req.labels[0])
+        bitwise &= bool(np.array_equal(res.loss, rows.loss[i:i + 1])
+                        and np.array_equal(res.acc, rows.acc[i:i + 1]))
+        np.testing.assert_allclose(res.loss, rows.loss[i:i + 1], atol=1e-4,
+                                   rtol=0)
+        assert np.abs(res.acc - rows.acc[i:i + 1]).max() <= (
+            1.0 / len(data.test_y) + 1e-6)
+    return bitwise
+
+
+@pytest.mark.cuda
+def test_server_and_two_replica_router_on_the_card(cuda_device):
+    """The toy server and a two-replica router on the card: every served
+    row against `GridRunner.run` of the same coalesced grid on the card
+    (bit for bit or within 1e-4 / one test sample; which of the two is
+    printed); K1 launched from the dispatcher threads, one a round per R&A
+    group."""
+    from _torch_serving_faults import install
+    from repro_torch.launch import router, serving
+
+    data, init, apply_fn, cfg, pool = _serving_toy()
+    serve_cfg = serving.ServeConfig(max_batch=4, max_delay_s=0.05)
+    server = serving.ScenarioServer(init, apply_fn, data, cfg,
+                                    serve=serve_cfg, device=cuda_device)
+    probe = install(server)
+    before = ops.LAUNCHES["ra_aggregate"]
+    with server:
+        got = [f.result(timeout=600) for f in
+               [server.submit(g) for g in pool]]
+    assert ops.LAUNCHES["ra_aggregate"] > before
+    bits = _served_vs_dispatched(cuda_device, got, pool, [probe], data, init,
+                                 apply_fn, cfg)
+    print(f"server rows vs the dispatched grids on the card: "
+          f"{'bit for bit' if bits else 'within 1e-4'}")
+
+    rt = router.ScenarioRouter.in_process(init, apply_fn, data, cfg,
+                                          n_replicas=2, serve=serve_cfg,
+                                          device=cuda_device)
+    probes = [install(rep.server) for rep in rt.replicas.values()]
+    try:
+        with rt:
+            got = [f.result(timeout=600) for f in
+                   [rt.submit(g) for g in pool]]
+    finally:
+        rt.stop(drain=False)
+    bits = _served_vs_dispatched(cuda_device, got, pool, probes, data, init,
+                                 apply_fn, cfg)
+    print(f"router rows vs the dispatched grids on the card: "
+          f"{'bit for bit' if bits else 'within 1e-4'}")
+    assert rt.tracker.snapshot()["router/requests"] == len(pool)
+
+
+@pytest.mark.cuda
+def test_run_resumable_round_trip_on_the_card(cuda_device, tmp_path):
+    """`run_resumable` on the card, interrupted after one chunk and
+    resumed: the same rows as an uninterrupted run and `run_scenario`
+    within 1e-4 / one test sample (bit for bit is printed), the generator
+    restored on the card."""
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.core import topology
+    from repro_torch.fl import simulator
+
+    data, init, apply_fn, cfg, _pool = _serving_toy()
+    sim = simulator.build_sim(init, apply_fn, data, seg_len=64,
+                              local_epochs=2, n_rounds=3, device=cuda_device)
+    net = topology.make_network(topology.TABLE_II_COORDS[:3],
+                                edge_density=0.8, packet_len_bits=32 * 64,
+                                n_clients=3, tx_power_dbm=17.0)
+    sc = simulator.make_scenario(net, simulator.SimConfig(
+        n_rounds=3, seg_len=64, local_epochs=2, seed=3))
+    ref = sim.run_scenario(sc)
+    full = checkpoint.run_resumable(sim, sc, ckpt_dir=str(tmp_path / "a"))
+    assert checkpoint.run_resumable(sim, sc, ckpt_dir=str(tmp_path / "b"),
+                                    stop_after=1) is None
+    resumed = checkpoint.run_resumable(sim, sc, ckpt_dir=str(tmp_path / "b"))
+    bits = all(np.array_equal(resumed[k], full[k]) for k in full)
+    print(f"resumed vs uninterrupted on the card: "
+          f"{'bit for bit' if bits else 'within 1e-4'}")
+    for other in (full, {k: v.numpy() for k, v in ref.items()}):
+        np.testing.assert_allclose(resumed["loss"], other["loss"], atol=1e-4,
+                                   rtol=0)
+        assert np.abs(resumed["acc"] - other["acc"]).max() <= (
+            1.0 / len(data.test_y) + 1e-6)
+    state = sim.init_scan(sc.prepare().to(cuda_device))
+    saved = checkpoint._saved_state(state)
+    checkpoint.save(str(tmp_path / "c"), saved)
+    live = checkpoint._live_state(checkpoint.restore(str(tmp_path / "c"),
+                                                     saved), cuda_device)
+    assert live["gen"].device.type == "cuda"
+    assert torch.equal(torch.rand(4, generator=live["gen"],
+                                  device=cuda_device),
+                       torch.rand(4, generator=state["gen"],
+                                  device=cuda_device))

@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.core.compression", "repro_torch.core.selection",
                 "repro_torch.optim.optimizers",
                 "repro_torch.core.convergence", "repro_torch.core.overhead",
-                "repro_torch.fl.scenarios", "repro_torch.launch.tracker"):
+                "repro_torch.fl.scenarios", "repro_torch.launch.tracker",
+                "repro_torch.launch.serving", "repro_torch.launch.router",
+                "repro_torch.checkpoint.checkpoint"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 
