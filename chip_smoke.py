@@ -21,8 +21,9 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  instantiation, and the chunked body's HMMA (tensor cores)
                  and LDGSTS (cp.async) counts: both above 0, no spills.
   3. kernels   — K1 `ra_aggregate` in its four variants (two modes, with and
-                 without a transmit mask) x {float32, bfloat16} at four
-                 shapes, held to its plain PyTorch version on the same
+                 without a transmit mask) x {float32, bfloat16} at nine
+                 shapes (four of earlier paths, and each that phases 18 and
+                 19 launch it at: phase 19 fails if they launch another), held to its plain PyTorch version on the same
                  inputs; prints each shape's launch (body, grid, tiles,
                  resident blocks an SM); times the kernel, the plain
                  version and one library call (`torch.bmm` of precomputed
@@ -151,12 +152,53 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  the resumed rows are bit-identical and save / restore
                  seconds.
 
+ 18. paper-tasks — the paper's other tasks at their full width: first each
+                 at a reduced size (ResNet depth 8 width 4 on 16x16, CharRNN
+                 hidden 32) for 2 R&A rounds on the card and on the CPU's
+                 plain path from the same weights and uniforms (parameters
+                 and losses within 1e-4, accuracies equal); then
+                 `build_sim` -> `advance_chunk` on the Table-II network
+                 (N = 10, seg 1024, 2 local epochs, 3 rounds) of R&A
+                 normalized, AaYG and C-FL for ResNet-18 (width 16, 10
+                 classes) and ResNet-56 (width 16, 100 classes) on
+                 32x32x3 images from `fed_image_classification(d=3072)`,
+                 and the CharRNN (embed 8, hidden 256) on the iid and the
+                 non-iid `fed_char_stream`; K1's count is set to 0 before
+                 each run and must read one a round for R&A and J for AaYG
+                 just after; losses finite and R&A's round-3 train loss
+                 below round 1's; s/round and peak memory per run; one
+                 profiled R&A round per task (local training, K1, the
+                 rest).  Last, `registry.sim_model("transformer_nwp")`
+                 through `run_grid` with benchmarks/fig_nwp.py's grid (R&A,
+                 C-FL, no exchange x 2 seeds; seq 16, seg 64, lr 0.5, 10
+                 rounds): K1 10 launches of B = 2.
+ 19. train     — `launch.train.main` on the card: first K2 and K3 must raise
+                 under autograd and `torch.func.grad`; (a) qwen2.5-3b at full
+                 width and depth (bf16, 3,085,938,688 parameters, AdamW with
+                 float32 moments at lr 3e-5, remat), 3 steps of 8 x 128
+                 tokens: the first loss near ln V + d_model 0.02^2 / 2, the
+                 last below it, with the caching allocator's device
+                 allocations and retries and the share of the bf16 weights
+                 that moved; its float32 twin at 3e-5 must fall too, and at
+                 lr 3e-4 a bf16 run and its float32 twin must agree within
+                 0.15 a step (`train_witness`); then one more step from the same
+                 weights under torch.profiler (AdamW update against forward
+                 + backward, GEMM kernels); (b) ``--dfl`` at the smoke size,
+                 4 clients, 10 steps, an exchange every 5: K1 launched twice
+                 through `protocols.ra_round`; K2 and K3 launch no time in
+                 either; s/step, tokens/s and peak memory.  Last, one float32 smoke
+                 `train_step` of qwen2.5 and rwkv6 on the card against the
+                 CPU from the same weights (loss 1e-5; moments 1e-4;
+                 parameters 1e-4 where |g| >= 1e-6, within the AdamW step's
+                 bound elsewhere).
+
 It then prints the card line, one JSON line describing every ported kernel,
 and last a JSON line with the device.  Without CUDA, or without the rest of
 the repository beside it, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -182,12 +224,21 @@ BF16_FLOP_PER_S = 989e12
 # K1 checks: the slice shape, a batched prime-L shape, N > 16 receivers
 # (the shared-memory body), and one round of examples/sweep_grid.py's
 # 12-scenario grid at the slice's width (per-scenario masks; 405 MB, more
-# than the 50 MB L2).
+# than the 50 MB L2).  Then every shape phases 18 and 19 launch it at
+# (`main` checks that they launch no other): ResNet-18, ResNet-56 and the
+# CharRNN at seg 1024, the NWP grid's R&A group (2 seeds, seg 64), and
+# `launch.train --dfl`'s 4 smoke qwen2.5 clients (N = 4: its own
+# register-body instantiation).
 K1_SHAPES = [
     ("slice", dict(b=None, n=10, l=412, k=1024)),
     ("batched_primeL", dict(b=4, n=10, l=1181, k=256)),
     ("n33", dict(b=None, n=33, l=64, k=1024)),
     ("grid12", dict(b=12, n=10, l=412, k=1024)),
+    ("resnet18", dict(b=None, n=10, l=171, k=1024)),
+    ("resnet56", dict(b=None, n=10, l=838, k=1024)),
+    ("charrnn", dict(b=None, n=10, l=802, k=1024)),
+    ("nwp_grid", dict(b=2, n=10, l=371, k=64)),
+    ("train_dfl", dict(b=None, n=4, l=1218, k=1024)),
 ]
 F32_TOL = 1e-5      # absolute; float32 sums in another order
 BF16_TOL_ULP = 1.0  # bfloat16 spacing at the result's magnitude, + F32_TOL
@@ -292,6 +343,52 @@ GRID_LOSS_TOL = 1e-4
 SERVE_TIER_BATCH = 4
 SERVE_TIER_DELAY_S = 0.05
 SERVE_TIER_WAIT_S = 600.0
+# Phase 18 (the paper's tasks): (label, `smallnets` model, its keywords,
+# dataset, the dataset's keywords, full-batch GD learning rate,
+# (parameters, segments of 1024) at full width).  The reference's ResNets
+# have no normalization layers: ResNet-56's loss at init is in the tens of
+# thousands (R&A's round-1 loss reads ~1,600 at 1e-6), and GD diverges
+# above a step of about 1e-6; each rate keeps R&A's and AaYG's losses
+# finite and falling, the CharRNN's at benchmarks/fig_nwp.py's 0.5.
+PAPER_TASKS = [
+    ("cifar10-resnet18", "resnet", dict(depth=18, width=16, n_classes=10),
+     "image", dict(n_classes=10), 0.005, (174_138, 171)),
+    ("cifar100-resnet56", "resnet", dict(depth=56, width=16, n_classes=100),
+     "image", dict(n_classes=100), 1e-6, (857_364, 838)),
+    ("shakespeare-iid-charrnn", "charrnn", {}, "char", dict(iid=True), 0.5,
+     (820_522, 802)),
+    ("shakespeare-noniid-charrnn", "charrnn", {}, "char", dict(iid=False),
+     0.5, (820_522, 802)),
+]
+PAPER_PROTOCOLS = [("ra", "ra_normalized"), ("aayg", "ra_normalized"),
+                   ("cfl", "ra_normalized")]
+# Image samples a client (drawn in [n/2, 3n/2), paper ~5,000): the local
+# gradient is one full batch vmapped over the 10 clients, so every client's
+# activations sit on the card at once; ResNet-56 peaks near 58 GiB at 1,000
+# (29 GiB at 500), so 5,000 would need ~290 GiB.
+PAPER_IMAGE_SAMPLES = 1000
+PAPER_REDUCED = {"resnet": dict(depth=8, width=4),
+                 "charrnn": dict(hidden=32)}
+NWP_PROTOCOLS = [("ra", "ra_normalized"), ("cfl", "ra_normalized"),
+                 ("none", "ra_normalized")]
+# Phase 19 (training): steps of the full-width qwen2.5-3b run; how far its
+# first loss may sit from ln V + d_model * 0.02**2 / 2 (a random-init tied
+# logit's variance is d_model * 0.02**2 at unit-rms hidden states, so the
+# log-sum-exp over V sits that / 2 above ln V); its AdamW rate.  Without
+# warm-up AdamW overshoots at full width by the third step at 3e-4 (and
+# at `launch.train`'s default 3e-3), with float32 parameters as with
+# bf16: `train_witness` holds the bf16 run to a float32 twin at
+# TRAIN_TWIN_LR, where bf16 moves most weights, each step's loss within
+# TRAIN_TWIN_TOL (read 0.059, PERF.md section 6).  The run of record
+# trains at 3e-5, where the loss falls; there `(p32 - lr * delta)` rounds
+# back to most bf16 weights unchanged (about a third move; the reference
+# casts the same way), so its float32 twin, where every weight moves, must
+# fall too.
+TRAIN_FULL_STEPS = 3
+TRAIN_START_TOL = 0.1
+TRAIN_FULL_LR = 3e-5
+TRAIN_TWIN_LR = 3e-4
+TRAIN_TWIN_TOL = 0.15
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -683,6 +780,39 @@ def _profiled(fn, ranges=()):
                        and ev.device_type.name == "CPU")
              for name in ranges}
     return wall_ms, kernels, spans
+
+
+@contextlib.contextmanager
+def _ranged_round(prefix: str):
+    """Inside: each gradient that `torch.func.grad` binds (a simulator
+    binds its gradient when it is built) runs its calls in a
+    ``<prefix>:local_train`` range, and each `protocols.dispatch_round_seg`
+    call (the exchange, K1 in it) in ``<prefix>:exchange``."""
+    from torch.profiler import record_function
+
+    from repro_torch.core import protocols
+
+    orig_grad, orig_dispatch = torch.func.grad, protocols.dispatch_round_seg
+
+    def ranged_grad(fn, *args, **kwargs):
+        inner = orig_grad(fn, *args, **kwargs)
+
+        def call(*a, **k):
+            with record_function(f"{prefix}:local_train"):
+                return inner(*a, **k)
+        return call
+
+    def ranged_dispatch(*args, **kwargs):
+        with record_function(f"{prefix}:exchange"):
+            return orig_dispatch(*args, **kwargs)
+
+    torch.func.grad = ranged_grad
+    protocols.dispatch_round_seg = ranged_dispatch
+    try:
+        yield
+    finally:
+        torch.func.grad = orig_grad
+        protocols.dispatch_round_seg = orig_dispatch
 
 
 def profile_round(sim, scenario):
@@ -1589,6 +1719,24 @@ def _reset_k1_counts():
     _ra.BATCH_LAUNCHES.clear()
 
 
+@contextlib.contextmanager
+def _k1_shapes(seen: set):
+    """Inside: each K1 launch adds its (B, N, L, K) and dtype to ``seen``."""
+    from repro_torch.kernels import ra_aggregate as _ra
+
+    orig = _ra.launch
+
+    def recording(lib, w4, *args, **kwargs):
+        seen.add((tuple(w4.shape), w4.dtype))
+        return orig(lib, w4, *args, **kwargs)
+
+    _ra.launch = recording
+    try:
+        yield
+    finally:
+        _ra.launch = orig
+
+
 def _k1_counts():
     from repro_torch.kernels import ops
     from repro_torch.kernels import ra_aggregate as _ra
@@ -1739,49 +1887,25 @@ def profile_grid_round(runner, grid, **inputs):
     engine's device thread, outside it, and are read from its
     ``evaluate_function`` events; the exchange is a range around
     `protocols.dispatch_round_seg`, K1 its kernel's events."""
-    from torch.profiler import record_function
-
-    from repro_torch.core import protocols
     from repro_torch.fl import scenarios, simulator
     from repro_torch.models import smallnets
 
-    orig_grad, orig_dispatch = torch.func.grad, protocols.dispatch_round_seg
-
-    def ranged_grad(fn, *args, **kwargs):
-        inner = orig_grad(fn, *args, **kwargs)
-
-        def call(*a, **k):
-            with record_function("grid:local_train"):
-                return inner(*a, **k)
-        return call
-
-    def ranged_dispatch(*args, **kwargs):
-        with record_function("grid:exchange"):
-            return orig_dispatch(*args, **kwargs)
-
     sim = runner.sim
-    torch.func.grad = ranged_grad    # the sim below binds the ranged grad
-    try:
+    with _ranged_round("grid"):      # the sim below binds the ranged grad
         data, _net, init, base = slice_inputs(**inputs)
         psim = simulator.build_sim(
             init, smallnets.apply_cnn, data, seg_len=base.seg_len,
             local_epochs=base.local_epochs, n_rounds=base.n_rounds,
             device=sim.device)
-    finally:
-        torch.func.grad = orig_grad
-    idx = runner._index_groups(grid)[0]
-    axes, args = scenarios._hoist_uniform(grid.take(idx).scenarios)
-    sb = psim.prepare_batch(args, axes)
-    state = psim.init_scan_batch(sb)
-    psim.advance_chunk_batch(state, sb)          # warm-up
-    protocols.dispatch_round_seg = ranged_dispatch
-    try:
+        idx = runner._index_groups(grid)[0]
+        axes, args = scenarios._hoist_uniform(grid.take(idx).scenarios)
+        sb = psim.prepare_batch(args, axes)
+        state = psim.init_scan_batch(sb)
+        psim.advance_chunk_batch(state, sb)          # warm-up
         backward = "autograd::engine::evaluate_function*"
         wall_ms, events, spans = _profiled(
             lambda: psim.advance_chunk_batch(state, sb),
             ranges=("grid:local_train", "grid:exchange", backward))
-    finally:
-        protocols.dispatch_round_seg = orig_dispatch
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
     k1_us = sum(ev.self_device_time_total for ev in k1)
@@ -2060,6 +2184,591 @@ def serve_tier_phase(dev, sync, runner, grid12, seq12, **inputs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-19: the paper's tasks and training (slice 7)
+# ---------------------------------------------------------------------------
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev) -> float:
+    """Peak device memory since `_reset_peak`; NaN on the CPU."""
+    if dev.type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def _sync_of(dev):
+    return (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+
+
+def paper_task_data(kind: str, *, hw: int = 32,
+                    image_samples: int = PAPER_IMAGE_SAMPLES,
+                    char_kw=None, **kw):
+    """A task's federated data: the CIFAR stand-in as (hw, hw, 3) NHWC
+    images from `fed_image_classification(d=hw*hw*3)`, or the Shakespeare
+    stand-in `fed_char_stream` (its defaults: seq 32, vocab 90)."""
+    from repro_torch.data import synthetic
+
+    if kind == "image":
+        data = synthetic.fed_image_classification(
+            n_clients=10, d=hw * hw * 3, samples_per_client=image_samples,
+            **kw)
+        shape = (-1, hw, hw, 3)
+        return dataclasses.replace(
+            data, train_x=[x.reshape(shape) for x in data.train_x],
+            test_x=data.test_x.reshape(shape))
+    return synthetic.fed_char_stream(**kw, **(char_kw or {}))
+
+
+def _task_model(model: str, mkw: dict, overrides=None):
+    from repro_torch.models import registry
+
+    sm = registry.sim_model(model)
+    kw = {**mkw, **(overrides or {})}
+    return (lambda g: sm.init_fn(g, **kw)), sm.apply_fn
+
+
+def paper_tasks_reference(devices):
+    """Phase 18, first: each task at a reduced size (ResNet depth 8 width 4
+    on 16x16, CharRNN hidden 32) for 2 R&A rounds on ``devices[1]`` and on
+    ``devices[0]``'s plain path, from the same weights and uniforms:
+    parameters and per-client losses within 1e-4, accuracies equal."""
+    from repro_torch.core import topology
+    from repro_torch.fl import simulator
+
+    net = topology.paper_network(packet_len_bits=32768)
+    cfg = simulator.SimConfig(protocol="ra", seg_len=256, local_epochs=2,
+                              n_rounds=2)
+    rng = np.random.default_rng(0)
+    for label, model, mkw, kind, dkw, lr, _ in PAPER_TASKS:
+        init, apply_fn = _task_model(model, mkw, PAPER_REDUCED[model])
+        data = paper_task_data(kind, hw=16, image_samples=16,
+                               char_kw=dict(sequences_per_client=8,
+                                            test_sequences=32), **dkw)
+        sims = [simulator.build_sim(
+            init, apply_fn, data, seg_len=cfg.seg_len,
+            local_epochs=cfg.local_epochs, n_rounds=cfg.n_rounds, device=d)
+            for d in devices]
+        sc = simulator.make_scenario(net, dataclasses.replace(cfg, lr=lr))
+        params0 = init(torch.Generator().manual_seed(0))
+        states = [{"params": {k: v[None].expand((10,) + tuple(v.shape))
+                              for k, v in params0.items()}} for _ in sims]
+        test_n = data.test_y.size        # tokens: every position counts
+        for _ in range(cfg.n_rounds):
+            u = torch.from_numpy(rng.random((10, 10, sims[0].n_segments),
+                                            dtype=np.float32))
+            outs = []
+            for i, sim in enumerate(sims):
+                states[i], m = sim.round_step(states[i], sc, u=u)
+                outs.append({k: v.cpu() for k, v in m.items()})
+            gap = max(float((states[1]["params"][k].cpu()
+                             - states[0]["params"][k].cpu()).abs().max())
+                      for k in params0)
+            loss_gap = float((outs[1]["loss"] - outs[0]["loss"]).abs().max())
+            # Equal accuracies: the same count of right test labels (the
+            # means are summed in another order on the card).
+            right = [torch.round(o["acc"].double() * test_n) for o in outs]
+            check(gap <= 1e-4 and loss_gap <= 1e-4
+                  and torch.equal(right[0], right[1]),
+                  f"{label} reduced: {devices[1]} vs {devices[0]}: param gap "
+                  f"{gap:.2e}, loss gap {loss_gap:.2e}, right test labels "
+                  f"{right[1].tolist()} / {right[0].tolist()}")
+        print(f"[paper-tasks] {label} reduced ({PAPER_REDUCED[model]}): "
+              f"{devices[1]} == {devices[0]} plain path after "
+              f"{cfg.n_rounds} R&A rounds (param gap {gap:.2e}, loss gap "
+              f"{loss_gap:.2e}, the same right test labels; tol 1e-4)")
+
+
+def profile_task_round(label, build, scenario):
+    """One R&A round of a task under torch.profiler: local training's
+    gradient passes (forward in the range, backward on the autograd
+    engine's thread), the exchange with K1 in it, and the rest (metrics,
+    updates); the ranges are `_ranged_round`'s."""
+    with _ranged_round("task"):
+        psim = build()
+        state = psim.init_scan(scenario)
+        psim.advance_chunk(state, scenario)          # warm-up
+        backward = "autograd::engine::evaluate_function*"
+        wall_ms, events, spans = _profiled(
+            lambda: psim.advance_chunk(state, scenario),
+            ranges=("task:local_train", "task:exchange", backward))
+    dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
+    k1_ms = sum(ev.self_device_time_total for ev in k1) / 1e3
+    train_ms = (spans["task:local_train"] + spans[backward]) / 1e3
+    exch_ms = spans["task:exchange"] / 1e3
+    if dev_ms <= 0 or train_ms <= 0:
+        print(f"[paper-tasks] {label} profiled R&A round: wall "
+              f"{wall_ms:.2f} ms, device split not measured (device kernels "
+              f"{dev_ms:.3f} ms, local-training ranges {train_ms:.3f} ms)")
+        return None
+    print(f"[paper-tasks] {label} profiled R&A round: wall {wall_ms:.2f} ms,"
+          f" device kernels {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}% "
+          f"of wall busy): local training {train_ms:.3f} ms "
+          f"({100 * train_ms / dev_ms:.2f}%), K1 {1e3 * k1_ms:.1f} us in "
+          f"{sum(ev.count for ev in k1)} launch(es) "
+          f"({100 * k1_ms / dev_ms:.4f}%), the rest of the exchange "
+          f"{exch_ms - k1_ms:.3f} ms, the rest (metrics, updates) "
+          f"{dev_ms - train_ms - exch_ms:.3f} ms")
+    for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:5]:
+        print(f"[paper-tasks]   {ev.self_device_time_total / 1e3:9.3f} ms "
+              f"x{ev.count:<5d} {ev.key[:100]}")
+    return k1_ms / dev_ms
+
+
+def paper_tasks_phase(dev, *, image_samples=PAPER_IMAGE_SAMPLES, hw=32,
+                      overrides=None, char_kw=None, profile=True):
+    """Phase 18: `build_sim` -> `advance_chunk` of each `PAPER_TASKS` task
+    on the Table-II network, 3 rounds of each `PAPER_PROTOCOLS` protocol;
+    K1's count is set to 0 before each run and must equal one a round for
+    R&A and J for AaYG just after.  ``overrides`` ({model: keywords}) and
+    the data sizes shrink it for a CPU rehearsal.  Returns K1's launches."""
+    import functools
+
+    from repro_torch.core import protocols, topology
+    from repro_torch.fl import simulator
+    from repro_torch.kernels import ops
+
+    sync = _sync_of(dev)
+    base = simulator.SimConfig(seg_len=1024, local_epochs=2, n_rounds=3,
+                               seed=0)
+    net = topology.paper_network(packet_len_bits=base.packet_len_bits)
+    total = 0
+    for label, model, mkw, kind, dkw, lr, widths in PAPER_TASKS:
+        t_task = time.perf_counter()
+        init, apply_fn = _task_model(model, mkw, (overrides or {}).get(model))
+        data = paper_task_data(kind, hw=hw, image_samples=image_samples,
+                               char_kw=char_kw, **dkw)
+        build = functools.partial(
+            simulator.build_sim, init, apply_fn, data, seg_len=base.seg_len,
+            local_epochs=base.local_epochs, n_rounds=base.n_rounds,
+            aayg_mixes=base.aayg_mixes, device=dev)
+        sim = build()
+        n_params = sum(v.numel() for v in
+                       init(torch.Generator().manual_seed(0)).values())
+        if not overrides:
+            check((n_params, sim.n_segments) == widths,
+                  f"{label}: {n_params} parameters in {sim.n_segments} "
+                  f"segments, expected {widths}")
+        print(f"[paper-tasks] {label}: {n_params} parameters, "
+              f"{sim.n_segments} segments of {sim.seg_len}, lr {lr:g}; 10 "
+              f"clients x "
+              f"{max(len(x) for x in data.train_x)} padded samples of "
+              f"{tuple(data.train_x[0].shape[1:])}, {len(data.test_y)} test")
+        scenarios = {pm: simulator.make_scenario(net, dataclasses.replace(
+            base, protocol=pm[0], mode=pm[1], lr=lr)).prepare()
+            for pm in PAPER_PROTOCOLS}
+        first = scenarios[PAPER_PROTOCOLS[0]]
+        sim.advance_chunk(sim.init_scan(first), first)   # warm-up
+        sync()
+        for pm in PAPER_PROTOCOLS:
+            sc = scenarios[pm]
+            _reset_k1_counts()
+            _reset_peak(dev)
+            state = sim.init_scan(sc)
+            sync()
+            secs, rows = [], []
+            for _ in range(sim.n_chunks):
+                t0 = time.perf_counter()
+                state, m = sim.advance_chunk(state, sc)
+                sync()
+                secs.append(time.perf_counter() - t0)
+                rows.append({k: v.cpu() for k, v in m.items()})
+            launches = ops.LAUNCHES["ra_aggregate"]
+            peak = _peak_gib(dev)
+            per_round = {protocols.PROTOCOL_IDS["ra"]: 1,
+                         protocols.PROTOCOL_IDS["aayg"]: base.aayg_mixes}.get(
+                             sc.protocol_id, 0)
+            want = per_round * base.n_rounds
+            check(launches == want, f"{label} {pm}: ra_aggregate launched "
+                  f"{launches} times, expected {want}")
+            total += launches
+            loss = torch.stack([r["loss"] for r in rows])
+            acc = torch.stack([r["acc"] for r in rows])
+            check(tuple(loss.shape) == (base.n_rounds, 10)
+                  and bool(torch.isfinite(loss).all()
+                           and torch.isfinite(acc).all()),
+                  f"{label} {pm}: metric shape {tuple(loss.shape)} or "
+                  f"non-finite values")
+            mean_loss = loss.mean(1)
+            if pm[0] == "ra":
+                check(float(mean_loss[-1]) < float(mean_loss[0]),
+                      f"{label}: R&A's round-3 train loss "
+                      f"{float(mean_loss[-1]):.4f} is not below round 1's "
+                      f"{float(mean_loss[0]):.4f}")
+            print(f"[paper-tasks] {label} {pm[0]:4s}/{pm[1]}: s/round "
+                  f"{[round(x, 4) for x in secs]}, peak {peak:.3f} GiB, K1 "
+                  f"launches {launches} (expected {want}); loss/round "
+                  f"{[round(float(x), 4) for x in mean_loss]} acc/round "
+                  f"{[round(float(x), 4) for x in acc.mean(1)]}")
+        if profile:
+            profile_task_round(label, build, first)
+        del sim, scenarios
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[paper-tasks] {label} took "
+              f"{time.perf_counter() - t_task:.2f} s")
+    return total
+
+
+def nwp_grid_phase(dev, *, sequences=32, n_rounds=10):
+    """Phase 18, last: `registry.sim_model("transformer_nwp")` on the
+    non-iid char stream through `run_grid` with benchmarks/fig_nwp.py's
+    grid (R&A, C-FL and no exchange x 2 seeds on the Table-II network at
+    17 dBm and 25,000-bit packets; seq 16, seg 64, lr 0.5, 1 local epoch).
+    K1 launches once a round for the R&A group, at B = 2.  Returns them."""
+    import warnings
+
+    from repro_torch.core import topology
+    from repro_torch.data import synthetic
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.models import registry
+
+    sync = _sync_of(dev)
+    model = registry.sim_model("transformer_nwp", vocab=90)
+    data = synthetic.fed_char_stream(
+        n_clients=10, vocab=90, seq_len=16, sequences_per_client=sequences,
+        test_sequences=2 * sequences, iid=False, seed=0)
+    cfg = simulator.SimConfig(n_rounds=n_rounds, seg_len=64, local_epochs=1,
+                              lr=0.5)
+    net = topology.make_network(
+        topology.TABLE_II_COORDS, edge_density=0.5, packet_len_bits=25_000,
+        n_clients=10, tx_power_dbm=17.0)
+    grid = scenarios.ScenarioGrid.product(
+        networks=[("tab2", net)], protocols=NWP_PROTOCOLS, seeds=range(2))
+    warnings.filterwarnings("ignore",
+                            category=simulator.PacketLengthMismatchWarning)
+    runner = scenarios.GridRunner(model.init_fn, model.apply_fn, data, cfg,
+                                  device=dev)
+    runner.run(grid)                              # warm-up
+    sync()
+    _reset_k1_counts()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    res = runner.run(grid)
+    sync()
+    secs = time.perf_counter() - t0
+    launches, by_batch = _k1_counts()
+    check(launches == n_rounds and by_batch == {2: n_rounds},
+          f"transformer_nwp grid: ra_aggregate launched {launches} times "
+          f"(by batch size {by_batch}), expected {n_rounds} of B = 2")
+    check(bool(np.isfinite(res.loss).all() and np.isfinite(res.acc).all()),
+          "transformer_nwp grid: non-finite values")
+    n_params = sum(v.numel() for v in
+                   model.init_fn(torch.Generator().manual_seed(0)).values())
+    print(f"[paper-tasks] transformer_nwp ({n_params} parameters, "
+          f"{runner.sim.n_segments} segments of 64) through run_grid: "
+          f"{len(grid)} scenarios x {n_rounds} rounds in {secs:.4f} s "
+          f"({len(grid) / secs:.3f} scenarios/s), peak {_peak_gib(dev):.3f} "
+          f"GiB, K1 launches {launches} (by B {by_batch})")
+    for label, one in res.items():
+        print(f"[paper-tasks]   {label:28s} final token acc "
+              f"{float(one.mean_acc[-1]):.4f} loss "
+              f"{float(one.loss_per_client[-1].mean()):.4f}")
+    return launches
+
+
+def _adamw_gap(got: dict, want: dict, grads: dict, lr: float,
+               wd: float = 0.1) -> tuple[float, int]:
+    """One AdamW step of two runs from the same weights: the largest gap
+    where the gradient stands above float32 noise (|g| >= 1e-6), and how
+    many parameters departed by more than 1e-4 elsewhere; every gap must
+    stay within the step's bound 2 lr (1 + wd |p|) (a first Adam step is
+    g / (|g| + eps) lr, which last-bit gradient differences flip where
+    |g| ~ eps)."""
+    worst, departed = 0.0, 0
+    for name, w in want.items():
+        g = got[name].detach().float().cpu()
+        w = w.detach().float().cpu()
+        gap = (g - w).abs()
+        clear = grads[name].abs() >= 1e-6
+        if bool(clear.any()):
+            worst = max(worst, float(gap[clear].max()))
+        check(bool((gap <= 2 * lr * (1 + wd * w.abs()) + 1e-6).all()),
+              f"{name}: an AdamW step apart by more than its bound")
+        departed += int((gap[~clear] > 1e-4).sum())
+    return worst, departed
+
+
+def train_step_reference(devices):
+    """Phase 19, last: one float32 smoke `train_step` (AdamW, lr 3e-4) of
+    qwen2.5 and rwkv6 on ``devices[1]`` and on ``devices[0]`` from the same
+    weights and tokens: loss within 1e-5, moments within 1e-4, parameters
+    within 1e-4 where the gradient is above float32 noise (`_adamw_gap`)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import registry
+
+    for arch in ("qwen2.5-3b", "rwkv6-1.6b"):
+        cfg = cfgbase.smoke_variant(cfgbase.get(arch))
+        bundle = registry.build(cfg)
+        params0 = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, size=(4, 64)))
+        leaves = {k: v.clone().requires_grad_() for k, v in params0.items()}
+        loss, _ = bundle.loss_fn(leaves, {"tokens": tokens}, device="cpu")
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        outs = []
+        for d in devices:
+            params = {k: v.clone().to(d) for k, v in params0.items()}
+            state = {"params": params, "opt": bundle.optimizer.init(params)}
+            outs.append(bundle.train_step(state, {"tokens": tokens.to(d)},
+                                          device=d))
+        (s0, m0), (s1, m1) = outs
+        loss_gap = abs(float(m1["loss"]) - float(m0["loss"]))
+        mom_gap = max(float((s1["opt"][n][k].cpu() - s0["opt"][n][k]).abs()
+                            .max()) for n in ("m", "v") for k in params0)
+        worst, departed = _adamw_gap(s1["params"], s0["params"], grads, 3e-4)
+        check(loss_gap <= 1e-5 and mom_gap <= 1e-4 and worst <= 1e-4,
+              f"{arch} smoke train_step: {devices[1]} vs {devices[0]}: loss "
+              f"gap {loss_gap:.2e}, moments {mom_gap:.2e}, parameters "
+              f"{worst:.2e}")
+        print(f"[train] float32 smoke {arch} train_step: {devices[1]} == "
+              f"{devices[0]} (loss gap {loss_gap:.2e}, moments gap "
+              f"{mom_gap:.2e}, parameters gap {worst:.2e} where |g| >= 1e-6; "
+              f"{departed} parameters with |g| < 1e-6 apart by more than "
+              f"1e-4, within the step's bound)")
+
+
+def refuse_autograd_check(dev):
+    """K2 and K3 on the card raise where a gradient would flow, under
+    autograd and under `torch.func.grad`, and run under no_grad."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v = rnd(1, 64, 4, 64), rnd(1, 64, 2, 64), rnd(1, 64, 2, 64)
+    r, kk, vv = rnd(1, 32, 2, 64), rnd(1, 32, 2, 64), rnd(1, 32, 2, 64)
+    w = -torch.rand((1, 32, 2, 64), generator=gen, device=dev)
+    u = rnd(2, 64, dtype=torch.float32)
+    calls = {
+        "flash_attention": lambda x: ops.flash_attention(
+            x, k, v, scale=0.125, causal=True, device=dev),
+        "rwkv6_scan": lambda x: ops.rwkv6_scan(x, kk, vv, w, u, device=dev),
+    }
+    inputs = {"flash_attention": q, "rwkv6_scan": r}
+    for name, call in calls.items():
+        x = inputs[name]
+        with torch.no_grad():
+            call(x.clone().requires_grad_())
+        for how, fn in (
+                ("autograd", lambda: call(x.clone().requires_grad_())),
+                ("torch.func.grad", lambda: torch.func.grad(
+                    lambda t: call(t).float().sum())(x))):
+            try:
+                out = fn()
+            except RuntimeError as err:
+                check("no backward" in str(err),
+                      f"{name} under {how} raised {err}")
+                continue
+            check(False, f"{name} under {how} returned "
+                  f"{type(out).__name__} (grad_fn {out.grad_fn}) instead "
+                  f"of raising")
+    print("[train] K2 flash_attention and K3 rwkv6_scan raise under "
+          "autograd and under torch.func.grad on the card, and run under "
+          "no_grad")
+
+
+def profile_train_step(dev, cfg):
+    """Phase 19: one full-width train step (after a warm-up step, from the
+    same weights and batch as `launch.train.main`'s first) under
+    torch.profiler: the forward and backward against the AdamW update (a
+    range around `registry._update_leafwise`), bf16 / float32 products
+    (GEMM kernels) against the rest."""
+    from torch.profiler import record_function
+
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.models import registry
+
+    bundle = registry.build(cfg, lr=TRAIN_FULL_LR)
+    state = registry.init_state(
+        bundle, torch.Generator(dev).manual_seed(0), device=dev)
+    batches = pipeline.lm_batches(
+        synthetic.lm_token_stream(vocab=cfg.vocab, n_tokens=200_000), 8, 128)
+    batch = {"tokens": torch.from_numpy(next(batches)[:, :-1]).to(dev)}
+    state, _ = bundle.train_step(state, batch, device=dev)     # warm-up
+    orig = registry._update_leafwise
+
+    def ranged_update(*args, **kwargs):
+        with record_function("train:optimizer"):
+            return orig(*args, **kwargs)
+
+    registry._update_leafwise = ranged_update
+    try:
+        wall_ms, events, spans = _profiled(
+            lambda: bundle.train_step(state, batch, device=dev),
+            ranges=("train:optimizer",))
+    finally:
+        registry._update_leafwise = orig
+    del state
+    dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    opt_ms = spans["train:optimizer"] / 1e3
+    gemm = [ev for ev in events
+            if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", ev.key, re.I)]
+    gemm_ms = sum(ev.self_device_time_total for ev in gemm) / 1e3
+    if dev_ms <= 0:
+        print(f"[train-profile] one full-width step: wall {wall_ms:.2f} ms, "
+              f"device time not measured (the profiler saw no CUDA kernels)")
+        return
+    print(f"[train-profile] one full-width qwen2.5-3b step (8 x 128 tokens): "
+          f"wall {wall_ms:.2f} ms, device kernels {dev_ms:.3f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}% of wall busy) in "
+          f"{sum(ev.count for ev in events)} launches: AdamW update "
+          f"{opt_ms:.3f} ms ({100 * opt_ms / dev_ms:.1f}%), forward + "
+          f"backward {dev_ms - opt_ms:.3f} ms, of which GEMM kernels "
+          f"{gemm_ms:.3f} ms ({100 * gemm_ms / dev_ms:.1f}% of device time)")
+    for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:10]:
+        print(f"[train-profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
+              f"x{ev.count:<5d} {ev.key[:100]}")
+
+
+def _full_train_losses(dev, cfg, lr: float, dtype) -> tuple[list, float]:
+    """`TRAIN_FULL_STEPS` steps of `registry.train_step` on ``cfg`` with
+    ``dtype`` parameters at ``lr``, from `launch.train.main`'s weights and
+    batches (seed 0, 8 x 128 tokens): the losses and the share of the
+    parameters that moved."""
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    bundle = registry.build(cfg, lr=lr)
+    state = registry.init_state(
+        bundle, torch.Generator(dev).manual_seed(0), device=dev)
+    batches = pipeline.lm_batches(
+        synthetic.lm_token_stream(vocab=cfg.vocab, n_tokens=200_000), 8, 128)
+    losses = []
+    for _ in range(TRAIN_FULL_STEPS):
+        batch = {"tokens": torch.from_numpy(next(batches)[:, :-1]).to(dev)}
+        state, m = bundle.train_step(state, batch, device=dev)
+        losses.append(float(m["loss"]))
+    moved = _moved_share(dev, cfg, state["params"])
+    del state
+    torch.cuda.empty_cache()
+    return losses, moved
+
+
+def _moved_share(dev, cfg, params: dict) -> float:
+    """The share of ``params``' entries that differ from `launch.train`'s
+    seed-0 draw of them."""
+    from repro_torch.models import registry
+
+    init = registry.build(cfg).init(torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    moved = sum(int((params[k] != v).sum()) for k, v in init.items())
+    return moved / sum(v.numel() for v in init.values())
+
+
+def train_witness(dev, cfg, losses: list, start: float) -> None:
+    """Phase 19 (a), its float32 twins at full width and depth: at
+    `TRAIN_FULL_LR` the twin's loss must fall as the bf16 run's did; at
+    `TRAIN_TWIN_LR`, where bf16 moves most weights, a bf16 run and its twin
+    must agree within `TRAIN_TWIN_TOL` at every step (both overshoot
+    there, so the overshoot is AdamW's, not bf16's)."""
+    f32, _ = _full_train_losses(dev, cfg, TRAIN_FULL_LR, torch.float32)
+    check(all(math.isfinite(x) for x in f32)
+          and abs(f32[0] - start) <= TRAIN_START_TOL and f32[-1] < f32[0],
+          f"qwen2.5-3b float32 twin at lr {TRAIN_FULL_LR:g}: losses {f32}")
+    print(f"[train] (a) float32 twin at lr {TRAIN_FULL_LR:g}: losses "
+          f"{[round(x, 4) for x in f32]} (bf16 {[round(x, 4) for x in losses]})")
+    pair = {dt: _full_train_losses(dev, cfg, TRAIN_TWIN_LR, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    (b16, moved), (f32, _) = pair.values()
+    gap = max(abs(a - b) for a, b in zip(b16, f32))
+    check(all(math.isfinite(x) for x in b16 + f32) and gap <= TRAIN_TWIN_TOL,
+          f"qwen2.5-3b at lr {TRAIN_TWIN_LR:g}: bf16 losses {b16} against "
+          f"float32 {f32} (tol {TRAIN_TWIN_TOL})")
+    print(f"[train] (a) at lr {TRAIN_TWIN_LR:g}: bf16 losses "
+          f"{[round(x, 4) for x in b16]} ({100 * moved:.2f} % of the "
+          f"parameters changed), float32 {[round(x, 4) for x in f32]}: "
+          f"largest gap {gap:.4f} (tol {TRAIN_TWIN_TOL}); the last above the "
+          f"first: bf16 {b16[-1] > b16[0]}, float32 {f32[-1] > f32[0]}")
+
+
+def train_phase(dev):
+    """Phase 19: `launch.train.main` twice on the card: (a) qwen2.5-3b at
+    full width and depth (bf16, AdamW with float32 moments, remat), 3
+    steps of 8 x 128 tokens; (b) the ``--dfl`` loop at the smoke size, 4
+    clients, 10 steps, an exchange every 5 (K1 twice, through
+    `protocols.ra_round`).  Training never launches K2 or K3.  Returns K1's
+    launches of (b)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    refuse_autograd_check(dev)
+    other = {k: ops.LAUNCHES[k] for k in ("flash_attention", "rwkv6_scan")}
+    torch.cuda.empty_cache()
+    _reset_peak(dev)
+    mem0 = torch.cuda.memory_stats(dev)
+    t0 = time.perf_counter()
+    out = train.main(["--arch", "qwen2.5-3b", "--full-config", "--steps",
+                      str(TRAIN_FULL_STEPS), "--batch", "8", "--seq", "128",
+                      "--lr", str(TRAIN_FULL_LR)])
+    wall = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    mem1 = torch.cuda.memory_stats(dev)
+    mallocs, retries = (mem1.get(k, 0) - mem0.get(k, 0) for k in
+                        ("num_device_alloc", "num_alloc_retries"))
+    losses, step_s = out["losses"], out["step_s"]
+    vocab, d_model = out["cfg"].vocab, out["cfg"].d_model
+    start = math.log(vocab) + d_model * 0.02 ** 2 / 2
+    check(out["n_params"] == 3_085_938_688,
+          f"qwen2.5-3b: {out['n_params']} parameters")
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - start) <= TRAIN_START_TOL
+          and losses[-1] < losses[0],
+          f"qwen2.5-3b full training: losses {losses} (step 0 expected "
+          f"within {TRAIN_START_TOL} of {start:.4f}, the last below it)")
+    moved = _moved_share(dev, out["cfg"], out["params"])
+    steady = step_s[1:]
+    tok_s = [out["tokens_per_step"] / s for s in steady]
+    print(f"[train] (a) qwen2.5-3b full config, {out['n_params']} parameters"
+          f" (bf16, AdamW float32 moments, remat): losses "
+          f"{[round(x, 4) for x in losses]} (ln V + d 0.02^2 / 2 = "
+          f"{start:.4f}, ln V = {math.log(vocab):.4f}); s/step "
+          f"{[round(x, 4) for x in step_s]} (step 0 includes first-use "
+          f"setup); tokens/s after step 0 {[round(x, 1) for x in tok_s]}; "
+          f"peak {peak:.3f} GiB; main() {wall:.2f} s; the caching allocator "
+          f"took {mallocs} device allocations and {retries} retries "
+          f"(frees cache and allocates again); {100 * moved:.2f} % of the "
+          f"bf16 parameters changed over the {TRAIN_FULL_STEPS} steps at lr "
+          f"{TRAIN_FULL_LR:g}")
+    cfg = out["cfg"]
+    del out
+    torch.cuda.empty_cache()
+    train_witness(dev, cfg, losses, start)
+    profile_train_step(dev, cfg)
+    torch.cuda.empty_cache()
+
+    _reset_k1_counts()
+    _reset_peak(dev)
+    out = train.main(["--dfl", "--clients", "4", "--steps", "10",
+                      "--rounds-per-exchange", "5"])
+    launches = ops.LAUNCHES["ra_aggregate"]
+    check(launches == out["k1_launches"] == 2,
+          f"--dfl: ra_aggregate launched {launches} times "
+          f"({out['k1_launches']} by main), expected 2 (one a ra_round)")
+    check(all(math.isfinite(x) for x in out["losses"]),
+          "--dfl: non-finite losses")
+    print(f"[train] (b) --dfl, {out['cfg'].name} ({out['n_params']} "
+          f"parameters), 4 clients x 10 steps of 8 x 128 tokens, ra_round "
+          f"every 5: round losses {[round(x, 4) for x in out['round_losses']]}"
+          f", median s/step {statistics.median(out['step_s']):.4f} "
+          f"({out['tokens_per_step'] / statistics.median(out['step_s']):.1f}"
+          f" tokens/s), peak {_peak_gib(dev):.3f} GiB, K1 launches "
+          f"{launches} (expected 2)")
+    check(all(ops.LAUNCHES[k] == n for k, n in other.items()),
+          f"training launched K2 or K3: {other} -> "
+          f"{ {k: ops.LAUNCHES[k] for k in other} }")
+    train_step_reference((torch.device("cpu"), dev))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2171,6 +2880,32 @@ def main() -> int:
     tier_launches = serve_tier_phase(dev, torch.cuda.synchronize, runner,
                                      grid12, seq12)
     del runner
+    torch.cuda.empty_cache()
+
+    # 18. paper-tasks (the paper's ResNet and CharRNN tasks, the NWP grid)
+    t0 = time.perf_counter()
+    paper_tasks_reference((torch.device("cpu"), dev))
+    k1_seen = set()
+    with _k1_shapes(k1_seen):
+        paper_launches = paper_tasks_phase(dev)
+        nwp_launches = nwp_grid_phase(dev)
+    torch.cuda.empty_cache()
+    print(f"[paper-tasks] phase 18 took {time.perf_counter() - t0:.2f} s")
+
+    # 19. train (launch.train: full-width qwen2.5-3b, the --dfl loop)
+    t0 = time.perf_counter()
+    with _k1_shapes(k1_seen):
+        train_launches = train_phase(dev)
+    print(f"[train] phase 19 took {time.perf_counter() - t0:.2f} s")
+    checked = {(s["b"] or 1, s["n"], s["l"], s["k"]) for _, s in K1_SHAPES}
+    unchecked = sorted(str(x) for x in k1_seen
+                       if x[0] not in checked
+                       or x[1] not in (torch.float32, torch.bfloat16))
+    check(not unchecked, f"phases 18-19 launched K1 at {unchecked}, which "
+          f"phase 3 does not hold to the plain version (K1_SHAPES)")
+    print(f"[k1] phases 18-19 launched K1 at {len(k1_seen)} shape(s), each "
+          f"held to its plain version in phase 3: "
+          f"{sorted((shape, str(dt)[6:]) for shape, dt in k1_seen)}")
 
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
@@ -2183,10 +2918,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ra_aggregate.cu",
         "replaces": "src/repro/kernels/ra_aggregate.py:177",
         "launches": (launches + codec_launches + grid_launches
-                     + sum(tier_launches.values())),
+                     + sum(tier_launches.values()) + paper_launches
+                     + nwp_launches + train_launches),
         "launches_by_path": {"slice": launches,
                              "slice-codec": codec_launches,
-                             "grid": grid_launches, **tier_launches},
+                             "grid": grid_launches, **tier_launches,
+                             "paper-tasks": paper_launches,
+                             "nwp-grid": nwp_launches,
+                             "train": train_launches},
         "tx_launches": tx_launches + grid_tx,
         "grid_launches_by_batch": {str(b): c for b, c in
                                    grid_batches.items()},

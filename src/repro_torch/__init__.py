@@ -11,6 +11,26 @@ that argument they raise.
 from __future__ import annotations
 
 import torch
+from torch._C import _functorch
+
+
+def func_transform_active() -> bool:
+    """Whether a `torch.func` transform (grad, vmap, ...) is running."""
+    return _functorch.peek_interpreter_stack() is not None
+
+
+def grad_tracking(t: torch.Tensor) -> bool:
+    """Whether ``t`` carries a `torch.func` gradient transform at some
+    level (a vmap's batched wrapper is looked through).
+
+    This and `func_transform_active` are the package's only readers of
+    torch's private functorch API."""
+    while True:
+        if _functorch.is_gradtrackingtensor(t):
+            return True
+        if not _functorch.is_batchedtensor(t):
+            return False
+        t = _functorch.get_unwrapped(t)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

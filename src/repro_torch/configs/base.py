@@ -31,6 +31,12 @@ ARCH_IDS = [
     "gemma_7b",
 ]
 
+# The families whose inputs include modal embeddings (enc_dec, vlm): the
+# simulator's ``apply(params, x)`` cannot carry them, so the NWP zoo
+# (`models.registry.SIM_MODEL_IDS`) skips them.  Named here so the zoo's
+# ids need no config the port lacks.
+MODAL_ARCHS = ("whisper_base", "llama3_2_vision_90b")
+
 # CLI-friendly aliases (--arch qwen2.5-3b etc.)
 ALIASES = {
     "qwen2.5-3b": "qwen2_5_3b",

@@ -15,6 +15,11 @@ matrices, and returns the segments after local aggregation.
   * `ideal_round_seg` — error-free C-FL.
   * `dispatch_round_seg` selects one of them (plus "none") by protocol id.
 
+The pytree-level wrappers `ra_round`, `aayg_round`, `cfl_round` and
+`ideal_cfl_round` take client-stacked params (a flat dict, leaves (N, ...))
+and a static ``seg_len`` / mode name, segment them, run the round and
+rebuild the dict (`launch.train`'s exchange).
+
 The codec layer (`core.compression`) threads in through ``tx_mask``, the
 (N, S) per-segment transmit mask at full width, and ``w_raw``, the
 unencoded segments (`dispatch_round_seg`).
@@ -259,3 +264,68 @@ def dispatch_round_seg(
         return w_keep, e_ones, nan
     raise ValueError(f"unknown protocol id {protocol_id}: choose from "
                      f"{PROTOCOL_IDS}")
+
+
+# ---------------------------------------------------------------------------
+# Pytree-level wrappers (static string API).
+# ---------------------------------------------------------------------------
+def ra_round(
+    stacked: dict,
+    p: torch.Tensor,
+    rho: torch.Tensor,
+    *,
+    seg_len: int,
+    mode: str = "ra_normalized",
+    u: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    agg_impl: str = "auto",
+) -> tuple[dict, torch.Tensor]:
+    """R&A D-FL local aggregation round.  Returns (new_stacked, e), ``e``
+    the (N, N, L) success mask sampled (``u``: its uniforms)."""
+    w_seg, spec, m_params = _to_segments(stacked, seg_len)
+    out, e = ra_round_seg(w_seg, p, rho, MODE_IDS[mode], u=u,
+                          generator=generator, agg_impl=agg_impl)
+    return _from_segments(out, spec, m_params), e
+
+
+def aayg_round(
+    stacked: dict,
+    p: torch.Tensor,
+    link_eps: torch.Tensor,
+    *,
+    seg_len: int,
+    mode: str = "ra_normalized",
+    n_mixes: int = 1,
+    u: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    agg_impl: str = "auto",
+) -> dict:
+    """Aggregate-as-You-Go gossip round (see `aayg_round_seg`)."""
+    w_seg, spec, m_params = _to_segments(stacked, seg_len)
+    out = aayg_round_seg(w_seg, p, link_eps, MODE_IDS[mode], n_mixes=n_mixes,
+                         u=u, generator=generator, agg_impl=agg_impl)
+    return _from_segments(out, spec, m_params)
+
+
+def cfl_round(
+    stacked: dict,
+    p: torch.Tensor,
+    rho: torch.Tensor,
+    *,
+    seg_len: int,
+    mode: str = "ra_normalized",
+    aggregator: int = 6,
+    u: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> dict:
+    """C-FL benchmark round (see `cfl_round_seg`)."""
+    w_seg, spec, m_params = _to_segments(stacked, seg_len)
+    out = cfl_round_seg(w_seg, p, rho, MODE_IDS[mode], aggregator, u=u,
+                        generator=generator)
+    return _from_segments(out, spec, m_params)
+
+
+def ideal_cfl_round(stacked: dict, p: torch.Tensor, *, seg_len: int) -> dict:
+    """Error-free C-FL (the paper's ideal reference in Fig. 9)."""
+    w_seg, spec, m_params = _to_segments(stacked, seg_len)
+    return _from_segments(ideal_round_seg(w_seg, p), spec, m_params)

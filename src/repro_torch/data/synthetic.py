@@ -6,6 +6,12 @@ both produce equal arrays (tests/test_torch_network.py holds them to it).
 
   * `fed_image_classification` — K-class Gaussian-cluster "images", split
     into N non-i.i.d. label-skew shards (paper: one class per client).
+  * `fed_char_stream` — a synthetic character-level corpus over a 90-symbol
+    vocabulary generated by a random Markov chain (Shakespeare stand-in);
+    i.i.d. or per-client-chain (non-i.i.d.) partitions.
+  * `lm_token_stream` — token stream for LM pre-training examples.
+
+(tests/test_torch_data.py holds the last two to the reference bit for bit.)
 """
 from __future__ import annotations
 
@@ -74,3 +80,59 @@ def fed_image_classification(
     per = test_size // n_classes
     xs, ys = zip(*(sample(c, per) for c in range(n_classes)))
     return FederatedDataset(train_x, train_y, np.concatenate(xs), np.concatenate(ys))
+
+
+def fed_char_stream(
+    *,
+    n_clients: int = 10,
+    vocab: int = 90,
+    seq_len: int = 32,
+    sequences_per_client: int = 64,
+    iid: bool = True,
+    test_sequences: int = 256,
+    seed: int = 0,
+) -> FederatedDataset:
+    """Markov-chain character corpus (Shakespeare stand-in).
+
+    iid=True: all clients sample from one chain. iid=False: each client has
+    its own chain (role-level non-iid of the FedProx split).
+    """
+    rng = np.random.default_rng(seed)
+
+    def make_chain(r):
+        t = r.gamma(0.3, size=(vocab, vocab))  # sparse-ish transitions
+        return t / t.sum(1, keepdims=True)
+
+    global_chain = make_chain(rng)
+
+    def gen(chain, n_seq, r):
+        out = np.empty((n_seq, seq_len + 1), dtype=np.int32)
+        for i in range(n_seq):
+            s = r.integers(vocab)
+            for j in range(seq_len + 1):
+                out[i, j] = s
+                s = r.choice(vocab, p=chain[s])
+        return out
+
+    train_x, train_y = [], []
+    for n in range(n_clients):
+        r = np.random.default_rng(seed + 1 + n)
+        chain = global_chain if iid else make_chain(r)
+        n_seq = int(r.integers(sequences_per_client // 2,
+                               sequences_per_client * 3 // 2))
+        seqs = gen(chain, n_seq, r)
+        train_x.append(seqs[:, :-1])
+        train_y.append(seqs[:, 1:])
+
+    r = np.random.default_rng(seed + 999)
+    seqs = gen(global_chain, test_sequences, r)
+    return FederatedDataset(train_x, train_y, seqs[:, :-1], seqs[:, 1:])
+
+
+def lm_token_stream(*, vocab: int, n_tokens: int, seed: int = 0) -> np.ndarray:
+    """Zipf-distributed token stream for LM pre-training demos."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    return rng.choice(vocab, size=n_tokens, p=probs).astype(np.int32)

@@ -16,6 +16,10 @@
     once under one lock, `build_all` stages each build in a file of its own
     process and thread, and every launch counter is incremented under a
     lock (`kernels.count_launch`).
+  * K2 and K3 have no backward kernel (nor has the reference): on the card
+    `flash_attention` and `rwkv6_scan` raise where a gradient would flow
+    through them (`refuse_autograd`), instead of returning an output that
+    autograd cannot see past.  Training callers run the plain forward.
   * K1 is the custom operator ``repro_torch::ra_aggregate``
     (`torch.library.custom_op`) with a fake (meta) version and a
     `torch.func.vmap` rule, the counterpart of the reference's
@@ -34,7 +38,7 @@ from pathlib import Path
 
 import torch
 
-from .. import resolve_device
+from .. import grad_tracking, resolve_device
 from . import count_launch
 from . import flash_attention as _fa
 from . import ra_aggregate as _ra
@@ -111,6 +115,20 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = _BINDERS[name](ctypes.CDLL(str(lib_path(name))))
             _LIBS[name] = lib
         return lib
+
+
+def refuse_autograd(name: str, tensors) -> None:
+    """Raise if a gradient would flow through kernel ``name``: grad mode is
+    on and an input requires grad, or an input is a `torch.func`
+    grad-tracking tensor.  The kernel writes into a fresh output that no
+    autograd graph records, so the gradient upstream of it would be lost."""
+    if any((torch.is_grad_enabled() and t.requires_grad) or grad_tracking(t)
+           for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and a gradient would "
+            f"flow through this call; run the plain forward (impl='torch') "
+            f"to differentiate, or call it under torch.no_grad(); a backward "
+            f"kernel is in ROADMAP.md Queue 2")
 
 
 _REFS = {"ra_normalized": ref.ra_aggregate_ref,
@@ -254,7 +272,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tokens per step.  ``chunk`` is the reference's chunk length, kept so
     that calls read as the reference's; no path's result depends on it.
     ``device`` (default: the CUDA card) is where the call runs; every input
-    must already lie there.
+    must already lie there.  On the card it raises where a gradient would
+    flow through it (`refuse_autograd`).
     """
     dev = resolve_device(device)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
@@ -266,6 +285,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"rwkv6_scan: chunk must be positive, got {chunk}")
     if dev.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, w, u, return_state=return_state)
+    refuse_autograd("rwkv6_scan", (r, k, v, w, u))
     tile = max(1, min(r.shape[1], _rwkv.TILE))
     out, state = _rwkv.launch(load_library("rwkv6_scan"), r, k, v, w, u,
                               tile=tile, return_state=return_state)
@@ -287,7 +307,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     must also be nonzero, so a broadcast (stride-0) k or v is refused.
 
     ``device`` (default: the CUDA card) is where the call runs; every input
-    must already lie there.
+    must already lie there.  On the card it raises where a gradient would
+    flow through it (`refuse_autograd`).
     """
     dev = resolve_device(device)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -297,6 +318,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _fa.check_shapes(q, k, v)
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    refuse_autograd("flash_attention", (q, k, v))
     out = _fa.launch(load_library("flash_attention"), q, k, v, scale=scale,
                      causal=causal)
     count_launch(LAUNCHES, "flash_attention")

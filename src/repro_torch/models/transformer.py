@@ -26,7 +26,9 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .. import func_transform_active
 from . import layers as L
 from . import ssm as S
 
@@ -165,9 +167,25 @@ def init_params(gen: torch.Generator, cfg: ModelCfg) -> Params:
 
 
 def layer_params(params: Params, n_layers: int) -> list[Params]:
-    """Per-layer views of the stacked layer leaves."""
+    """Per-layer views of the stacked layer leaves.  `torch.unbind` makes
+    them, so a gradient reaches each stacked leaf as one stack of the
+    layers' gradients, not as one full-size scatter a layer."""
     stacked = _sub(params, "layers")
-    return [{k: v[i] for k, v in stacked.items()} for i in range(n_layers)]
+    views = [v.unbind(0) for v in stacked.values()]
+    return [dict(zip(stacked, vals)) for vals in zip(*views)][:n_layers]
+
+
+def train_impl(cfg: ModelCfg) -> str:
+    """The ``impl`` a training caller passes to `forward`: the reference's
+    training forward for ``cfg.attn_impl``.  ``"naive"`` is the masked
+    `layers._sdpa` and the plain chunked time-mix scan ("torch"): the
+    reference's training path reaches no Pallas kernel, and K2 and K3 have
+    no backward.  The chunked and flash attentions are not ported."""
+    if cfg.attn_impl == "naive":
+        return "torch"
+    raise NotImplementedError(
+        f"{cfg.name}: attn_impl={cfg.attn_impl!r} is not ported yet (only "
+        f"'naive'); see ROADMAP.md Queue 1 item 7")
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +220,13 @@ def _block(cfg: ModelCfg, lp: Params, x: torch.Tensor, *, impl: str = "auto",
     return (x, kept) if return_cache else x
 
 
+def _remat_block(cfg: ModelCfg, impl: str, names: list, x: torch.Tensor,
+                 *leaves: torch.Tensor) -> torch.Tensor:
+    """`_block` with the layer's leaves as positional tensors, the form
+    `torch.utils.checkpoint` records."""
+    return _block(cfg, dict(zip(names, leaves)), x, impl=impl)
+
+
 def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
             impl: str = "auto", window: int | None = None,
             return_hidden: bool = False):
@@ -209,11 +234,23 @@ def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
 
     ``return_hidden`` gives the final normed hidden states (B, S, D)
     instead of logits.  ``impl`` selects the time-mix scan or the attention
-    (see `_block`)."""
+    (see `_block`); training callers pass `train_impl` (on the card
+    "auto" reaches K2 / K3, which refuse autograd).  With ``cfg.remat``
+    and grad mode on, each layer is checkpointed (recomputed in the
+    backward), as the reference wraps its layer scan in `jax.checkpoint`;
+    the values are the same.  Under a `torch.func` transform (the
+    simulator's vmapped gradient) layers are not checkpointed: it takes no
+    saved-tensor hooks."""
     check_family(cfg, window)
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and not func_transform_active())
     for lp in layer_params(params, cfg.n_layers):
-        x = _block(cfg, lp, x, impl=impl)
+        if remat:
+            x = checkpoint(_remat_block, cfg, impl, list(lp), x,
+                           *lp.values(), use_reentrant=False)
+        else:
+            x = _block(cfg, lp, x, impl=impl)
     x = _norm(cfg)(_sub(params, "final_norm"), x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

@@ -50,6 +50,8 @@ CASES = {
     "offset_f32": dict(b=2, k=32, offset=1),
     "offset_bf16": dict(k=64, offset=3, w_dtype="bfloat16"),
     "n1": dict(n=1, k=64),
+    "n4_f32": dict(n=4, l=9, k=1024),             # `launch.train --dfl`
+    "n4_bf16": dict(n=4, l=9, k=1024, w_dtype="bfloat16"),
     "n16_f32": dict(n=16, l=5, k=256),
     "n16_bf16": dict(n=16, l=5, k=256, w_dtype="bfloat16"),
     "n17_f32": dict(n=17, l=5, k=256),
@@ -868,3 +870,96 @@ def test_run_resumable_round_trip_on_the_card(cuda_device, tmp_path):
                                   device=cuda_device),
                        torch.rand(4, generator=state["gen"],
                                   device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: training and the paper's tasks
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_k2_k3_refuse_autograd_on_the_card(cuda_device):
+    """K2 and K3 have no backward: under autograd or `torch.func.grad` they
+    raise instead of returning an output with no ``grad_fn``."""
+    chip_smoke.refuse_autograd_check(cuda_device)
+
+
+@pytest.mark.cuda
+def test_training_forward_launches_neither_k2_nor_k3(cuda_device):
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import registry
+
+    for arch in ("qwen2.5-3b", "rwkv6-1.6b"):
+        cfg = cfgbase.smoke_variant(cfgbase.get(arch))
+        bundle = registry.build(cfg)
+        state = registry.init_state(
+            bundle, torch.Generator(cuda_device).manual_seed(0),
+            device=cuda_device)
+        before = dict(ops.LAUNCHES)
+        tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda_device)
+        state, m = bundle.train_step(state, {"tokens": tokens},
+                                     device=cuda_device)
+        assert math.isfinite(float(m["loss"]))
+        assert ops.LAUNCHES == before
+        # Serving the same weights still runs the kernel.
+        bundle.prefill_step(state["params"], {"tokens": tokens},
+                            device=cuda_device)
+        kernel = "rwkv6_scan" if cfg.family == "ssm" else "flash_attention"
+        assert ops.LAUNCHES[kernel] == before[kernel] + cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_paper_tasks_reduced_match_the_cpu(cuda_device):
+    """ResNet depth 8 width 4 and CharRNN hidden 32: 2 R&A rounds on the
+    card and on the CPU from the same weights and uniforms (1e-4, equal
+    accuracies)."""
+    chip_smoke.paper_tasks_reference((torch.device("cpu"), cuda_device))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    chip_smoke.train_step_reference((torch.device("cpu"), cuda_device))
+
+
+@pytest.mark.cuda
+def test_k1_launches_on_the_training_paths(cuda_device):
+    """K1 launches once a `ra_round`, J times an `aayg_round`, never in
+    `cfl_round` / `ideal_cfl_round`; twice in a `--dfl` run of 4 steps
+    exchanging every 2; one a round of R&A and AaYG in the paper tasks,
+    and one a round of the R&A group (B = 2) in the NWP grid."""
+    from repro_torch.core import protocols, routing, topology
+    from repro_torch.launch import train
+
+    net = topology.paper_network(packet_len_bits=32768)
+    rho = routing.e2e_success(net.link_eps)[0].to(cuda_device)
+    link_eps = net.link_eps.to(cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    stacked = {"a": torch.randn((10, 3000), generator=gen,
+                                device=cuda_device),
+               "b": torch.randn((10, 7, 5), generator=gen,
+                                device=cuda_device)}
+    p = torch.full((10,), 0.1, device=cuda_device)
+    runs = [
+        (1, lambda: protocols.ra_round(stacked, p, rho, seg_len=1024,
+                                       generator=gen)),
+        (3, lambda: protocols.aayg_round(stacked, p, link_eps, seg_len=1024,
+                                         n_mixes=3, generator=gen)),
+        (0, lambda: protocols.cfl_round(stacked, p, rho, seg_len=1024,
+                                        generator=gen)),
+        (0, lambda: protocols.ideal_cfl_round(stacked, p, seg_len=1024)),
+    ]
+    for want, run in runs:
+        before = ops.LAUNCHES["ra_aggregate"]
+        run()
+        assert ops.LAUNCHES["ra_aggregate"] - before == want
+    out = train.main(["--dfl", "--clients", "2", "--steps", "4",
+                      "--rounds-per-exchange", "2", "--batch", "2",
+                      "--seq", "16"])
+    assert out["k1_launches"] == 2
+    total = chip_smoke.paper_tasks_phase(
+        cuda_device, image_samples=8, hw=16,
+        overrides={"resnet": dict(depth=8, width=4),
+                   "charrnn": dict(hidden=16)},
+        char_kw=dict(sequences_per_client=4, test_sequences=8, seq_len=8),
+        profile=False)
+    assert total == 4 * 2 * 3          # 4 tasks x (R&A + AaYG) x 3 rounds
+    assert chip_smoke.nwp_grid_phase(cuda_device, sequences=8,
+                                     n_rounds=2) == 2

@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.core.convergence", "repro_torch.core.overhead",
                 "repro_torch.fl.scenarios", "repro_torch.launch.tracker",
                 "repro_torch.launch.serving", "repro_torch.launch.router",
-                "repro_torch.checkpoint.checkpoint"):
+                "repro_torch.checkpoint.checkpoint",
+                "repro_torch.launch.train", "repro_torch.data.pipeline"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 

@@ -427,3 +427,55 @@ def test_dense_window_raises_and_cache_shapes():
             lambda: transformer.forward(params, cfg, tokens, window=4)):
         with pytest.raises(NotImplementedError, match="sliding window"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The simulator's model zoo (registry.sim_model)
+# ---------------------------------------------------------------------------
+def test_sim_model_ids_equal_the_reference():
+    from repro.models import registry as jregistry
+
+    assert registry.SIM_MODEL_IDS == jregistry.SIM_MODEL_IDS
+    assert registry.sim_models() == jregistry.sim_models()
+    assert base.MODAL_ARCHS == tuple(
+        a for a in jbase.ARCH_IDS if jregistry.needs_modal(jbase.get(a)))
+
+
+def _sim_input(name, rng):
+    if name == "cnn":
+        return rng.normal(size=(2, 28, 28, 1)).astype(np.float32)
+    if name == "resnet":
+        return rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    if name == "mlp":
+        return rng.normal(size=(2, 32)).astype(np.float32)
+    return rng.integers(0, 90, size=(2, 12)).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["cnn", "resnet", "charrnn", "mlp",
+                                  "transformer_nwp", "nwp:qwen2_5_3b",
+                                  "nwp:rwkv6_1_6b"])
+def test_sim_model_forward_matches_reference(name):
+    from repro.models import registry as jregistry
+
+    jm, tm = jregistry.sim_model(name), registry.sim_model(name)
+    assert (tm.name, tm.model_id) == (jm.name, jm.model_id)
+    assert (tm.cfg is None) == (jm.cfg is None)
+    jp = jax.jit(jm.init_fn)(jax.random.PRNGKey(0))
+    tp = _tree(jp)
+    assert list(tp) == list(tm.init_fn(torch.Generator().manual_seed(0)))
+    x = _sim_input(name, np.random.default_rng(1))
+    want = jax.jit(jm.apply_fn)(jp, jnp.asarray(x))
+    got = tm.apply_fn(tp, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got.detach()), _np(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_sim_model_unported_families_raise():
+    for name in registry.sim_models():
+        arch = name.split(":", 1)[1] if name.startswith("nwp:") else None
+        if arch in (None, "qwen2_5_3b", "rwkv6_1_6b"):
+            continue
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            registry.sim_model(name)
+    with pytest.raises(ValueError, match="unknown sim model"):
+        registry.sim_model("nope")
