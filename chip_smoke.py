@@ -89,10 +89,17 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  rows' maxima jump at later key tiles (the Hopper body's
                  lazy softmax must redo tiles there, and the count of such
                  tiles replayed from the logits must be above 0), and a
-                 negative scale; times the kernel, the plain version and
+                 negative scale; then llama3-8b's, starcoder2-3b's
+                 and gemma-7b's prefills (gemma at D = 256), llama3-8b's
+                 under a window of 512, D = 256 in float32 and bf16 at a
+                 ragged S, and windows (40, 300, 512, S, past S; causal and
+                 full) at D = 64, 128 and 256, a window of S or more
+                 bit-equal to none; times the kernel, the plain version and
                  `F.scaled_dot_product_attention` (the library yardstick,
-                 used nowhere in the port) with CUDA events, L2 cold and
-                 warm, beside the bound, and prints the persistent grid.
+                 used nowhere in the port; with the boolean window mask
+                 under a window) with CUDA events, L2 cold and warm, beside
+                 the bound (under a window the pairs it keeps), at each
+                 dense prefill shape, and prints the persistent grid.
  13. dense-serve — the third main path: `launch.serve.serve` on qwen2.5-3b at
                  full width and depth (bfloat16, seed 0; 8 prompts of 2048
                  tokens, 32 generated per row); K2's launch count is set to
@@ -192,7 +199,34 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  parameters 1e-4 where |g| >= 1e-6, within the AdamW step's
                  bound elsewhere).
 
-It then prints the card line, one JSON line describing every ported kernel,
+ 20. dense-zoo — llama3-8b, starcoder2-3b and gemma-7b through
+                 `launch.serve.serve` at full width and depth (bfloat16,
+                 seed 0; 8 prompts of 2048 tokens, 32 generated per row):
+                 K2's count set to 0 just before and read just after, 32,
+                 30 and 28 (one a prefill layer; gemma's at D = 256 through
+                 the first body), none in decode; each prefill held to
+                 impl="torch" as in phase 13; prefill s, decode tok/s and
+                 ms a step (gemma's tied unembedding casts its 3.1 GB table
+                 to float32 every step), peak memory, and one profiled
+                 prefill and decode step (K2's share).
+ 21. window    — (a) llama3-8b served at full width under a window of 512
+                 (K2 windowed, 32 launches, held to impl="torch"; decode
+                 under the window mask against the grown cache), profiled;
+                 (b) llama3-8b float32 at full width decoding 288 greedy
+                 steps from empty into a wrapped cache of 128 slots
+                 (pos = abs % 128, abs_pos, full_cache) against the
+                 unwrapped windowed decode on the same tokens: the same
+                 ids, logits within 1e-3 of their largest; (c) one step at
+                 long_500k's decode (batch 1, 8192 wrapped slots, abs_pos
+                 524,287): s a step and peak memory; (d) `train_step` on
+                 llama3-8b at full width and 4 layers (bf16, 8 x 512
+                 tokens) under attn_impl naive, chunked and flash from the
+                 same weights and batches, 3 steps each, losses within
+                 0.15 of naive's, no K2 or K3 launch; a float32 smoke
+                 flash `train_step` card vs CPU.
+
+It then prints the card line, one JSON line describing every ported kernel
+(K2's with its launches by path and its time at each dense prefill shape),
 and last a JSON line with the device.  Without CUDA, or without the rest of
 the repository beside it, it exits nonzero before printing any result.
 """
@@ -264,26 +298,68 @@ K3_CASES = [
 ]
 K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
 # K2 checks: (name, (B, S, H, KV, D), dtype, causal, inputs as `k2_inputs`
-# draws them).  The serving shape is qwen2.5-3b's prefill; the next ones are
-# tests/test_kernels.py's; the `growth` and `scale1` cases make the Hopper
-# body's lazy softmax redo tiles exactly (`k2_lazy_redos` counts them).
+# draws them, sliding window or None).  The serving shape is qwen2.5-3b's
+# prefill; the next ones are tests/test_kernels.py's; the `growth` and
+# `scale1` cases make the Hopper body's lazy softmax redo tiles exactly
+# (`k2_lazy_redos` counts them).  Then the other dense serving
+# shapes (`K2_TIMED` times them): llama3-8b's, starcoder2-3b's and gemma-7b's
+# prefill (D = 256, the first body) and llama3-8b's under phase 21's window
+# of 512; D = 256 in float32 and bf16, causal and full, at a ragged S; and
+# windows at D = 64, 128 and 256 over S = 2048 (Hopper body at 64 / 128 in
+# bf16, the first body at 256 and in float32): below one tile (40), not a
+# multiple of 128 (300), phase 21's 512, and S or more, which must equal no
+# window bit for bit.
+K2_WINDOWS = (40, 300, 512, 2048, 5000)
 K2_CASES = [
-    ("serve", (8, 2048, 16, 2, 128), torch.bfloat16, True, "randn"),
-    *((f"{'x'.join(map(str, sh))}", sh, dt, True, "randn")
+    ("serve", (8, 2048, 16, 2, 128), torch.bfloat16, True, "randn", None),
+    *((f"{'x'.join(map(str, sh))}", sh, dt, True, "randn", None)
       for sh in ((2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16))
       for dt in (torch.float32, torch.bfloat16)),
-    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.float32, False, "randn"),
-    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.bfloat16, False, "randn"),
-    ("ragged_1x257", (1, 257, 16, 2, 128), torch.bfloat16, True, "randn"),
-    ("d64_2x1000", (2, 1000, 16, 2, 64), torch.bfloat16, True, "randn"),
-    ("growth_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "growth"),
-    ("growth_1x700", (1, 700, 16, 2, 128), torch.bfloat16, False, "growth"),
-    ("growth_d64_2x520", (2, 520, 8, 2, 64), torch.bfloat16, True, "growth"),
-    ("growth_d64_2x520", (2, 520, 8, 2, 64), torch.bfloat16, False, "growth"),
-    ("scale1_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "scale1"),
+    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.float32, False, "randn",
+     None),
+    ("full_2x96x6x2x16", (2, 96, 6, 2, 16), torch.bfloat16, False, "randn",
+     None),
+    ("ragged_1x257", (1, 257, 16, 2, 128), torch.bfloat16, True, "randn",
+     None),
+    ("d64_2x1000", (2, 1000, 16, 2, 64), torch.bfloat16, True, "randn", None),
+    ("growth_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "growth",
+     None),
+    ("growth_1x700", (1, 700, 16, 2, 128), torch.bfloat16, False, "growth",
+     None),
+    ("growth_d64_2x520", (2, 520, 8, 2, 64), torch.bfloat16, True, "growth",
+     None),
+    ("growth_d64_2x520", (2, 520, 8, 2, 64), torch.bfloat16, False, "growth",
+     None),
+    ("scale1_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "scale1",
+     None),
     ("negative_1x300", (1, 300, 16, 2, 128), torch.bfloat16, False,
-     "negative"),
+     "negative", None),
+    ("llama_serve", (8, 2048, 32, 8, 128), torch.bfloat16, True, "randn",
+     None),
+    ("starcoder_serve", (8, 2048, 24, 2, 128), torch.bfloat16, True, "randn",
+     None),
+    ("gemma_serve", (8, 2048, 16, 16, 256), torch.bfloat16, True, "randn",
+     None),
+    ("llama_window512", (8, 2048, 32, 8, 128), torch.bfloat16, True, "randn",
+     512),
+    *((f"d256_2x333{'' if causal else '_full'}", (2, 333, 4, 2, 256), dt,
+       causal, "randn", None)
+      for dt in (torch.float32, torch.bfloat16) for causal in (True, False)),
+    *((f"d{d}_w{w}", (1, 2048, 8, 2, d), torch.bfloat16, True, "randn", w)
+      for d in (64, 128, 256) for w in K2_WINDOWS),
+    *((f"d{d}_w300_full", (1, 2048, 8, 2, d), torch.bfloat16, False, "randn",
+       300) for d in (64, 128, 256)),
+    ("d128_w300_f32", (1, 2048, 8, 2, 128), torch.float32, True, "randn", 300),
+    ("d256_w40_f32_full", (1, 333, 4, 2, 256), torch.float32, False, "randn",
+     40),
+    ("growth_w300", (1, 700, 16, 2, 128), torch.bfloat16, True, "growth", 300),
+    ("growth_w512", (1, 1100, 16, 2, 128), torch.bfloat16, True, "growth",
+     512),
 ]
+# The cases timed with the L2 cold and warm beside SDPA and the bound: the
+# dense prefills at full width.
+K2_TIMED = ("serve", "llama_serve", "starcoder_serve", "gemma_serve",
+            "llama_window512")
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # absolute
 # The same errors against each output row's own size (`k2_row_err`): late
 # causal rows average many values and are small, so the absolute limit
@@ -389,6 +465,24 @@ TRAIN_START_TOL = 0.1
 TRAIN_FULL_LR = 3e-5
 TRAIN_TWIN_LR = 3e-4
 TRAIN_TWIN_TOL = 0.15
+# Phase 20 (the dense zoo): the other dense configs, served at full width
+# and depth with SERVE_SHAPE.
+DENSE_ZOO = ("llama3-8b", "starcoder2-3b", "gemma-7b")
+# Phase 21 (the window): (a) llama3-8b's prefill and decode under a window
+# of 512; (b) a wrapped cache of 128 slots decoding 2 x 128 + 32 steps from
+# empty, in float32 (bf16 roundings that differ with the slots' order would
+# flip and grow over 32 layers, as `serve_vs_plain` explains), against the
+# unwrapped windowed decode; (c) one step at long_500k's last position;
+# (d) `train_step` under the three training attentions on llama3-8b at
+# full width and 4 layers (the full depth's state is ~90 GB: bf16 weights
+# and gradients, float32 AdamW moments), 8 x 512 tokens, chunks of 128, so
+# that the chunked and flash scans run 4 key blocks.
+WINDOW = 512
+WRAP_WINDOW = 128
+WRAP_STEPS = 2 * WRAP_WINDOW + 32
+TRAIN_ATTN_DEPTH = 4
+TRAIN_ATTN_TOKENS = (8, 512)
+TRAIN_ATTN_CHUNK = 128
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -1227,13 +1321,21 @@ def k2_build_report(log: str | None, so_path) -> None:
     if log is None:
         print("[build] flash_attention was built before this run: no ptxas "
               "report")
-    for name, regs, smem, st, ld, _ in _ptxas_report(log, _k2_instance):
+    report = _ptxas_report(log, _k2_instance)
+    for name, regs, smem, st, ld, frame in report:
         print(f"[build] flash_attention {name}: {regs} registers, {smem} B "
-              f"static shared memory, spill stores/loads {st}/{ld} B")
+              f"static shared memory, spill stores/loads {st}/{ld} B, stack "
+              f"frame {frame} B")
+    spilled = [row for row in report if row[0].endswith(", 256>") and row[3]]
+    check(not spilled, f"K2's D = 256 instantiations spill: {spilled}")
     lib = ops.load_library("flash_attention")
     print("[build] flash_attention dynamic shared memory per launch: " + ", ".join(
         f"{str(dt)[6:]} D={d} {fa.smem_bytes(lib, dt, d)} B"
         for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS))
+    print("[build] flash_attention first body, blocks an SM: " + ", ".join(
+        f"{str(dt)[6:]} D={d} {fa.simt_blocks_per_sm(lib, dt, d)}"
+        for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS
+        if fa.body(dt, d) == "simt"))
     counts = _sass_counts(so_path, _k2_instance,
                           ("HGMMA", "UTMALDG", "UTMASTG", "HMMA"))
     if counts is None:
@@ -1286,7 +1388,8 @@ def k3_build_report(log: str | None, so_path) -> None:
           f"instructions in its SASS: {c}")
 
 
-def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0):
+def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0,
+              window=None):
     """q (B, S, H, D), k and v (B, S, KV, D) for K2, drawn N(0, 1) in float32
     with numpy from ``seed`` and cast to ``dtype``, and the scale.  By kind:
 
@@ -1294,9 +1397,9 @@ def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0):
                 ever jumps far at a later key tile;
       growth    as randn, but every 16th key from key 128 on is c q_i for a
                 query row i of one head of its group (a row of a later query
-                tile if causal), c rising from 1.5 to 3 along S: row i's
-                logit there is about c sqrt(D), far above the about 3 that
-                the randn keys give it;
+                tile if causal, and under ``window`` one that sees the key),
+                c rising from 1.5 to 3 along S: row i's logit there is about
+                c sqrt(D), far above the about 3 that the randn keys give it;
       scale1    randn at scale 1: the logits are about N(0, D);
       negative  randn at scale -D^-0.5.
 
@@ -1317,9 +1420,12 @@ def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0):
             for kvh in range(kv):
                 for j in range(128, s, 16):
                     lo = (j // 128 + 1) * 128 if causal else 0
+                    hi = s if window is None else min(s, j + window)
                     if lo >= s:
                         break
-                    i = rng.integers(lo, s)
+                    if lo >= hi:
+                        continue
+                    i = rng.integers(lo, hi)
                     hq = kvh * (h // kv) + rng.integers(h // kv)
                     k[bi, j, kvh] = (1.5 + 1.5 * j / s) * q[bi, i, hq]
     if kind in ("growth", "scale1"):
@@ -1327,43 +1433,68 @@ def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0):
     return [torch.from_numpy(t).to(dev, dtype) for t in (q, k, v)] + [scale]
 
 
-def k2_lazy_redos(q, k, scale, causal, margin=0.5):
+def k2_lazy_redos(q, k, scale, causal, margin=0.5, window=None):
     """How many (16-row warp, key tile) pairs the Hopper body's lazy softmax
     must redo exactly on these inputs, replaying its rule on the float32
-    logits: past the first key tile, a tile with no masked entry (not on
-    the diagonal, not ragged) is redone by a warp where some row's max, in
-    the log2 domain, is above the running max by more than 8; the running
-    max takes the tile's max only on an exact tile.  Counts the pairs where
-    that excess is above 8 + ``margin``, clear of summation-order
-    differences.  Zero for a negative scale (no lazy tile)."""
+    logits: a work tile's first key tile (the first its ``window`` reaches,
+    0 without one) is exact; after it, a tile with no masked entry (not on
+    the diagonal, not ragged, not crossed by the window's left edge, and
+    not the tile where the last row's window starts) is redone by a warp
+    where some row's max, in the log2 domain, is above the running max by
+    more than 8; the running max takes the tile's max only on an exact
+    tile.  Counts the pairs where that excess is above 8 + ``margin``,
+    clear of summation-order differences.  Zero for a negative scale (no
+    lazy tile)."""
     tile, warp, lazy_log2 = 128, 16, 8.0   # kBQ = kBK, rows a warp, kLazyLog2
     if scale <= 0:
         return 0
+    w = 2**31 - 1 if window is None else window
     b, s, h, _ = q.shape
     kf = k.float().repeat_interleave(h // k.shape[2], dim=2)
     x = torch.einsum("bihd,bjhd->bhij", q.float(), kf)
     x = x * (scale * math.log2(math.e))
     idx = torch.arange(s, device=q.device)
     qt = idx // tile
+    j0 = (qt * tile - w + 1).clamp_min(0) // tile
+    imax = (qt * tile + tile - 1).clamp_max(s - 1)
     if causal:
         x = x.masked_fill(idx[None, :] > idx[:, None], -math.inf)
+    x = x.masked_fill(idx[:, None] - idx[None, :] >= w, -math.inf)
 
     def any_in_warp(rows):       # (..., S) -> (..., warps)
         rows = torch.nn.functional.pad(rows, (0, -s % warp))
         return rows.unflatten(-1, (-1, warp)).any(-1)
 
-    m = x[..., :tile].amax(-1)
+    m = torch.full(x.shape[:-1], -math.inf, device=q.device)
     redos = 0
-    for j in range(1, -(-s // tile)):
+    for j in range(-(-s // tile)):
         tmax = x[..., tile * j:tile * (j + 1)].amax(-1)
-        seen = qt >= j if causal else torch.ones_like(qt, dtype=torch.bool)
-        edge = (causal & (qt == j)) | (tile * (j + 1) > s)
+        seen = (j >= j0) & ((qt >= j) if causal else True)
+        reach = imax - tile * j
+        edge = ((causal & (qt == j)) | (tile * (j + 1) > s) | (reach >= w)
+                | ((reach == w - 1) & (j > j0)) | (j == j0))
         excess = torch.where(seen & ~edge, tmax - m, -math.inf)
         redos += int(any_in_warp(excess > lazy_log2 + margin).sum())
         redo = any_in_warp(excess > lazy_log2).repeat_interleave(warp, -1)
         exact = (seen & edge) | redo[..., :s]
         m = torch.where(exact, torch.maximum(m, tmax), m)
     return redos
+
+
+def k2_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the causal and window masks keep: row i sees
+    min(i + 1, W) keys causally, and S - max(0, i - W + 1) in full."""
+    w = s if window is None else min(window, s)
+    if causal:
+        return w * (w + 1) // 2 + (s - w) * w
+    return s * s - (s - w) * (s - w + 1) // 2
+
+
+def k2_window_mask(s: int, causal: bool, window: int, dev) -> torch.Tensor:
+    """SDPA's boolean mask (True = attend) for the causal and window mask."""
+    idx = torch.arange(s, device=dev)
+    mask = idx[:, None] - idx[None, :] < window
+    return mask & (idx[:, None] >= idx[None, :]) if causal else mask
 
 
 def k2_row_err(got, want):
@@ -1383,46 +1514,60 @@ def k2_checks(dev, timer):
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for seed, (name, shape, dtype, causal, kind) in enumerate(K2_CASES):
+    for seed, (name, shape, dtype, causal, kind, window) in enumerate(
+            K2_CASES):
         b, s, h, kv, d = shape
         q, k, v, scale = k2_inputs(shape, dtype, dev, kind=kind,
-                                   causal=causal, seed=seed)
+                                   causal=causal, seed=seed, window=window)
 
-        def kernel():
-            return ops.flash_attention(q, k, v, scale=scale, causal=causal)
+        def kernel(window=window):
+            return ops.flash_attention(q, k, v, scale=scale, causal=causal,
+                                       window=window)
 
         def plain():
-            return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+            return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                           window=window)
 
         launches_before = ops.LAUNCHES["flash_attention"]
         got, want = kernel().float(), plain().float()
         err = float((got - want).abs().max())
         row_err = k2_row_err(got, want)
-        redos = k2_lazy_redos(q, k, scale, causal)
+        redos = k2_lazy_redos(q, k, scale, causal, window=window)
         tol, row_tol = K2_TOL[dtype], K2_ROW_TOL[dtype]
+        # A window of S or more masks nothing: the kernel must give what it
+        # gives with no window, bit for bit.
+        same = (bool(torch.equal(got, kernel(None).float()))
+                if window is not None and window >= s else None)
         row = dict(case=name, shape=shape, dtype=str(dtype)[6:],
-                   causal=causal, err=err, row_err=row_err, redos=redos,
-                   ok=(err <= tol and row_err <= row_tol
+                   causal=causal, window=window, err=err, row_err=row_err,
+                   redos=redos, body=fa.body(dtype, d),
+                   ok=(err <= tol and row_err <= row_tol and same is not False
                        and (redos > 0 or kind not in ("growth", "scale1"))))
         # Bytes: q, k, v read once and out written once.  Operations: the
-        # QK^T and PV products over the (query, key) pairs the mask keeps,
-        # 2 x 2 D each, at the peak rate of the inputs' type.
+        # QK^T and PV products over the (query, key) pairs the causal and
+        # window masks keep, 2 x 2 D each, at the peak rate of the inputs'
+        # type.
         bytes_moved = 2 * (q.numel() + k.numel()) * q.element_size()
-        pairs = s * (s + 1) // 2 if causal else s * s
+        pairs = k2_pairs(s, causal, window)
         flops = 4 * b * h * d * pairs
         t_bytes = bytes_moved / HBM_BYTES_PER_S
         t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16
                          else F32_FLOP_PER_S)
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        timing = ""
-        if name == "serve":
+        timing = "" if same is None else f" | bit-equal to no window: {same}"
+        if name in K2_TIMED:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = (None if window is None else
+                    k2_window_mask(s, causal, window, dev))
 
             def library():
+                if mask is None:
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, scale=scale,
+                        enable_gqa=True)
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale,
-                    enable_gqa=True)
+                    qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
 
             lib_err = float((library().transpose(1, 2).float() - want)
                             .abs().max())
@@ -1431,7 +1576,7 @@ def k2_checks(dev, timer):
                 row[f"ms_{tag}"] = timer(kernel, cold)
                 row[f"plain_ms_{tag}"] = timer(plain, cold, reps=5)
                 row[f"library_ms_{tag}"] = timer(library, cold)
-            timing = (f" | kernel {row['ms_cold'] * 1e3:.1f}/"
+            timing += (f" | kernel {row['ms_cold'] * 1e3:.1f}/"
                       f"{row['ms_warm'] * 1e3:.1f} us plain "
                       f"{row['plain_ms_cold']:.2f}/{row['plain_ms_warm']:.2f}"
                       f" ms sdpa {row['library_ms_cold'] * 1e3:.1f}/"
@@ -1447,6 +1592,7 @@ def k2_checks(dev, timer):
         rows.append(row)
         print(f"[k2] {name:18s} {'x'.join(map(str, shape)):16s} "
               f"{row['dtype']:8s} {'causal' if causal else 'full':6s} "
+              f"window {window} "
               f"scale {scale:.4g} max_abs_err={err:.3e} (tol {tol:g}) "
               f"row_err={row_err:.3e} (tol {row_tol:g}) lazy redos {redos} "
               f"{'ok' if row['ok'] else 'FAIL'}{timing}")
@@ -1455,19 +1601,25 @@ def k2_checks(dev, timer):
     return rows
 
 
-def serve_full(dev, tag):
-    """Phase 9 / 13: a serving path at full width through
-    `launch.serve.serve`; its kernel's launches are counted per phase."""
+def serve_full(dev, tag, arch=None, window=None):
+    """Phase 9 / 13 / 20 / 21: a serving path at full width through
+    `launch.serve.serve` (``arch``, default the tag's in `SERVE_PATHS`,
+    under ``window``); its kernel's launches are counted per phase."""
     from repro_torch.configs import base
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as _rwkv
     from repro_torch.launch import serve
 
-    arch, kernel = SERVE_PATHS[tag]
+    if arch is None:
+        arch, kernel = SERVE_PATHS[tag]
+    else:
+        kernel = "flash_attention"
     cfg = base.get(arch)
     # Warm-up (cuBLAS handles and plans, the allocator) with a short prompt,
     # before the counted run.
-    serve.serve(cfg, batch=SERVE_SHAPE["batch"], prompt_len=64, gen=2, seed=1)
+    serve.serve(cfg, batch=SERVE_SHAPE["batch"], prompt_len=64, gen=2, seed=1,
+                window=window)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1475,7 +1627,7 @@ def serve_full(dev, tag):
     ops.LAUNCHES[kernel] = 0
     for body in _rwkv.BODIES:
         _rwkv.BODY_LAUNCHES[body] = 0
-    res = serve.serve(cfg, **SERVE_SHAPE, seed=0)
+    res = serve.serve(cfg, **SERVE_SHAPE, seed=0, window=window)
     launches = ops.LAUNCHES[kernel]
     bodies = dict(_rwkv.BODY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1496,12 +1648,13 @@ def serve_full(dev, tag):
                  f"{cfg.hd}")
     print(f"[{tag}] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
           f"d {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-          f"{str(cfg.dtype)[6:]}); batch {b} x prompt "
-          f"{SERVE_SHAPE['prompt_len']} + {gen} generated")
+          f"{cfg.act}, {str(cfg.dtype)[6:]}); batch {b} x prompt "
+          f"{SERVE_SHAPE['prompt_len']} + {gen} generated; window {window}")
     print(f"[{tag}] prefill {res.prefill_s:.4f} s; decode {res.decode_steps} "
           f"steps x batch {b} in {res.decode_s:.4f} s = "
-          f"{res.decode_tokens_per_s:.1f} tok/s; max_memory_allocated "
-          f"{peak / 2**30:.3f} GiB")
+          f"{res.decode_tokens_per_s:.1f} tok/s "
+          f"({1e3 * res.decode_s / max(res.decode_steps, 1):.2f} ms a step); "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
     print(f"[{tag}] ids, row 0: {res.tokens[0].tolist()}")
     pre, dec = res.prefill_launches[kernel], res.decode_launches[kernel]
     print(f"[{tag}] {kernel} launches on the serving path: {pre} in the "
@@ -1515,8 +1668,11 @@ def serve_full(dev, tag):
               f"{cfg.n_layers} through the chunked body)")
         check(bodies == {"token": 0, "chunked": cfg.n_layers},
               f"rwkv6_scan bodies on the serving path: {bodies}")
+    else:
+        print(f"[{tag}] flash_attention at head dim {cfg.hd} runs the "
+              f"{fa.body(cfg.dtype, cfg.hd)} body")
 
-    serve_vs_plain(cfg, res, tag, kernel)
+    serve_vs_plain(cfg, res, tag, kernel, window)
     return cfg, res, launches
 
 
@@ -1536,10 +1692,10 @@ def _rel_l2(got, want):
     return math.sqrt(num / den)
 
 
-def serve_gaps(cfg, params, prompt, logits, cache, kernel):
+def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
     """The serving prefill's precision, from the kernel path's bfloat16
     ``logits`` and ``cache`` (time-mix states, or K/V caches) for
-    ``params`` and ``prompt``:
+    ``params`` and ``prompt`` under ``window``:
 
       * f32_*: the same weights (widened, exactly) with float32 activations
         at full depth, kernel against impl="torch";
@@ -1548,59 +1704,88 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel):
       * bf16_*_kernel / bf16_*_torch: each bfloat16 path's relative L2 gap
         to the float32 impl="torch" run, logits and all layers' caches.
 
-    Gaps named *_max are max |diff| over max |value|.  The launches of
-    ``kernel`` this makes are not counted.
+    Gaps named *_max are max |diff| over max |value|.  The four paths run
+    layer by layer side by side, each layer's float32 weights widened as it
+    comes and every cache compared and dropped at once, so that a model
+    whose float32 weights and caches would not fit beside its bfloat16 ones
+    (gemma-7b: 34 GB and 15 GB a cache set) is held the same way.  The
+    launches of ``kernel`` this makes are not counted.
     """
     from repro_torch.kernels import ops
-    from repro_torch.models import layers, registry
+    from repro_torch.models import layers
     from repro_torch.models import transformer as T
 
     launches = ops.LAUNCHES[kernel]
-    tokens = {"tokens": prompt}
-    g = {}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    p32 = {k: v.float() for k, v in params.items()}
-    bundle32 = registry.build(cfg32)
-    dev = prompt.device
-    lk32, ck32 = bundle32.prefill_step(p32, tokens, impl="kernel", device=dev)
-    lt32, ct32 = bundle32.prefill_step(p32, tokens, impl="torch", device=dev)
-    check(ops.LAUNCHES[kernel] == launches + cfg.n_layers,
-          "the float32 prefill did not go through the kernel once per layer")
-    g["f32_logits_max"] = _rel_gap(lk32, lt32)
-    g["f32_cache_max"] = max(_rel_gap(a, b) for name in ck32
-                             for a, b in zip(ck32[name], ct32[name]))
-    g["f32_same_ids"] = bool(torch.equal(lk32.argmax(-1), lt32.argmax(-1)))
-    del p32, lk32, ck32
+    names = list(cache)
+    g = {"f32_cache_max": 0.0, "layer_out_max": 0.0, "layer_cache_max": 0.0}
+    sq = dict.fromkeys(("cache_kernel", "cache_torch", "cache_ref"), 0.0)
 
-    lt, ct = registry.build(cfg).prefill_step(params, tokens, impl="torch",
-                                              device=dev)
-    for name, (lg, c) in (("kernel", (logits, cache)), ("torch", (lt, ct))):
-        g[f"bf16_logits_{name}"] = _rel_l2([lg], [lt32])
-        g[f"bf16_cache_{name}"] = _rel_l2([c[n] for n in c],
-                                          [ct32[n] for n in c])
-        g[f"bf16_logits_max_{name}"] = _rel_gap(lg, lt32)
-    g["bf16_logits_max_kernel_vs_torch"] = _rel_gap(logits, lt)
-    del lt, ct, lt32, ct32
+    def entries(kept):
+        return kept if isinstance(kept, tuple) else (kept,)
 
     with torch.no_grad():
-        x = layers.embed(T._sub(params, "embed"), prompt).to(cfg.dtype)
-        g["layer_out_max"] = g["layer_cache_max"] = 0.0
-        for lp in T.layer_params(params, cfg.n_layers):
-            xk, ck = T._block(cfg, lp, x, impl="kernel", return_cache=True)
-            xt, ct = T._block(cfg, lp, x, impl="torch", return_cache=True)
+        emb = layers.embed(T._sub(params, "embed"), prompt).to(cfg.dtype)
+        x32k = x32t = emb.float()
+        xbt = xbk = emb
+        del emb
+        for i, lp in enumerate(T.layer_params(params, cfg.n_layers)):
+            lp32 = {k: v.float() for k, v in lp.items()}
+            x32k, ck32 = T._block(cfg32, lp32, x32k, impl="kernel",
+                                  window=window, return_cache=True)
+            x32t, ct32 = T._block(cfg32, lp32, x32t, impl="torch",
+                                  window=window, return_cache=True)
+            del lp32
+            ck32, ct32 = entries(ck32), entries(ct32)
+            g["f32_cache_max"] = max(g["f32_cache_max"], *(
+                _rel_gap(a, b) for a, b in zip(ck32, ct32)))
+            del ck32
+            xbt, cbt = T._block(cfg, lp, xbt, impl="torch", window=window,
+                                return_cache=True)
+            pairs = {"cache_kernel": [cache[n][i] for n in names],
+                     "cache_torch": [c.to(cfg.dtype) for c in entries(cbt)]}
+            for key, got in pairs.items():
+                for a, b in zip(got, ct32):
+                    sq[key] += float(torch.linalg.vector_norm(
+                        a.float() - b.float())) ** 2
+            sq["cache_ref"] += sum(float(torch.linalg.vector_norm(b)) ** 2
+                                   for b in ct32)
+            del cbt, ct32, pairs
+            xk, ck = T._block(cfg, lp, xbk, impl="kernel", window=window,
+                              return_cache=True)
+            xt, ct = T._block(cfg, lp, xbk, impl="torch", window=window,
+                              return_cache=True)
             g["layer_out_max"] = max(g["layer_out_max"], _rel_gap(xk, xt))
-            pairs = zip(ck, ct) if isinstance(ck, tuple) else [(ck, ct)]
-            g["layer_cache_max"] = max(g["layer_cache_max"],
-                                       *(_rel_gap(a, b) for a, b in pairs))
-            x = xk
+            g["layer_cache_max"] = max(g["layer_cache_max"], *(
+                _rel_gap(a, b) for a, b in zip(entries(ck), entries(ct))))
+            xbk = xk
+            del xt, ck, ct
+        norm = T._norm(cfg)
+        final = T._sub(params, "final_norm")
+        table = T._sub(params, "embed")
+        final32 = {k: v.float() for k, v in final.items()}
+        lk32, lt32 = (layers.unembed(table, norm(final32, x[:, -1]))
+                      for x in (x32k, x32t))
+        lt = layers.unembed(table, norm(final, xbt[:, -1]))
+    check(ops.LAUNCHES[kernel] == launches + 2 * cfg.n_layers,
+          "the float32 and layer-by-layer prefills did not go through the "
+          "kernel once per layer each")
+    g["f32_logits_max"] = _rel_gap(lk32, lt32)
+    g["f32_same_ids"] = bool(torch.equal(lk32.argmax(-1), lt32.argmax(-1)))
+    for name, lg in (("kernel", logits), ("torch", lt)):
+        g[f"bf16_logits_{name}"] = _rel_l2([lg], [lt32])
+        g[f"bf16_cache_{name}"] = math.sqrt(sq[f"cache_{name}"]
+                                            / sq["cache_ref"])
+        g[f"bf16_logits_max_{name}"] = _rel_gap(lg, lt32)
+    g["bf16_logits_max_kernel_vs_torch"] = _rel_gap(logits, lt)
     ops.LAUNCHES[kernel] = launches
     return g
 
 
-def serve_vs_plain(cfg, res, tag, kernel):
-    """Phase 9 / 13, second half: the serving prefill through the kernel
-    against the plain path (impl="torch") on the card, from the same
-    weights and prompts (`serve_gaps`).
+def serve_vs_plain(cfg, res, tag, kernel, window=None):
+    """Phase 9 / 13 / 20 / 21, second half: the serving prefill through the
+    kernel against the plain path (impl="torch") on the card, from the same
+    weights and prompts, under the same ``window`` (`serve_gaps`).
 
     The two paths sum in other orders, so their outputs differ in the last
     float32 bits; in bfloat16 that flips the rounding of some activations
@@ -1612,7 +1797,7 @@ def serve_vs_plain(cfg, res, tag, kernel):
     kernel to the plain path directly, at limits set from their readings.
     """
     g = serve_gaps(cfg, res.params, res.prompt, res.prefill_logits,
-                   res.prefill_cache, kernel)
+                   res.prefill_cache, kernel, window)
     what = "state" if cfg.family == "ssm" else "K/V cache"
     print(f"[{tag}] float32 activations, full width and depth: kernel vs "
           f"impl='torch' logits gap/max {g['f32_logits_max']:.3e} (tol "
@@ -1677,9 +1862,9 @@ def serve_reference(dev, tag):
           f"{cpu.tokens.tolist()}")
 
 
-def profile_serve(cfg, res, tag, kernel):
-    """Phase 11 / 15: one full-width prefill and one decode step under
-    torch.profiler."""
+def profile_serve(cfg, res, tag, kernel, window=None):
+    """Phase 11 / 15 / 20 / 21: one full-width prefill and one decode step
+    under torch.profiler (under ``window``)."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
@@ -1689,9 +1874,9 @@ def profile_serve(cfg, res, tag, kernel):
     cache = serve.grow_cache(res.prefill_cache, s + 1)
     for what, fn in (
             ("prefill", lambda: bundle.prefill_step(
-                res.params, {"tokens": res.prompt})),
+                res.params, {"tokens": res.prompt}, window=window)),
             ("decode step", lambda: bundle.serve_step(
-                res.params, cache, token, s))):
+                res.params, cache, token, s, window=window))):
         wall_ms, events = _profiled(fn)
         dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
         if dev_ms <= 0:
@@ -2493,16 +2678,20 @@ def _adamw_gap(got: dict, want: dict, grads: dict, lr: float,
     return worst, departed
 
 
-def train_step_reference(devices):
-    """Phase 19, last: one float32 smoke `train_step` (AdamW, lr 3e-4) of
-    qwen2.5 and rwkv6 on ``devices[1]`` and on ``devices[0]`` from the same
-    weights and tokens: loss within 1e-5, moments within 1e-4, parameters
-    within 1e-4 where the gradient is above float32 noise (`_adamw_gap`)."""
+def train_step_reference(devices, cases=(("qwen2.5-3b", {}),
+                                         ("rwkv6-1.6b", {}))):
+    """Phase 19, last (and phase 21 (d)): one float32 smoke `train_step`
+    (AdamW, lr 3e-4) of each case's architecture (its smoke config with
+    the case's overrides) on ``devices[1]`` and on ``devices[0]`` from the
+    same weights and tokens: loss within 1e-5, moments within 1e-4,
+    parameters within 1e-4 where the gradient is above float32 noise
+    (`_adamw_gap`)."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import registry
 
-    for arch in ("qwen2.5-3b", "rwkv6-1.6b"):
-        cfg = cfgbase.smoke_variant(cfgbase.get(arch))
+    for arch, overrides in cases:
+        cfg = dataclasses.replace(cfgbase.smoke_variant(cfgbase.get(arch)),
+                                  **overrides)
         bundle = registry.build(cfg)
         params0 = bundle.init(torch.Generator().manual_seed(0), device="cpu")
         tokens = torch.from_numpy(np.random.default_rng(3).integers(
@@ -2526,7 +2715,8 @@ def train_step_reference(devices):
               f"{arch} smoke train_step: {devices[1]} vs {devices[0]}: loss "
               f"gap {loss_gap:.2e}, moments {mom_gap:.2e}, parameters "
               f"{worst:.2e}")
-        print(f"[train] float32 smoke {arch} train_step: {devices[1]} == "
+        print(f"[train] float32 smoke {arch} {overrides or ''} train_step: "
+              f"{devices[1]} == "
               f"{devices[0]} (loss gap {loss_gap:.2e}, moments gap "
               f"{mom_gap:.2e}, parameters gap {worst:.2e} where |g| >= 1e-6; "
               f"{departed} parameters with |g| < 1e-6 apart by more than "
@@ -2769,6 +2959,197 @@ def train_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-21: the dense zoo and the sliding window (slice 8)
+# ---------------------------------------------------------------------------
+def dense_zoo_phase(dev) -> dict:
+    """Phase 20: llama3-8b, starcoder2-3b and gemma-7b served at full width
+    and depth (`serve_full`: K2 once a prefill layer, at D = 256 for gemma;
+    each prefill held to impl="torch"), each with one profiled prefill and
+    decode step.  Returns K2's launches by architecture."""
+    launches = {}
+    for arch in DENSE_ZOO:
+        cfg, res, launches[arch] = serve_full(dev, "dense-zoo", arch=arch)
+        profile_serve(cfg, res, "dense-zoo", "flash_attention")
+        del res
+        torch.cuda.empty_cache()
+    return launches
+
+
+def wrapped_cache_check(dev) -> None:
+    """Phase 21 (b): llama3-8b at full width in float32, a wrapped cache of
+    `WRAP_WINDOW` slots (`init_cache(window=)`) from empty for
+    `WRAP_STEPS` greedy steps (pos = abs % W, abs_pos = abs, full_cache once
+    every slot holds a key), against the unwrapped windowed decode (a cache
+    of `WRAP_STEPS` slots, the window mask) fed the same tokens: the same
+    greedy ids, logits within SERVE_F32_TOL of their largest."""
+    from repro_torch.configs import base
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(base.get("llama3-8b"), dtype=torch.float32)
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator(dev).manual_seed(0), device=dev)
+    b, w, n = SERVE_SHAPE["batch"], WRAP_WINDOW, WRAP_STEPS
+    tok0 = torch.randint(0, cfg.vocab, (b, 1), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    wrapped = bundle.init_cache(b, n, window=w, device=dev)
+    check(tuple(wrapped["k"].shape) == (cfg.n_layers, b, w, cfg.n_kv_heads,
+                                        cfg.hd),
+          f"wrapped cache {tuple(wrapped['k'].shape)}")
+    slots = wrapped["k"]
+    _reset_peak(dev)
+    logits, tok = [], tok0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(n):
+        lg, wrapped = bundle.serve_step(params, wrapped, tok, a % w, window=w,
+                                        abs_pos=a, full_cache=a >= w - 1,
+                                        device=dev)
+        logits.append(lg[:, -1])
+        tok = lg[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    wrapped_s = time.perf_counter() - t0
+    check(wrapped["k"] is slots, "the wrapped cache was not written in place")
+    flat = bundle.init_cache(b, n, device=dev)
+    tok, worst, same = tok0, 0.0, True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(n):
+        lg, flat = bundle.serve_step(params, flat, tok, a, window=w,
+                                     device=dev)
+        worst = max(worst, _rel_gap(lg[:, -1], logits[a]))
+        same &= bool(torch.equal(lg[:, -1].argmax(-1), logits[a].argmax(-1)))
+        tok = logits[a].argmax(-1)[:, None]
+    flat_s = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    print(f"[window] (b) wrapped cache, llama3-8b float32 full width: {w} "
+          f"slots, {n} steps x batch {b} from empty, {wrapped_s / n * 1e3:.2f}"
+          f" ms a step; the unwrapped windowed decode ({n} slots) "
+          f"{flat_s / n * 1e3:.2f} ms a step (with the comparison); same "
+          f"greedy ids: {same}; worst logits gap/max {worst:.3e} (tol "
+          f"{SERVE_F32_TOL:g}); peak {peak:.3f} GiB")
+    check(same and worst <= SERVE_F32_TOL,
+          f"wrapped vs unwrapped windowed decode: same ids {same}, logits "
+          f"gap {worst:.3e}")
+    del params, wrapped, flat, logits
+    torch.cuda.empty_cache()
+
+
+def long_context_step(dev) -> None:
+    """Phase 21 (c): one decode step of llama3-8b (bf16, full width) at
+    long_500k's shape: batch 1, `LONG_CONTEXT_WINDOW` wrapped slots full
+    of keys, abs_pos 524,287, full_cache, as the reference's
+    `dryrun.decode_plan` decodes it."""
+    from repro_torch.configs import base
+    from repro_torch.models import registry
+
+    shape = base.INPUT_SHAPES["long_500k"]
+    w, b, abs_pos = base.LONG_CONTEXT_WINDOW, shape.global_batch, \
+        shape.seq_len - 1
+    cfg = base.get("llama3-8b")
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator(dev).manual_seed(0), device=dev)
+    gen = torch.Generator(dev).manual_seed(2)
+    cache = bundle.init_cache(b, shape.seq_len, window=w, device=dev)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev)
+    _reset_peak(dev)
+
+    def step():
+        return bundle.serve_step(params, cache, tok, abs_pos % w, window=w,
+                                 abs_pos=abs_pos, full_cache=True,
+                                 device=dev)[0]
+
+    step()                       # warm-up: the same slot, the same value
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"long_500k step: logits {tuple(logits.shape)}")
+    print(f"[window] (c) long_500k decode step, llama3-8b bf16: batch {b}, "
+          f"{w} wrapped slots ({sum(t.numel() * t.element_size() for t in cache.values()) / 2**30:.3f}"
+          f" GiB of K/V), abs_pos {abs_pos}, full_cache: {step_s:.4f} s a "
+          f"step; peak {_peak_gib(dev):.3f} GiB")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def train_attention_check(dev) -> None:
+    """Phase 21 (d): `registry.build(...).train_step` on llama3-8b at full
+    width and `TRAIN_ATTN_DEPTH` layers (bf16, AdamW at TRAIN_FULL_LR) under
+    attn_impl naive, chunked and flash, from the same weights and batches,
+    3 steps each: losses finite and within TRAIN_TWIN_TOL of naive's at
+    every step; K2 and K3 launch no time.  Then a float32 smoke llama3
+    `train_step` under flash against the CPU."""
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    cfg0 = dataclasses.replace(base.get("llama3-8b"),
+                               n_layers=TRAIN_ATTN_DEPTH,
+                               attn_chunk=TRAIN_ATTN_CHUNK)
+    params0 = registry.build(cfg0).init(torch.Generator(dev).manual_seed(0),
+                                        device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    batches = [torch.randint(0, cfg0.vocab, TRAIN_ATTN_TOKENS, generator=gen,
+                             device=dev) for _ in range(3)]
+    other = {k: ops.LAUNCHES[k] for k in ("flash_attention", "rwkv6_scan")}
+    losses = {}
+    for impl in ("naive", "chunked", "flash"):
+        bundle = registry.build(dataclasses.replace(cfg0, attn_impl=impl),
+                                lr=TRAIN_FULL_LR)
+        params = {k: v.clone() for k, v in params0.items()}
+        state = {"params": params, "opt": bundle.optimizer.init(params)}
+        torch.cuda.empty_cache()
+        _reset_peak(dev)
+        losses[impl], step_s = [], []
+        for tokens in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = bundle.train_step(state, {"tokens": tokens},
+                                         device=dev)
+            losses[impl].append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        print(f"[window] (d) llama3-8b full width, {TRAIN_ATTN_DEPTH} layers, "
+              f"{TRAIN_ATTN_TOKENS[0]} x {TRAIN_ATTN_TOKENS[1]} tokens, "
+              f"attn_impl={impl} (chunk {TRAIN_ATTN_CHUNK}): losses "
+              f"{[round(x, 4) for x in losses[impl]]}, s/step "
+              f"{[round(x, 4) for x in step_s]}, peak {_peak_gib(dev):.3f} "
+              f"GiB")
+        del state, params
+    gap = max(abs(a - b) for impl in ("chunked", "flash")
+              for a, b in zip(losses[impl], losses["naive"]))
+    print(f"[window] (d) largest loss gap to naive {gap:.4f} (tol "
+          f"{TRAIN_TWIN_TOL})")
+    check(all(math.isfinite(x) for ls in losses.values() for x in ls)
+          and gap <= TRAIN_TWIN_TOL, f"training attentions: {losses}")
+    check(all(ops.LAUNCHES[k] == n for k, n in other.items()),
+          "training launched K2 or K3")
+    del params0
+    torch.cuda.empty_cache()
+    train_step_reference((torch.device("cpu"), dev),
+                         cases=(("llama3-8b", dict(attn_impl="flash",
+                                                   attn_chunk=16)),))
+
+
+def window_phase(dev) -> int:
+    """Phase 21: the sliding window on the card ((a)-(d), see the
+    constants above).  Returns K2's launches on (a)'s serving path."""
+    cfg, res, launches = serve_full(dev, "window", arch="llama3-8b",
+                                    window=WINDOW)
+    profile_serve(cfg, res, "window", "flash_attention", window=WINDOW)
+    del res
+    torch.cuda.empty_cache()
+    wrapped_cache_check(dev)
+    long_context_step(dev)
+    train_attention_check(dev)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2907,6 +3288,16 @@ def main() -> int:
           f"held to its plain version in phase 3: "
           f"{sorted((shape, str(dt)[6:]) for shape, dt in k1_seen)}")
 
+    # 20. dense-zoo (llama3-8b, starcoder2-3b, gemma-7b served at full width)
+    t0 = time.perf_counter()
+    zoo_launches = dense_zoo_phase(dev)
+    print(f"[dense-zoo] phase 20 took {time.perf_counter() - t0:.2f} s")
+
+    # 21. window (windowed prefill, the wrapped cache, long_500k, training)
+    t0 = time.perf_counter()
+    window_launches = window_phase(dev)
+    print(f"[window] phase 21 took {time.perf_counter() - t0:.2f} s")
+
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
                     and r["variant"] == "ra_normalized")
@@ -2966,13 +3357,18 @@ def main() -> int:
                  "cases (token body)",
     })
     k2_row = next(r for r in k2_rows if r["case"] == "serve")
-    check(math.isfinite(k2_row["ms_cold"]), "non-finite K2 time")
+    check(all(math.isfinite(r["ms_cold"]) for r in k2_rows
+              if r["case"] in K2_TIMED), "non-finite K2 time")
+    k2_paths = {"dense-serve": k2_launches,
+                **{f"dense-zoo:{a}": n for a, n in zoo_launches.items()},
+                "window": window_launches}
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:98",
-        "launches": k2_launches,
+        "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
         "max_abs_err": max(r["err"] for r in k2_rows
                            if r["dtype"] == "float32"),
         "ms": k2_row["ms_cold"],
@@ -2984,6 +3380,11 @@ def main() -> int:
         "shape": "B=8 S=2048 H=16 KV=2 D=128 bfloat16, causal, L2 cold; "
                  "library: F.scaled_dot_product_attention(is_causal=True, "
                  "enable_gqa=True)",
+        "serving_shapes": [
+            {key: r[key] for key in ("case", "shape", "window", "body", "ms_cold",
+                                     "ms_warm", "plain_ms_cold", "bound_ms",
+                                     "bound_by", "library_ms_cold")}
+            for r in k2_rows if r["case"] in K2_TIMED],
     })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -33,7 +33,7 @@ SHAPES = [("serve causal", (8, 2048, 16, 2, 128), True),
 
 def _no_softmax(src: str) -> str:
     """Both softmaxes return at once: P is the raw logits, nothing redone."""
-    exact = "int t, int S,\n" + " " * 45 + "int causal) {\n"
+    exact = "int t, int S,\n" + " " * 45 + "int causal, int W) {\n"
     lazy = "float (&lsum)[2], float scale2) {\n"
     src = _sub(src, exact, exact + "  corr[0] = corr[1] = 1.0f;\n  return;\n")
     return _sub(src, lazy, lazy + "  lsum[0] = lsum[1] = 0.0f;\n"

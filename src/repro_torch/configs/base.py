@@ -1,12 +1,14 @@
-"""Config registry: full architecture configs and reduced smoke variants.
+"""Config registry: full architecture configs, reduced smoke variants and
+input shapes.
 
 Port of the reference package's `configs/base.py`.  Every full config
 cites its source in `ModelCfg.source`; dtypes are torch dtypes.
 `smoke_variant` shrinks any config to <=2 layers, d_model<=512, <=4
 experts while keeping the family topology.  Only the families the port
-runs have their config files here (rwkv6-1.6b, qwen2.5-3b); `get` raises
-`NotImplementedError` for the others, which come with their families
-(ROADMAP Queue 1 item 7).
+runs have their config files here (rwkv6-1.6b and the dense qwen2.5-3b,
+llama3-8b, starcoder2-3b and gemma-7b); `get` raises `NotImplementedError`
+for the others, which come with their families (ROADMAP Queue 1 item 7).
+`all_configs` comes with the last of them.
 """
 from __future__ import annotations
 
@@ -50,6 +52,26 @@ ALIASES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "gemma-7b": "gemma_7b",
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# The sliding window long_500k decodes with on the attention families: a
+# wrapped cache of this many slots (`transformer.init_cache(window=)`).
+LONG_CONTEXT_WINDOW = 8_192
 
 
 def get(arch: str) -> ModelCfg:

@@ -1,18 +1,22 @@
-// Flash-attention forward (causal or full, grouped-query) for NVIDIA Hopper
-// (sm_90a).  Plain C interface, loaded with ctypes by
-// repro_torch/kernels/flash_attention.py.
+// Flash-attention forward (causal or full, grouped-query, optionally
+// windowed) for NVIDIA Hopper (sm_90a).  Plain C interface, loaded with
+// ctypes by repro_torch/kernels/flash_attention.py.
 //
 // Replaces the Pallas TPU kernel of the reference package,
 // src/repro/kernels/flash_attention.py (`flash_attention_fwd`, whose
 // pallas_call runs the body `_flash_fwd_kernel`).  For batch b, query head h
 // (reading kv head h / G, G = H / KV) and query row i:
-//   s_ij = scale * q_i . k_j            (float32; -1e30 where j > i if causal)
+//   s_ij = scale * q_i . k_j            (float32; -1e30 where j > i if causal,
+//                                         and where i - j >= W under a window)
 //   out_i = sum_j exp(s_ij - m_i) v_j / max(sum_j exp(s_ij - m_i), 1e-30)
 // with m, l and the output accumulator carried over key tiles by the online
-// softmax (in the log2 domain), key tiles wholly above the diagonal skipped,
-// and the output cast to q's type.  q is (B, S, H, D), k and v (B, S, KV, D),
+// softmax (in the log2 domain), key tiles wholly above the diagonal or
+// wholly left of the window skipped, and the output cast to q's type.  The
+// window is the reference's sliding-window mask (`layers.attention`,
+// `_sdpa_chunked`), which its Pallas body does not take; W >= S gives
+// exactly what no window gives.  q is (B, S, H, D), k and v (B, S, KV, D),
 // all float32 or all bfloat16, read through their strides (the D axis
-// contiguous); out is (B, S, H, D) contiguous.  D is 16, 32, 64 or 128.
+// contiguous); out is (B, S, H, D) contiguous.  D is 16, 32, 64, 128 or 256.
 //
 // What bounds it on this card.  At the serving shape (qwen2.5-3b prefill:
 // B=8, S=2048, H=16, KV=2, D=128, bf16, causal) it must move 151 MB (q and
@@ -61,13 +65,16 @@
 //   whole kernel within 168 registers whatever `setmaxnreg` asks; the
 //   consumers need over 200, and at 168 they spill and their `wgmma`s
 //   serialise.
-// * float32 (any D) and bf16 at D = 16 or 32: the first body (`simt::`), no
-//   TMA, no wgmma.  One block of four warps per 64-row query tile; each warp
-//   owns 16 rows; K and V tiles of 64 rows are double-buffered with
-//   `cp.async` (rows padded by 16 bytes, rows past S zero-filled); bf16 runs
+// * float32 (any D) and bf16 at D = 16, 32 or 256: the first body
+//   (`simt::`), no TMA, no wgmma.  One block of four warps per 64-row query
+//   tile; each warp owns 16 rows; K and V tiles of 64 rows are
+//   double-buffered with `cp.async` (rows padded by 16 bytes, rows past S
+//   zero-filled), single-buffered at D = 256 (see `Layout`); bf16 runs
 //   `mma.sync.m16n8k16` (K's and V's B fragments through `ldmatrix`), float32
-//   FFMA (no TF32) on the same C-fragment layout.  No main path runs it at
-//   full width.
+//   FFMA (no TF32) on the same C-fragment layout.  gemma-7b's prefill runs
+//   it at bf16 D = 256 (8 x 2048, 16 heads): 274.9 GFLOP, 278 us at the
+//   tensor cores' peak, of which this body reaches about a fifth (its time
+//   is in PERF.md); a Hopper body at D = 256 is later work.
 //
 // Measured at the serving shape by chip_smoke.py (NVIDIA H100 80GB HBM3,
 // 700.00 W, L2 cold): the first body took 607.8-617.2 us (22.7 % of the
@@ -77,6 +84,7 @@
 #include <cuda.h>   // CUtensorMap and the driver API types only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -127,6 +135,7 @@ struct Args {
   Strides sq, sk, sv;
   float scale;
   int causal;
+  int W;                  // the window: keys with i - j >= W are masked
   cudaStream_t stream;
 };
 
@@ -143,16 +152,23 @@ constexpr int kNT = kBK / 8;          // 8-key column tiles per logits tile
 constexpr int kPStride = kBK + 4;     // floats per row of P (float32 path)
 
 // Shared memory: K and V tiles twice (the next tile's copies run while
-// this tile is multiplied) and the Q tile; in bf16 Q is read into registers
-// once, so its tile shares the second K buffer.  float32 keeps Q in shared
-// memory, plus one P tile per warp.
+// this tile is multiplied) and the Q tile; in bf16 at D <= 128 Q is read
+// into registers once, so its tile shares the second K buffer.  float32
+// keeps Q in shared memory, plus one P tile per warp.  At D = 256 Q stays in
+// shared memory in bf16 too (as fragments it would take 64 registers beside
+// the accumulator's 128), and K and V are staged once, not twice: two
+// float32 buffers (350 KB) would pass the 227 KB a block may take, and one
+// bf16 buffer (99 KB a block) lets two blocks share an SM, each copying
+// while the other multiplies.
 template <typename T, int D>
 struct Layout {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int kStride = D + kVec;  // elements per padded tile row
   static constexpr int kTile = kBK * kStride;
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kTiles = kF32 ? 5 : 4;   // [Q] K0 V0 K1 V1
+  static constexpr bool kQRegs = !kF32 && D <= 128;
+  static constexpr int kBufs = D > 128 ? 1 : 2;
+  static constexpr int kTiles = (kQRegs ? 0 : 1) + 2 * kBufs;  // [Q] K0 V0 [K1 V1]
   static constexpr size_t kBytes =
       kTiles * kTile * sizeof(T) + (kF32 ? kWarps * 16 * kPStride * sizeof(float) : 0);
 };
@@ -214,27 +230,35 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// Blocks an SM should hold: bf16 is held to 168 registers a thread for three;
+// Blocks an SM should hold: bf16 is held to 168 registers a thread for three
+// at D <= 128, and to 255 for two at D = 256 (the accumulator alone is 128);
 // float32 (whose tiles fill most of shared memory at D = 128) is not held.
-template <typename T>
-constexpr int min_blocks() { return std::is_same<T, float>::value ? 1 : 3; }
+template <typename T, int D>
+constexpr int min_blocks() {
+  return std::is_same<T, float>::value ? 1 : (D > 128 ? 2 : 3);
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, min_blocks<T, D>())
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int B, int S,
                  int H, int KV, Strides sq, Strides sk, Strides sv,
-                 float scale, int causal) {
+                 float scale, int causal, int W) {
   using L = Layout<T, D>;
   constexpr int kDT = D / 8;          // 8-wide output column tiles
   constexpr int kStride = L::kStride;
+  // float32's loops over d (QK^T) and keys (PV): at D = 256 the accumulator
+  // alone takes 128 registers, and unrolled loads of more steps spill.
+  constexpr int kQkUnroll = D > 128 ? 1 : 2;
+  constexpr int kPvUnroll = D > 128 ? 1 : 4;
 
   extern __shared__ uint4 smem_raw[];
   T* base = reinterpret_cast<T*>(smem_raw);
-  T* kbuf[2] = {base + (L::kF32 ? 1 : 0) * L::kTile,
-                base + (L::kF32 ? 3 : 2) * L::kTile};
+  T* kbuf[2];
+  kbuf[0] = base + (L::kQRegs ? 0 : 1) * L::kTile;
+  kbuf[1] = L::kBufs == 2 ? kbuf[0] + 2 * L::kTile : kbuf[0];
   T* vbuf[2] = {kbuf[0] + L::kTile, kbuf[1] + L::kTile};
-  T* qs = L::kF32 ? base : kbuf[1];
+  T* qs = L::kQRegs ? kbuf[1] : base;
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -253,10 +277,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * sk.b + kvh * sk.h;
   const T* vp = v + b * sv.b + kvh * sv.h;
 
+  // Key tiles: from the first one the window reaches (keys j with
+  // i - j >= W are masked; W is INT_MAX without a window) to the last one
+  // at or below the diagonal.
+  const int j0 = max(0, q0 - W + 1) / kBK;
+  const int nkb = causal ? qt + 1 : nqb;  // tiles wholly above skipped
+  // The last row of the tile that holds a query: its window starts last.
+  const int imax = min(q0 + kBQ - 1, S - 1);
+
   stage<T, D>(qs, qp, sq.s, q0, S);
   cp_async_commit();
-  stage<T, D>(kbuf[0], kp, sk.s, 0, S);
-  stage<T, D>(vbuf[0], vp, sv.s, 0, S);
+  stage<T, D>(kbuf[0], kp, sk.s, j0 * kBK, S);
+  stage<T, D>(vbuf[0], vp, sv.s, j0 * kBK, S);
   cp_async_commit();
   cp_async_wait<1>();                     // Q has landed
   __syncthreads();
@@ -265,9 +297,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rloc0 = 16 * warp + g;
   const int row[2] = {q0 + rloc0, q0 + rloc0 + 8};
 
-  // bf16: this warp's Q as m16n8k16 A fragments, kept for the whole block.
-  uint32_t qf[L::kF32 ? 1 : D / 16][4];
-  if constexpr (!L::kF32) {
+  // bf16 at D <= 128: this warp's Q as m16n8k16 A fragments, kept for the
+  // whole block.  At D = 256 they are read from Q's tile per key tile.
+  uint32_t qf[L::kQRegs ? D / 16 : 1][4];
+  if constexpr (L::kQRegs) {
     const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(qs);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -292,14 +325,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float scale2 = scale * kLog2e;   // exp(x) = exp2(x log2 e)
 
-  const int nkb = causal ? qt + 1 : nqb;  // tiles wholly above skipped
-  for (int j = 0; j < nkb; ++j) {
+  for (int j = j0; j < nkb; ++j) {
     const int k0 = j * kBK;
-    const T* ks = kbuf[j & 1];
-    const T* vs = vbuf[j & 1];
-    if (j + 1 < nkb) {                    // the next tile's copies overlap
-      stage<T, D>(kbuf[(j + 1) & 1], kp, sk.s, k0 + kBK, S);
-      stage<T, D>(vbuf[(j + 1) & 1], vp, sv.s, k0 + kBK, S);
+    const int it = j - j0;
+    const T* ks = kbuf[it & 1];
+    const T* vs = vbuf[it & 1];
+    if (L::kBufs == 2 && j + 1 < nkb) {   // the next tile's copies overlap
+      stage<T, D>(kbuf[(it + 1) & 1], kp, sk.s, k0 + kBK, S);
+      stage<T, D>(vbuf[(it + 1) & 1], vp, sv.s, k0 + kBK, S);
       cp_async_commit();
       cp_async_wait<1>();                 // this tile has landed
     } else {
@@ -315,25 +348,37 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
     }
     if constexpr (!L::kF32) {
-      // ldmatrix rows: matrix i = (key half i / 2, d half i % 2) of 16 keys.
+      // ldmatrix rows: matrix i = (key half i / 2, d half i % 2) of 16 keys;
+      // for Q's A fragments (D = 256), matrix i = (row half i % 2, d half
+      // i / 2) of the warp's 16 rows.
       const int mi = lane / 8;
       const __nv_bfloat16* krow = reinterpret_cast<const __nv_bfloat16*>(ks) +
                                   ((mi >> 1) * 8 + lane % 8) * kStride + (mi & 1) * 8;
+      const __nv_bfloat16* qrow = reinterpret_cast<const __nv_bfloat16*>(qs) +
+                                  (16 * warp + (mi & 1) * 8 + lane % 8) * kStride +
+                                  (mi >> 1) * 8;
 #pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (L::kQRegs) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+        } else {
+          ldmatrix_x4(qa, qrow + 16 * kk);
+        }
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
           uint32_t bf[4];
           ldmatrix_x4(bf, krow + 16 * np * kStride + 16 * kk);
-          mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+          mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+          mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
         }
       }
     } else {
       const float* qf0 = reinterpret_cast<const float*>(qs) + rloc0 * kStride;
       const float* qf1 = qf0 + 8 * kStride;
       const float* kf = reinterpret_cast<const float*>(ks) + 2 * t * kStride;
-#pragma unroll 2
+#pragma unroll (kQkUnroll)
       for (int d = 0; d < D; d += 4) {
         const float4 a0 = *reinterpret_cast<const float4*>(qf0 + d);
         const float4 a1 = *reinterpret_cast<const float4*>(qf1 + d);
@@ -350,8 +395,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // Scale (into the log2 domain), mask, and the new running max per row.
-    // Only the diagonal tile and a ragged last tile hold masked entries.
-    const bool edge = (causal && j == qt) || k0 + kBK > S;
+    // Only the diagonal tile, a ragged last tile and a tile that the window's
+    // left edge crosses hold masked entries.
+    const bool edge = (causal && j == qt) || k0 + kBK > S || imax - k0 >= W;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
@@ -360,7 +406,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[n][e] *= scale2;
         if (edge) {
           const int key = k0 + 8 * n + 2 * t + (e & 1);
-          if (key >= S || (causal && key > row[e >> 1])) s[n][e] = kMasked;
+          if (key >= S || (causal && key > row[e >> 1]) || row[e >> 1] - key >= W)
+            s[n][e] = kMasked;
         }
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
@@ -422,7 +469,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncwarp();
       const float* vf = reinterpret_cast<const float*>(vs) + 2 * t;
-#pragma unroll 4
+#pragma unroll (kPvUnroll)
       for (int key = 0; key < kBK; ++key) {
         const float p0 = ps[g * kPStride + key];
         const float p1 = ps[(g + 8) * kPStride + key];
@@ -437,6 +484,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();   // every warp is done with this tile's K, V (and P)
+    if (L::kBufs == 1 && j + 1 < nkb) {   // one buffer: refill it now
+      stage<T, D>(kbuf[0], kp, sk.s, k0 + kBK, S);
+      stage<T, D>(vbuf[0], vp, sv.s, k0 + kBK, S);
+      cp_async_commit();
+    }
   }
 
   // The row sums are split over the four threads of a row group.
@@ -459,25 +511,51 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Lets the kernel take its dynamic shared memory (above 48 KB only when
+// asked), with the SM's carveout set to shared memory, so that D = 256's
+// two bf16 blocks fit beside each other.
+template <typename T, int D>
+cudaError_t prepare() {
+  auto kern = flash_attention_kernel<T, D>;
+  constexpr size_t smem = Layout<T, D>::kBytes;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) cudaGetLastError();  // so the next launch does not report it
+  return err;
+}
+
+// Blocks of this body an SM holds (0 if it cannot be prepared).
+template <typename T, int D>
+int blocks_per_sm() {
+  int n = 0;
+  if (prepare<T, D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, flash_attention_kernel<T, D>, kThreads, Layout<T, D>::kBytes) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
 template <typename T, int D>
 cudaError_t run(const Args& a) {
   auto kern = flash_attention_kernel<T, D>;
   constexpr size_t smem = Layout<T, D>::kBytes;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, so the next launch does not report it
-      return err;
-    }
-  }
+  const cudaError_t err = prepare<T, D>();
+  if (err != cudaSuccess) return err;
   const long long nqb = (a.S + kBQ - 1) / kBQ;
   const long long blocks = nqb * a.B * a.H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.B, a.S, a.H, a.KV,
-      a.sq, a.sk, a.sv, a.scale, a.causal);
+      a.sq, a.sk, a.sv, a.scale, a.causal, a.W);
   return cudaGetLastError();
 }
 
@@ -677,9 +755,11 @@ __device__ __forceinline__ float ex2(float x) {
 // The online softmax over one logits tile, in place: sc[4 n + e] (row
 // row[e / 2], key k0 + 8 n + 2 t + e % 2) becomes the unrounded P; m and l
 // are updated, and corr is the factor that rescales the output's rows.  In
-// the log2 domain, p = 2^(s scale log2 e - m).  Only the diagonal tile and a
-// ragged last tile hold masked entries (`edge`): there the logits are scaled
-// and then masked to -1e30, as in the Pallas body; elsewhere the scaling is
+// the log2 domain, p = 2^(s scale log2 e - m).  Only the diagonal tile, a
+// ragged last tile and a tile that a row's window starts in hold masked
+// entries (`edge`): there the logits are scaled and then masked to -1e30
+// (keys past S, above the diagonal, or W or more rows back), as in the
+// Pallas body and the reference's window mask; elsewhere the scaling is
 // folded into one FFMA (the max commutes with it when scale2 > 0).  Each
 // row's max and sum run as four independent chains (chunks n % 4), so that
 // their latency does not serialise the tile.
@@ -687,7 +767,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2]
                                              float (&l)[2], float (&corr)[2],
                                              float scale2, bool edge, int k0,
                                              const int (&row)[2], int t, int S,
-                                             int causal) {
+                                             int causal, int W) {
   constexpr float kLowest = -3.402823466e38f;   // below every logit
   const bool fold = !edge && scale2 > 0.0f;
   float pm[2][4];
@@ -707,7 +787,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2]
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * n + e] * scale2;
         const int key = k0 + 8 * n + 2 * t + (e & 1);
-        if (key >= S || (causal && key > row[e >> 1])) x = kMasked;
+        if (key >= S || (causal && key > row[e >> 1]) || row[e >> 1] - key >= W)
+          x = kMasked;
         sc[4 * n + e] = x;
         pm[e >> 1][n & 3] = fmaxf(pm[e >> 1][n & 3], x);
       }
@@ -917,13 +998,16 @@ __device__ __forceinline__ void release(uint32_t* count, int lane,
 // The work: one tile per (128-row query tile, batch, head), heaviest causal
 // tiles first.  Block k of the G persistent blocks takes, in round r, tile
 // r G + k in even rounds and r G + G - 1 - k in odd ones (a snake, so that
-// each block's heavy and light causal tiles even out).
+// each block's heavy and light causal tiles even out).  A work tile's key
+// tiles run from j0, the first its window reaches (0 without one), to the
+// diagonal: n of them.  Under a window n stops growing with qt at about
+// W / 128 + 1, so the order is still heaviest first, with many ties.
 struct Tile {
-  int w, qt, nkb, b, h, kvh;   // w >= the tile count: no tile
+  int w, qt, j0, n, b, h, kvh;   // w >= the tile count: no tile
 };
 
 struct Work {
-  int B, H, KV, nqb, tiles, causal;
+  int B, H, KV, nqb, tiles, causal, W;
   __device__ int index(int r) const {
     const int G = gridDim.x;
     return r * G + ((r & 1) ? G - 1 - static_cast<int>(blockIdx.x)
@@ -933,7 +1017,8 @@ struct Work {
     Tile t;
     t.w = index(r);
     t.qt = nqb - 1 - t.w / (B * H);
-    t.nkb = causal ? t.qt + 1 : nqb;
+    t.j0 = max(0, t.qt * kBQ - W + 1) / kBK;
+    t.n = (causal ? t.qt + 1 : nqb) - t.j0;
     t.b = t.w % (B * H) / H;
     t.h = t.w % H;
     t.kvh = t.h / (H / KV);
@@ -947,7 +1032,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap to, int B, int S,
-                       int H, int KV, float scale, int causal) {
+                       int H, int KV, float scale, int causal, int W) {
   using L = Smem<D>;
   constexpr int kDT = D / 8;            // 8-wide chunks of the output
 
@@ -957,25 +1042,28 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t* count = reinterpret_cast<uint32_t*>(
       smem_raw + (base - smem_addr(smem_raw)) + L::kCount);
   const int nqb = (S + kBQ - 1) / kBQ;
-  const Work wk{B, H, KV, nqb, nqb * B * H, causal};
+  const Work wk{B, H, KV, nqb, nqb * B * H, causal, W};
 
-  // The block's key tiles form one sequence over its work tiles: key tile g
-  // goes to stage g % kStages and completes its full barrier's phase
-  // g / kStages.  `load_kv` copies key tile g, counting from g0, the first
-  // key tile of work tile `cur` (round rnd), whose successor is `nxt`: with
-  // two stages g - g0 is at most cur.nkb + 1, so g lies in `cur`, in `nxt`,
-  // or (after a one-tile `nxt`) in the work tile after it.
+  // The block's key tiles form one sequence over its work tiles: tile g of
+  // it goes to stage g % kStages and completes its full barrier's phase
+  // g / kStages.  `load_kv` copies sequence tile g, counting from g0, the
+  // first of work tile `cur` (round rnd), whose successor is `nxt`: with
+  // two stages g - g0 is at most cur.n + 1, so g lies in `cur`, in `nxt`,
+  // or (after a one-tile `nxt`) in the work tile after it; within its work
+  // tile it is key tile j0 + (its place there).
   auto k_addr = [&](int s) { return base + L::kK0 + 2 * s * L::kTile; };
   auto load_kv = [&](bool is_v, const Tile& cur, const Tile& nxt, int rnd,
                      int g0, int g) {
-    int j = g - g0, b = cur.b, kvh = cur.kvh;
-    if (j >= cur.nkb) {
-      j -= cur.nkb;
+    int j = g - g0, j0 = cur.j0, b = cur.b, kvh = cur.kvh;
+    if (j >= cur.n) {
+      j -= cur.n;
+      j0 = nxt.j0;
       b = nxt.b;
       kvh = nxt.kvh;
-      if (nxt.w < wk.tiles && j >= nxt.nkb) {
+      if (nxt.w < wk.tiles && j >= nxt.n) {
         const Tile after = wk.tile(rnd + 2);
-        j -= nxt.nkb;
+        j -= nxt.n;
+        j0 = after.j0;
         b = after.b;
         kvh = after.kvh;
         if (after.w >= wk.tiles) return;
@@ -989,8 +1077,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_expect_tx(bar, L::kTile);
 #pragma unroll
     for (int p = 0; p < L::kPanels; ++p)
-      tma_load(dst + p * kPanelBytes, is_v ? &tv : &tk, bar, 64 * p, j * kBK,
-               kvh, b);
+      tma_load(dst + p * kPanelBytes, is_v ? &tv : &tk, bar, 64 * p,
+               (j0 + j) * kBK, kvh, b);
   };
   auto load_q = [&](const Tile& t) {
     mbar_expect_tx(bars.q_full(), L::kTile);
@@ -1044,10 +1132,21 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     const Tile nxt = wk.tile(rnd + 1);
     const int qt = cur.qt;
     const int q0 = qt * kBQ;
-    const int nkb = cur.nkb;
-    const int row[2] = {q0 + 64 * c + rl, q0 + 64 * c + rl + 8};
+    const int j0 = cur.j0;
+    const int n = cur.n;
+    // Rows past S (read as zero, never stored) are masked as row S - 1, so
+    // that the last row that holds a query, imax, bounds every row's window.
+    const int imax = min(q0 + kBQ - 1, S - 1);
+    const int row[2] = {min(q0 + 64 * c + rl, S - 1),
+                        min(q0 + 64 * c + rl + 8, S - 1)};
+    // Key tile j takes the exact softmax where it holds masked entries (the
+    // diagonal, a ragged last tile, keys W or more rows behind imax), and
+    // where imax's window starts at its first key: there imax has seen no
+    // key yet (its max is still -1e30), which the lazy path cannot take.
     auto edge = [&](int j) {
-      return (causal && j == qt) || (j + 1) * kBK > S;
+      const int reach = imax - j * kBK;
+      return (causal && j == qt) || (j + 1) * kBK > S || reach >= W ||
+             (reach == W - 1 && j > j0);
     };
     auto k_ready = [&](int g) {
       mbar_wait(bars.k_full(g % kStages), (g / kStages) & 1);
@@ -1089,11 +1188,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     reg_fence(sc);
     release_k(g0);
-    softmax_tile(sc, m, l, corr, scale2, edge(0), 0, row, t, S, causal);
+    softmax_tile(sc, m, l, corr, scale2, edge(j0), j0 * kBK, row, t, S, causal,
+                 W);
     pack_p(pa, sc);
 
-    for (int j = 1; j < nkb; ++j) {
-      const int g = g0 + j;
+    for (int i = 1; i < n; ++i) {
+      const int j = j0 + i;             // the key tile
+      const int g = g0 + i;             // its place in the block's sequence
       k_ready(g);
       v_ready(g - 1);
       reg_fence(sc);
@@ -1117,7 +1218,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
         redo = __any_sync(0xffffffffu, softmax_lazy(sc, m, lsum, scale2));
       } else {
         softmax_tile(sc, m, l, corr, scale2, true, j * kBK, row, t, S,
-                     causal);
+                     causal, W);
       }
       wgmma_wait<0>();                  // PV of key tile g - 1 is done
       reg_fence(o);
@@ -1125,7 +1226,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       if (redo) {
         qk_warp<D>(sc, qf, k_addr(g % kStages), lane);
         softmax_tile(sc, m, l, corr, scale2, false, j * kBK, row, t, S,
-                     causal);
+                     causal, W);
       }
       release_k(g);
       if (lazy && !redo) {
@@ -1137,7 +1238,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       }
       pack_p(pa, sc);
     }
-    const int gl = g0 + nkb - 1;
+    const int gl = g0 + n - 1;
     v_ready(gl);
     reg_fence(o);
     turn_wait(c);
@@ -1183,7 +1284,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                   cur.b);
       store_commit();
     }
-    g0 += nkb;
+    g0 += n;
     cur = nxt;
   }
   if (c == 0) turn_wait(c);
@@ -1285,7 +1386,7 @@ int run_hopper(const Args& a) {
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
   kern<<<blocks, hopper::kThreads, smem, a.stream>>>(
-      tq, tk, tv, to, a.B, a.S, a.H, a.KV, a.scale, a.causal);
+      tq, tk, tv, to, a.B, a.S, a.H, a.KV, a.scale, a.causal, a.W);
   return cudaGetLastError();
 }
 
@@ -1299,6 +1400,7 @@ int pick_d(const Args& a, int d) {
       case 32: return simt::run<T, 32>(a);
       case 64: return run_hopper<64>(a);
       case 128: return run_hopper<128>(a);
+      case 256: return simt::run<T, 256>(a);
     }
   } else {
     switch (d) {
@@ -1306,6 +1408,7 @@ int pick_d(const Args& a, int d) {
       case 32: return simt::run<T, 32>(a);
       case 64: return simt::run<T, 64>(a);
       case 128: return simt::run<T, 128>(a);
+      case 256: return simt::run<T, 256>(a);
     }
   }
   return cudaErrorInvalidValue;
@@ -1322,6 +1425,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
       case 32: return static_cast<int>(simt::Layout<__nv_bfloat16, 32>::kBytes);
       case 64: return static_cast<int>(hopper::Smem<64>::kBytes);
       case 128: return static_cast<int>(hopper::Smem<128>::kBytes);
+      case 256: return static_cast<int>(simt::Layout<__nv_bfloat16, 256>::kBytes);
     }
   } else {
     switch (D) {
@@ -1329,13 +1433,37 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
       case 32: return static_cast<int>(simt::Layout<float, 32>::kBytes);
       case 64: return static_cast<int>(simt::Layout<float, 64>::kBytes);
       case 128: return static_cast<int>(simt::Layout<float, 128>::kBytes);
+      case 256: return static_cast<int>(simt::Layout<float, 256>::kBytes);
+    }
+  }
+  return 0;
+}
+
+// Blocks of the first body an SM holds at this dtype code and D, by the
+// occupancy calculator (0 for the Hopper body's cases, one block an SM by
+// construction, and for a D the kernel does not take).
+extern "C" int flash_attention_simt_blocks_per_sm(int dtype, int D) {
+  if (dtype) {
+    switch (D) {
+      case 16: return simt::blocks_per_sm<__nv_bfloat16, 16>();
+      case 32: return simt::blocks_per_sm<__nv_bfloat16, 32>();
+      case 256: return simt::blocks_per_sm<__nv_bfloat16, 256>();
+    }
+  } else {
+    switch (D) {
+      case 16: return simt::blocks_per_sm<float, 16>();
+      case 32: return simt::blocks_per_sm<float, 32>();
+      case 64: return simt::blocks_per_sm<float, 64>();
+      case 128: return simt::blocks_per_sm<float, 128>();
+      case 256: return simt::blocks_per_sm<float, 256>();
     }
   }
   return 0;
 }
 
 // dtype code of q / k / v / out: 0 = float32, 1 = bfloat16.  D must be 16,
-// 32, 64 or 128 and H a multiple of KV.  Strides are in elements, for the B,
+// 32, 64, 128 or 256 and H a multiple of KV; `window` >= 1 masks keys j with
+// i - j >= window, 0 means no window.  Strides are in elements, for the B,
 // S and head axes of q, k and v in that order (the D axis is contiguous,
 // each row 16-byte aligned; in bf16 at D = 64 or 128 the byte strides are
 // TMA's: multiples of 16 below 2^40).  Launches on `stream` and returns
@@ -1345,12 +1473,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int D,
                                       const long long* strides, float scale,
-                                      int causal, int dtype, void* stream) {
-  if (KV < 1 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                      int causal, int window, int dtype,
+                                      void* stream) {
+  if (KV < 1 || H % KV != 0 || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, B, S, H, KV,
                Strides{strides[0], strides[1], strides[2]},
                Strides{strides[3], strides[4], strides[5]},
                Strides{strides[6], strides[7], strides[8]},
-               scale, causal, static_cast<cudaStream_t>(stream)};
+               scale, causal, window > 0 ? window : INT_MAX,
+               static_cast<cudaStream_t>(stream)};
   return dtype ? pick_d<__nv_bfloat16>(a, D) : pick_d<float>(a, D);
 }

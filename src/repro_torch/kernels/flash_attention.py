@@ -10,13 +10,15 @@ launch, in plain Python that the CPU tests reach:
   * `body` names the kernel body that serves a dtype and head dim, as the
     source's `pick_d` chooses it: "wgmma" (TMA, `wgmma`, a persistent
     grid; bf16 at D = 64 or 128) or "simt" (`mma.sync` in bf16, FFMA in
-    float32);
+    float32; every other case, gemma-7b's bf16 D = 256 included);
   * `grid` gives the launch's blocks and work tiles (the order in which
     the Hopper body's persistent blocks walk the work tiles is the kernel's
     own, `hopper::Work`);
   * `kernel_strides` and `tma_map` give the element strides the kernel
     reads and the TMA tensor map's dims and byte strides, and refuse what
     TMA cannot take;
+  * `check_window` checks a sliding window (keys ``window`` or more rows
+    back masked, as the reference's `layers.attention` masks them);
   * `launch` checks dtype, device and layout, allocates the output with
     `torch.empty`, and calls the compiled kernel on the current stream.  q,
     k and v reach the kernel through their strides, with no transposed or
@@ -32,7 +34,7 @@ import ctypes
 
 import torch
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TILES = 2**31 - 1    # work tiles: one per (query tile, batch, head)
 # Query rows a work tile and threads a block, by body.
@@ -55,6 +57,13 @@ def check_shapes(q, k, v) -> None:
     if k.shape[2] < 1 or h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} query heads are not a "
                          f"multiple of {k.shape[2]} kv heads")
+
+
+def check_window(window: int | None) -> None:
+    if window is not None and (isinstance(window, bool) or int(window) != window
+                               or window < 1):
+        raise ValueError(f"flash_attention: window must be a positive "
+                         f"integer or None, got {window!r}")
 
 
 def body(dtype: torch.dtype, d: int) -> str:
@@ -99,7 +108,8 @@ def tma_map(t: torch.Tensor) -> tuple[tuple[int, ...], tuple[int, ...]]:
     return (d, s, heads, b), strides
 
 
-def launch(lib: ctypes.CDLL, q, k, v, *, scale: float, causal: bool):
+def launch(lib: ctypes.CDLL, q, k, v, *, scale: float, causal: bool,
+           window: int | None = None):
     """Run the CUDA kernel.  Returns out (B, S, H, D) in q's dtype.
 
     Raises on anything the kernel does not take, and if the launch is
@@ -118,6 +128,7 @@ def launch(lib: ctypes.CDLL, q, k, v, *, scale: float, causal: bool):
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    check_window(window)
     vec = 16 // q.element_size()     # elements per 16-byte load
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
@@ -141,7 +152,7 @@ def launch(lib: ctypes.CDLL, q, k, v, *, scale: float, causal: bool):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, h, k.shape[2], d, strides, float(scale), int(causal),
-            _DTYPE_CODES[q.dtype], stream,
+            min(int(window or 0), 2**31 - 1), _DTYPE_CODES[q.dtype], stream,
         )
     if err >= ENCODE_FAILED:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused "
@@ -158,13 +169,22 @@ def smem_bytes(lib: ctypes.CDLL, dtype: torch.dtype, d: int) -> int:
     return lib.flash_attention_smem_bytes(_DTYPE_CODES[dtype], d)
 
 
+def simt_blocks_per_sm(lib: ctypes.CDLL, dtype: torch.dtype, d: int) -> int:
+    """Blocks of the first body an SM holds for ``dtype`` at head dim ``d``
+    (the occupancy calculator; 0 where the Hopper body serves)."""
+    return lib.flash_attention_simt_blocks_per_sm(_DTYPE_CODES[dtype], d)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures (pointers and the stream as c_void_p)."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
         [vp] * 4 + [i32] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, i32, vp])
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, i32, i32,
+           vp])
     lib.flash_attention_launch.restype = i32
-    lib.flash_attention_smem_bytes.argtypes = [i32, i32]
-    lib.flash_attention_smem_bytes.restype = i32
+    for fn in (lib.flash_attention_smem_bytes,
+               lib.flash_attention_simt_blocks_per_sm):
+        fn.argtypes = [i32, i32]
+        fn.restype = i32
     return lib

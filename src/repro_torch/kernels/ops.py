@@ -295,9 +295,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True,
+                    window: int | None = None,
                     device: str | torch.device | None = None) -> torch.Tensor:
-    """Causal (or full) grouped-query attention forward (see
-    `kernels.ref.flash_attention_ref`).
+    """Causal (or full) grouped-query attention forward, optionally with a
+    sliding window (see `kernels.ref.flash_attention_ref`).
 
     q: (B, S, H, D); k, v: (B, S, KV, D) with H a multiple of KV, one dtype
     (float32 or bfloat16).  Query head h reads kv head h // (H // KV).
@@ -316,10 +317,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} is on {t.device}, the "
                              f"call runs on {dev}")
     _fa.check_shapes(q, k, v)
+    _fa.check_window(window)
     if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                       window=window)
     refuse_autograd("flash_attention", (q, k, v))
     out = _fa.launch(load_library("flash_attention"), q, k, v, scale=scale,
-                     causal=causal)
+                     causal=causal, window=window)
     count_launch(LAUNCHES, "flash_attention")
     return out

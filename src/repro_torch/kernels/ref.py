@@ -6,7 +6,7 @@
   * rwkv6_scan_ref      — the rwkv6 data-dependent-decay linear attention,
     as the sequential token recurrence with a float32 state.
   * flash_attention_ref — causal (or full) grouped-query softmax attention,
-    materialising the float32 logits.
+    optionally windowed, materialising the float32 logits.
 
 The two aggregation rules take an optional per-segment transmit mask
 ``tx``, composed into the success mask as
@@ -93,20 +93,26 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        scale: float, causal: bool = True) -> torch.Tensor:
+                        scale: float, causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
     """Grouped-query softmax attention, all in float32.
 
     q: (B, S, H, D); k, v: (B, S, KV, D) -> (B, S, H, D) in q's dtype.
     Query head h reads kv head h // (H // KV); with ``causal``, logits of
-    later keys are set to -1e30 before the softmax.
+    later keys are set to -1e30 before the softmax, and with ``window``
+    those of keys ``window`` or more rows back (the reference's
+    sliding-window mask), causal or not.
     """
     b, s, h, d = q.shape
     kv = k.shape[2]
     qf = q.reshape(b, s, kv, h // kv, d).float()
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) * scale
+    idx = torch.arange(s, device=q.device)
     if causal:
-        idx = torch.arange(s, device=q.device)
         logits = logits.masked_fill(idx[:, None] < idx[None, :], -1e30)
+    if window is not None:
+        logits = logits.masked_fill(idx[:, None] - idx[None, :] >= window,
+                                    -1e30)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)

@@ -8,12 +8,16 @@ Port of the reference package's `launch/serve.py` (single device).  Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --device cpu                                  # the dense family
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
+      --window 16 --device cpu                      # a sliding window
 
 `main`, like the reference's, serves the config's smoke variant; `serve`
 takes any config (the full-width one included) and returns the generated
 ids with the prefill and decode times.  After the prefill, attention caches
 (``k`` / ``v``) grow along their sequence axis to ``prompt_len + gen``, as
-the reference's `main` grows them.
+the reference's `main` grows them; with ``window`` the prefill masks keys
+that far back (K2 takes the window on the card) and each decode step reads
+the grown cache under the same window mask.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """Transformer building blocks, functional PyTorch: init/apply pairs.
 
 Port of the reference package's `models/layers.py` for what the rwkv6 and
-dense serving slices run: dense init, RMSNorm and LayerNorm, split-half
-RoPE, grouped-query attention with optional QKV bias (`attention`, its
-prefill core `self_attention`, the plain `_sdpa`), the KV cache with
-`decode_attention`, the MLP with all four activations, and the tied
-embedding.  Cross-attention, the reference's jnp `_sdpa_chunked`, the
-``attn_mask`` argument and the wrapped sliding-window decode cache are not
-ported yet (ROADMAP Queue 1 item 7).
+dense slices run: dense init, RMSNorm and LayerNorm, split-half RoPE,
+grouped-query attention with optional QKV bias and sliding window
+(`attention` with an optional ``attn_mask``, its prefill core
+`self_attention`, the plain `_sdpa`, the online-softmax `_sdpa_chunked`),
+the KV cache with `decode_attention` (including the wrapped sliding-window
+cache: RoPE at ``rope_pos``, ``full_cache``), the MLP with all four
+activations, and the tied embedding.  Cross-attention is not ported yet
+(ROADMAP Queue 1 item 7).
 
 Conventions, as in the reference:
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import flash
 
 Params = dict[str, torch.Tensor]
 
@@ -76,8 +78,14 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float = 10_000.0,
                device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """1 / theta^(2i / head_dim) in float32.  The power is taken in float64
+    and rounded once, as the reference's float32 power rounds it (torch's
+    float32 power can be an ulp off, which at long_500k's positions moves
+    an angle by 1.5e-5)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    base = torch.tensor(theta, dtype=torch.float32).double()
+    return 1.0 / (base.to(device) ** exps.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -95,9 +103,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA + RoPE + optional bias + KV cache)
+# Attention (GQA + RoPE + optional bias/window + KV cache)
 # ---------------------------------------------------------------------------
-IMPLS = ("auto", "torch", "kernel")
+# "auto" (K2 on the card, else the masked `_sdpa`), "kernel" (K2; its plain
+# version on the CPU), "torch" (the masked `_sdpa`), and the reference's
+# training attentions: "naive" (the masked `_sdpa`), "chunked"
+# (`_sdpa_chunked`) and "flash" (`flash.flash_attention`).
+IMPLS = ("auto", "torch", "kernel", "naive", "chunked", "flash")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,49 +176,78 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, dh)
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float, causal: bool, window: int | None,
+                  chunk: int) -> torch.Tensor:
+    """Memory-efficient attention: the online softmax over key blocks of the
+    largest divisor of S at most ``chunk``, never holding the (S, S)
+    scores (the reference's `_sdpa_chunked`; `flash.block_scan`).
+    q: (B, S, H, Dh); k, v: (B, S, KV, Dh)."""
+    return flash.block_scan(q, k, v, scale, causal, window, chunk)[0]
+
+
+def _mask(s: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S, S) bool, True where query i attends to key j."""
+    idx = torch.arange(s, device=device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= idx[:, None] >= idx[None, :]
+    if window is not None:
+        mask &= idx[:, None] - idx[None, :] < window
+    return mask
+
+
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int | None = None,
-                   impl: str = "auto") -> torch.Tensor:
+                   impl: str = "auto", chunk: int = 512) -> torch.Tensor:
     """Full-sequence self-attention of projected heads (the prefill's
     attention).  q: (B, S, H, Dh); k, v: (B, S, KV, Dh) -> (B, S, H, Dh).
 
     ``impl="kernel"``, or ``"auto"`` on a CUDA tensor, runs
-    `kernels.ops.flash_attention` (the CUDA kernel K2 for CUDA tensors, its
-    plain version for CPU tensors); ``"torch"``, or ``"auto"`` on the CPU,
-    runs `_sdpa` with the causal / window mask.  K2 takes no window: a
-    window with the kernel raises.
+    `kernels.ops.flash_attention` with the window (the CUDA kernel K2 for
+    CUDA tensors, its plain version for CPU tensors); ``"chunked"`` and
+    ``"flash"`` run `_sdpa_chunked` and `flash.flash_attention` with
+    ``chunk``; ``"torch"`` / ``"naive"``, or ``"auto"`` on the CPU, run
+    `_sdpa` with the causal / window mask.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "kernel" or (impl == "auto" and q.device.type == "cuda"):
-        if window is not None:
-            raise NotImplementedError(
-                "flash_attention (K2) takes no sliding window; see ROADMAP.md "
-                "Queue 2 (or pass impl='torch')")
         return ops.flash_attention(q, k, v, scale=scale, causal=causal,
-                                   device=q.device)
+                                   window=window, device=q.device)
+    if impl == "chunked":
+        return _sdpa_chunked(q, k, v, scale=scale, causal=causal,
+                             window=window, chunk=chunk)
+    if impl == "flash":
+        return flash.flash_attention(q, k, v, scale, causal, window, chunk)
     b, s = q.shape[:2]
-    idx = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= idx[:, None] >= idx[None, :]
-    if window is not None:
-        mask &= idx[:, None] - idx[None, :] < window
+    mask = _mask(s, causal, window, q.device)
     return _sdpa(q, k, v, mask.expand(b, s, s), scale=scale)
 
 
 def attention(params: Params, cfg: AttnCfg, x: torch.Tensor, *,
               positions: torch.Tensor | None = None,
-              impl: str = "auto") -> torch.Tensor:
-    """Full-sequence attention (prefill).  x: (B, S, D) -> (B, S, D).
-    ``impl`` as in `self_attention`."""
+              attn_mask: torch.Tensor | None = None, impl: str = "auto",
+              chunk: int = 512) -> torch.Tensor:
+    """Full-sequence attention (training / prefill).  x: (B, S, D) ->
+    (B, S, D).  ``impl`` and ``chunk`` as in `self_attention`.
+
+    ``attn_mask``: optional (B, S, S) bool (True = attend), composed with
+    the causal / window mask; given one, every ``impl`` runs the masked
+    `_sdpa`, as the reference does."""
     b, s, _ = x.shape
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, cfg, x, positions)
-    out = self_attention(q, k, v, causal=cfg.causal,
-                         window=cfg.sliding_window, impl=impl)
+    if attn_mask is None:
+        out = self_attention(q, k, v, causal=cfg.causal,
+                             window=cfg.sliding_window, impl=impl, chunk=chunk)
+    else:
+        mask = _mask(s, cfg.causal, cfg.sliding_window, x.device) & attn_mask
+        out = _sdpa(q, k, v, mask, scale=1.0 / math.sqrt(cfg.head_dim))
     return out.reshape(b, s, -1) @ params["wo"]
 
 
@@ -218,14 +259,24 @@ def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg,
 
 
 def decode_attention(params: Params, cfg: AttnCfg, x: torch.Tensor,
-                     cache: Params, pos: int):
+                     cache: Params, pos: int, *, rope_pos: int | None = None,
+                     full_cache: bool = False):
     """One-token decode step against a KV cache, in plain PyTorch.
 
-    x: (B, 1, D); cache: k, v (B, T, KV, Dh); pos: the position of the new
-    token, where its k and v are written.  Unlike the reference, which
-    returns updated copies, the cache is written in place (one (B, KV, Dh)
-    row per step instead of a copy of the whole cache); the returned dict
-    holds the same tensors.  Returns (out (B, 1, D), cache).
+    x: (B, 1, D); cache: k, v (B, T, KV, Dh); pos: the cache slot the new
+    token's k and v are written to (with a wrapped sliding-window cache of
+    T = window slots, its absolute position mod T).  ``rope_pos``: the
+    absolute position RoPE rotates by (default ``pos``).  ``full_cache``:
+    every slot holds a key of the window (a wrapped cache's steady state),
+    so no slot is masked; otherwise slots after ``pos``, and with a window
+    those ``window`` or more before it, are.
+
+    Unlike the reference, which returns updated copies, the cache is
+    written in place (one (B, KV, Dh) row per step instead of a copy of
+    the whole cache); the returned dict holds the same tensors.  The write
+    comes before the step's only read, as the reference's does: in a
+    wrapped cache slot ``pos`` held the key ``window`` positions back, which
+    the window no longer covers.  Returns (out (B, 1, D), cache).
     """
     b = x.shape[0]
     t = cache["k"].shape[1]
@@ -233,15 +284,19 @@ def decode_attention(params: Params, cfg: AttnCfg, x: torch.Tensor,
     if not 0 <= pos < t:
         raise IndexError(f"decode_attention: position {pos} is outside the "
                          f"cache of {t} slots")
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    rp = pos if rope_pos is None else int(rope_pos)
+    positions = torch.full((b, 1), rp, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _qkv(params, cfg, x, positions)
     cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    idx = torch.arange(t, device=x.device)
-    valid = idx <= pos
-    if cfg.sliding_window is not None:
-        valid &= idx > pos - cfg.sliding_window
-    out = _sdpa(q, cache["k"], cache["v"], valid.expand(b, 1, t),
+    mask = None
+    if not full_cache:
+        idx = torch.arange(t, device=x.device)
+        valid = idx <= pos
+        if cfg.sliding_window is not None:
+            valid &= idx > pos - cfg.sliding_window
+        mask = valid.expand(b, 1, t)
+    out = _sdpa(q, cache["k"], cache["v"], mask,
                 scale=1.0 / math.sqrt(cfg.head_dim))
     return out.reshape(b, 1, -1) @ params["wo"], cache
 

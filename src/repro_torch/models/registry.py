@@ -18,7 +18,8 @@ Every function of the bundle is an entry point: it runs on the CUDA card
 unless the caller passes ``device="cpu"`` (without a card and without that
 argument it raises), and the tensors it is given must lie there.  Training
 runs the reference's training forward (`transformer.train_impl`: the
-masked attention and the plain time-mix scan); serving keeps K2 and K3.
+masked, chunked or flash attention of ``cfg.attn_impl`` and the plain
+time-mix scan); serving keeps K2 and K3.
 """
 from __future__ import annotations
 
@@ -137,11 +138,13 @@ def build(cfg: T.ModelCfg, *, optimizer: str = "adamw", lr: float = 3e-4,
             return T.prefill(params, cfg, batch["tokens"], window=window,
                              impl=impl)
 
-    def serve_step(params, cache, token, pos, *, window=None, device=None):
+    def serve_step(params, cache, token, pos, *, window=None, abs_pos=None,
+                   full_cache=False, device=None):
         dev = resolve_device(device)
         _on(dev, "serve_step", [token, *params.values(), *cache.values()])
         with torch.no_grad():
-            return T.serve_step(params, cfg, cache, token, pos, window=window)
+            return T.serve_step(params, cfg, cache, token, pos, window=window,
+                                abs_pos=abs_pos, full_cache=full_cache)
 
     def init_cache(batch, max_len, *, window=None, device=None):
         return T.init_cache(cfg, batch, max_len, window=window,

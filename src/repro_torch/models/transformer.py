@@ -1,17 +1,21 @@
 """Transformer assembly, functional PyTorch: the ``dense`` and ``ssm``
 families.
 
-Port of the reference package's `models/transformer.py` for the serving
-slices: `ModelCfg`, init, the full forward, `prefill` (builds the decode
-cache, returns last-token logits) and `serve_step` (one token against the
-cache).  Per layer:
+Port of the reference package's `models/transformer.py` for the dense and
+ssm families: `ModelCfg`, init, the full forward, `prefill` (builds the
+decode cache, returns last-token logits) and `serve_step` (one token
+against the cache), with the sliding window throughout (the window mask in
+the forward and prefill, `init_cache(window=)`'s wrapped cache of at most
+``window`` slots, `serve_step`'s ``abs_pos`` / ``full_cache``).  Per layer:
 
-  dense : {ln1, attn, ln2, mlp}   (GQA + RoPE + optional QKV bias; qwen2.5)
+  dense : {ln1, attn, ln2, mlp}   (GQA + RoPE + optional QKV bias; qwen2.5,
+                                   llama3, starcoder2, gemma)
   ssm   : {ln1, rwkv6 time-mix, ln2, mlp}                          (rwkv6)
 
-The other families (moe, hybrid, enc_dec, vlm) raise `NotImplementedError`,
-as does a sliding window on the dense family; they come with ROADMAP Queue 1
-item 7.
+As in the reference, gemma's embeddings are scaled by sqrt(d_model) in
+`forward` only; `prefill` and `serve_step` embed without it.  The other
+families (moe, hybrid, enc_dec, vlm) raise `NotImplementedError`; they come
+with ROADMAP Queue 1 item 7.
 
 Parameters are a flat ``dict[str, Tensor]`` in the reference's leaf order
 (sorted keys, dotted names: "embed.table", "final_norm.scale",
@@ -23,6 +27,7 @@ reference's `lax.scan` over layers is a Python loop over that axis here.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -96,20 +101,14 @@ class ModelCfg:
 PORTED_FAMILIES = ("dense", "ssm")
 
 
-def check_family(cfg: ModelCfg, window: int | None = None) -> None:
-    """Raise for a family (or a dense sliding window) the port does not run
-    yet."""
+def check_family(cfg: ModelCfg) -> None:
+    """Raise for a family the port does not run yet."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (only "
             f"{PORTED_FAMILIES}); see ROADMAP.md Queue 1 item 7")
-    if cfg.family == "dense" and window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: a sliding window on the dense family is not ported "
-            f"yet (K2 takes none, nor the wrapped decode cache); see "
-            f"ROADMAP.md Queue 1 item 7")
 
 
 def _norm_init(cfg: ModelCfg):
@@ -175,56 +174,66 @@ def layer_params(params: Params, n_layers: int) -> list[Params]:
     return [dict(zip(stacked, vals)) for vals in zip(*views)][:n_layers]
 
 
+TRAIN_IMPLS = {"naive": "torch", "chunked": "chunked", "flash": "flash"}
+
+
 def train_impl(cfg: ModelCfg) -> str:
     """The ``impl`` a training caller passes to `forward`: the reference's
     training forward for ``cfg.attn_impl``.  ``"naive"`` is the masked
-    `layers._sdpa` and the plain chunked time-mix scan ("torch"): the
-    reference's training path reaches no Pallas kernel, and K2 and K3 have
-    no backward.  The chunked and flash attentions are not ported."""
-    if cfg.attn_impl == "naive":
-        return "torch"
-    raise NotImplementedError(
-        f"{cfg.name}: attn_impl={cfg.attn_impl!r} is not ported yet (only "
-        f"'naive'); see ROADMAP.md Queue 1 item 7")
+    `layers._sdpa` ("torch"), ``"chunked"`` `layers._sdpa_chunked` and
+    ``"flash"`` `flash.flash_attention` (its recomputing backward); the
+    time-mix runs the plain chunked scan under each.  The reference's
+    training path reaches no Pallas kernel, and K2 and K3 have no
+    backward."""
+    if cfg.attn_impl not in TRAIN_IMPLS:
+        raise ValueError(f"{cfg.name}: attn_impl must be one of "
+                         f"{tuple(TRAIN_IMPLS)}, got {cfg.attn_impl!r}")
+    return TRAIN_IMPLS[cfg.attn_impl]
 
 
 # ---------------------------------------------------------------------------
 # Blocks (apply)
 # ---------------------------------------------------------------------------
-def _mixer(cfg: ModelCfg, lp: Params, h: torch.Tensor, impl: str):
+def _mixer(cfg: ModelCfg, lp: Params, h: torch.Tensor, impl: str,
+           window: int | None):
     """The layer's sequence mixer on its normed input: the rwkv6 time-mix
-    (ssm) or causal self-attention (dense), through `ssm.rwkv6_seq` /
-    `layers.self_attention` with ``impl``.  Returns (out, what the decode
-    cache keeps of the layer: the time-mix's final state, or (k, v))."""
+    (ssm; the attention impls "naive" / "chunked" / "flash" run its plain
+    scan) or causal self-attention under ``window`` (dense), through
+    `ssm.rwkv6_seq` / `layers.self_attention` with ``impl``.  Returns (out,
+    what the decode cache keeps of the layer: the time-mix's final state, or
+    (k, v))."""
     if cfg.family == "ssm":
+        if impl in ("naive", "chunked", "flash"):
+            impl = "torch"
         return S.rwkv6_seq(_sub(lp, "mix"), cfg.rwkv_cfg(), h, impl=impl,
                            return_state=True)
     ap = _sub(lp, "attn")
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     q, k, v = L._qkv(ap, cfg.attn_cfg(), h, positions)
-    out = L.self_attention(q, k, v, causal=True, impl=impl)
+    out = L.self_attention(q, k, v, causal=True, window=window, impl=impl,
+                           chunk=cfg.attn_chunk)
     return out.reshape(b, s, -1) @ ap["wo"], (k, v)
 
 
 def _block(cfg: ModelCfg, lp: Params, x: torch.Tensor, *, impl: str = "auto",
-           return_cache: bool = False):
+           window: int | None = None, return_cache: bool = False):
     """One layer: x + mixer(ln1 x), then + mlp(ln2 x).  Returns x, or with
     ``return_cache`` (x, what the decode cache keeps of the layer).  The
     normed input is passed straight to `_mixer`, so it is freed before the
     MLP runs."""
     norm = _norm(cfg)
-    mix, kept = _mixer(cfg, lp, norm(_sub(lp, "ln1"), x), impl)
+    mix, kept = _mixer(cfg, lp, norm(_sub(lp, "ln1"), x), impl, window)
     x = x + mix
     x = x + L.mlp(_sub(lp, "mlp"), norm(_sub(lp, "ln2"), x), cfg.act)
     return (x, kept) if return_cache else x
 
 
-def _remat_block(cfg: ModelCfg, impl: str, names: list, x: torch.Tensor,
-                 *leaves: torch.Tensor) -> torch.Tensor:
+def _remat_block(cfg: ModelCfg, impl: str, window: int | None, names: list,
+                 x: torch.Tensor, *leaves: torch.Tensor) -> torch.Tensor:
     """`_block` with the layer's leaves as positional tensors, the form
     `torch.utils.checkpoint` records."""
-    return _block(cfg, dict(zip(names, leaves)), x, impl=impl)
+    return _block(cfg, dict(zip(names, leaves)), x, impl=impl, window=window)
 
 
 def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
@@ -234,23 +243,29 @@ def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
 
     ``return_hidden`` gives the final normed hidden states (B, S, D)
     instead of logits.  ``impl`` selects the time-mix scan or the attention
-    (see `_block`); training callers pass `train_impl` (on the card
-    "auto" reaches K2 / K3, which refuse autograd).  With ``cfg.remat``
-    and grad mode on, each layer is checkpointed (recomputed in the
-    backward), as the reference wraps its layer scan in `jax.checkpoint`;
-    the values are the same.  Under a `torch.func` transform (the
-    simulator's vmapped gradient) layers are not checkpointed: it takes no
-    saved-tensor hooks."""
-    check_family(cfg, window)
+    (see `layers.self_attention`); training callers pass `train_impl` (on
+    the card "auto" reaches K2 / K3, which refuse autograd).  ``window``
+    masks keys ``window`` or more positions back.  Gemma's embeddings are
+    scaled by sqrt(d_model), in ``cfg.dtype`` (the reference multiplies by
+    a numpy float64 scalar, which promotes bfloat16 activations to float32
+    for the rest of its forward; ROADMAP Queue 3).  With ``cfg.remat`` and
+    grad mode on, each layer is checkpointed (recomputed in the backward),
+    as the reference wraps its layer scan in `jax.checkpoint`; the values
+    are the same.  Under a `torch.func` transform (the simulator's vmapped
+    gradient) layers are not checkpointed: it takes no saved-tensor
+    hooks."""
+    check_family(cfg)
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
+    if cfg.family == "dense" and cfg.name.startswith("gemma"):
+        x = x * math.sqrt(cfg.d_model)
     remat = (cfg.remat and torch.is_grad_enabled()
              and not func_transform_active())
     for lp in layer_params(params, cfg.n_layers):
         if remat:
-            x = checkpoint(_remat_block, cfg, impl, list(lp), x,
+            x = checkpoint(_remat_block, cfg, impl, window, list(lp), x,
                            *lp.values(), use_reentrant=False)
         else:
-            x = _block(cfg, lp, x, impl=impl)
+            x = _block(cfg, lp, x, impl=impl, window=window)
     x = _norm(cfg)(_sub(params, "final_norm"), x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
@@ -267,13 +282,21 @@ def prefill(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
     `serve_step`).  The cache holds, in ``cfg.dtype``, each layer's final
     time-mix state ``rwkv_state`` (n_layers, B, H, Dh, Dh) for the ssm
     family, and each layer's attention keys and values ``k`` / ``v``
-    (n_layers, B, S, KV, Dh) for the dense family.  ``window`` bounds
-    attention caches; on the dense family it raises (not ported)."""
-    check_family(cfg, window)
+    (n_layers, B, S, KV, Dh) for the dense family.  ``window`` masks
+    attention to keys ``window`` or more positions back (K2 takes it on the
+    card).  Where the port runs plain PyTorch (``impl="torch"``, or
+    ``"auto"`` on the CPU) it runs the reference's prefill attention:
+    `layers._sdpa_chunked` under ``cfg.attn_impl == "chunked"``, else the
+    masked `_sdpa`."""
+    check_family(cfg)
+    if cfg.attn_impl == "chunked" and (
+            impl == "torch" or (impl == "auto" and tokens.device.type != "cuda")):
+        impl = "chunked"
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
     kept = []
     for lp in layer_params(params, cfg.n_layers):
-        x, entry = _block(cfg, lp, x, impl=impl, return_cache=True)
+        x, entry = _block(cfg, lp, x, impl=impl, window=window,
+                          return_cache=True)
         # A float32 time-mix state is cast as it comes, not held to the end;
         # k and v are already in cfg.dtype.
         kept.append(entry.to(cfg.dtype) if cfg.family == "ssm" else entry)
@@ -288,26 +311,34 @@ def prefill(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, *,
                window: int | None = None, device=None) -> Params:
     """Decode cache, zeros: one recurrent state per layer (ssm), or
-    attention keys and values (n_layers, B, max_len, KV, Dh) (dense)."""
-    check_family(cfg, window)
+    attention keys and values (n_layers, B, T, KV, Dh) (dense), T =
+    min(max_len, window): a windowed cache wraps (`serve_step`'s ``pos`` is
+    the absolute position mod T)."""
+    check_family(cfg)
     if cfg.family == "ssm":
         rc = cfg.rwkv_cfg()
         return {"rwkv_state": torch.zeros(
             (cfg.n_layers, batch, rc.n_heads, rc.head_dim, rc.head_dim),
             dtype=cfg.dtype, device=device)}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    t = max_len if window is None else min(max_len, window)
+    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
 def serve_step(params: Params, cfg: ModelCfg, cache: Params,
-               token: torch.Tensor, pos, *, window: int | None = None):
+               token: torch.Tensor, pos, *, window: int | None = None,
+               abs_pos=None, full_cache: bool = False):
     """One decode step.  token: (B, 1).  Returns (logits (B, 1, V) float32,
-    new cache).  ``pos`` is the token's position: where the dense family
-    writes its keys and values, which it does in place (see
-    `layers.decode_attention`); the returned cache holds the same tensors.
-    The ssm family returns new states.  Decode runs in plain PyTorch."""
-    check_family(cfg, window)
+    new cache).  ``pos`` is the cache slot the dense family writes the
+    token's keys and values to, in place (see `layers.decode_attention`;
+    the returned cache holds the same tensors): its position, or with a
+    wrapped sliding-window cache its absolute position mod the cache's
+    length.  ``abs_pos``: the absolute position for RoPE (default ``pos``).
+    ``full_cache``: every slot holds a key of the window (the wrapped
+    cache's steady state), so none is masked.  The ssm family returns new
+    states.  Decode runs in plain PyTorch."""
+    check_family(cfg)
     norm = _norm(cfg)
     x = L.embed(_sub(params, "embed"), token).to(cfg.dtype)
     states = []
@@ -319,8 +350,9 @@ def serve_step(params: Params, cfg: ModelCfg, cache: Params,
             states.append(st)
         else:
             mix, _ = L.decode_attention(
-                _sub(lp, "attn"), cfg.attn_cfg(), h,
-                {"k": cache["k"][i], "v": cache["v"][i]}, pos)
+                _sub(lp, "attn"), cfg.attn_cfg(window=window), h,
+                {"k": cache["k"][i], "v": cache["v"][i]}, pos,
+                rope_pos=abs_pos, full_cache=full_cache)
         x = x + mix
         x = x + L.mlp(_sub(lp, "mlp"), norm(_sub(lp, "ln2"), x), cfg.act)
     x = norm(_sub(params, "final_norm"), x)

@@ -168,23 +168,22 @@ def test_attention_kernel_impl_reaches_the_plain_k2(name, monkeypatch):
     plain = ref.flash_attention_ref
 
     def counted(*args, **kw):
-        calls.append(kw["causal"])
+        calls.append((kw["causal"], kw["window"]))
         return plain(*args, **kw)
 
     monkeypatch.setattr(ref, "flash_attention_ref", counted)
-    for causal in (True, False):
-        jcfg, cfg = _cfgs(name, causal=causal)
+    for causal, window in ((True, None), (False, None), (True, 4),
+                           (False, 9)):
+        jcfg, cfg = _cfgs(name, causal=causal, sliding_window=window)
         jp, tp = _params(jcfg, jnp.float32, seed=4)
         x = np.random.default_rng(4).normal(
             size=(2, 48, cfg.d_model)).astype(np.float32)
         got = layers.attention(tp, cfg, torch.from_numpy(x), impl="kernel")
         _close(got, jL.attention(jp, jcfg, jnp.asarray(x)), "float32")
-    assert calls == [True, False]
-    cfg = _cfgs(name, sliding_window=4)[1]
-    with pytest.raises(NotImplementedError, match="no sliding window"):
-        layers.attention(tp, cfg, torch.from_numpy(x), impl="kernel")
+    # The window reaches K2's entry point (and so the kernel on the card).
+    assert calls == [(True, None), (False, None), (True, 4), (False, 9)]
     with pytest.raises(ValueError, match="impl must be one of"):
-        layers.attention(tp, cfg, torch.from_numpy(x), impl="flash")
+        layers.attention(tp, cfg, torch.from_numpy(x), impl="pallas")
 
 
 @pytest.mark.parametrize("dtype", sorted(DT))

@@ -546,6 +546,143 @@ def test_k2_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     assert ops.flash_attention(q, k, v, scale=1.0).shape == q.shape
 
 
+# Head dim 256 (gemma-7b's; the first body in both dtypes): a ragged S,
+# grouped and multi-head.
+K2_D256_SHAPES = [(2, 200, 4, 2, 256), (1, 333, 8, 8, 256), (1, 64, 2, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K2_D256_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k2_cuda_head_dim_256_matches_plain(cuda_device, shape, dtype,
+                                            causal):
+    q, k, v = _k2_inputs(cuda_device, shape, getattr(torch, dtype),
+                         seed=sum(shape))
+    want = ref.flash_attention_ref(q, k, v, scale=0.0625, causal=causal)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, scale=0.0625, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert flash_attention.body(q.dtype, 256) == "simt"
+    _k2_close(got, want, dtype)
+
+
+# Windows at D = 64 and 128 (the Hopper body in bf16) and 256 (the first
+# body): one key, below one tile, not a multiple of 128, 512, and S or more.
+K2_WINDOW_CASES = [(d, w) for d in (64, 128, 256)
+                   for w in (1, 40, 300, 512, 700, 5000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,window", K2_WINDOW_CASES,
+                         ids=lambda c: str(c))
+def test_k2_cuda_window_matches_plain(cuda_device, d, window, dtype, causal):
+    """K2 under a sliding window against its plain version; a window of S
+    (700) or more gives what no window gives, bit for bit."""
+    q, k, v = _k2_inputs(cuda_device, (2, 700, 8, 2, d), getattr(torch, dtype),
+                         seed=d + window)
+    scale = d ** -0.5
+    want = ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                   window=window)
+    got = ops.flash_attention(q, k, v, scale=scale, causal=causal,
+                              window=window)
+    _k2_close(got, want, dtype)
+    if window >= 700:
+        assert torch.equal(got, ops.flash_attention(q, k, v, scale=scale,
+                                                    causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [300, 512])
+def test_k2_cuda_lazy_softmax_redoes_under_a_window(cuda_device, window):
+    """Rows that grow past the lazy softmax's reference max inside their
+    window: the Hopper body's redo and the window's exact edge tiles
+    together, held to the plain version."""
+    q, k, v, scale = chip_smoke.k2_inputs(
+        (1, 1100, 16, 2, 128), torch.bfloat16, cuda_device, kind="growth",
+        causal=True, seed=6, window=window)
+    assert chip_smoke.k2_lazy_redos(q, k, scale, True, window=window) > 0
+    want = ref.flash_attention_ref(q, k, v, scale=scale, window=window)
+    _k2_close(ops.flash_attention(q, k, v, scale=scale, window=window), want,
+              "bfloat16")
+
+
+@pytest.mark.cuda
+def test_k2_cuda_window_refused_below_one(cuda_device):
+    q, k, v = _k2_inputs(cuda_device, (1, 16, 4, 2, 32))
+    with pytest.raises(ValueError, match="window must be a positive"):
+        ops.flash_attention(q, k, v, scale=1.0, window=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "starcoder2-3b", "gemma-7b"])
+def test_dense_zoo_smoke_prefill_on_the_card_matches_the_cpu(cuda_device,
+                                                             arch):
+    """Each new dense config's float32 smoke prefill, with and without a
+    window, on the card (K2 once a layer) against the CPU's plain path."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import registry
+
+    cfg = cfgbase.smoke_variant(cfgbase.get(arch))
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    for window in (None, 37):
+        want, wcache = bundle.prefill_step(params, {"tokens": tokens},
+                                           window=window, device="cpu")
+        before = ops.LAUNCHES["flash_attention"]
+        got, cache = bundle.prefill_step(
+            {k: v.to(cuda_device) for k, v in params.items()},
+            {"tokens": tokens.to(cuda_device)}, window=window,
+            device=cuda_device)
+        assert ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(cache["v"].cpu().numpy(),
+                                   wcache["v"].numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wrapped_decode_matches_unwrapped_on_the_card(cuda_device):
+    """The float32 smoke llama3 decoding 2 W + 8 steps into a wrapped cache
+    of W = 16 slots against the unwrapped windowed decode on the card, and
+    the card's wrapped run against the CPU's: the same greedy ids, logits
+    within 1e-4."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import registry
+
+    cfg = cfgbase.smoke_variant(cfgbase.get("llama3-8b"))
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    w, n = 16, 40
+
+    def run(dev, wrapped):
+        p = {k: v.to(dev) for k, v in params.items()}
+        cache = bundle.init_cache(3, n, window=w if wrapped else None,
+                                  device=dev)
+        tok = torch.arange(3, device=dev)[:, None] + 5
+        out = []
+        for a in range(n):
+            kw = (dict(abs_pos=a, full_cache=a >= w) if wrapped else {})
+            logits, cache = bundle.serve_step(p, cache, tok,
+                                              a % w if wrapped else a,
+                                              window=w, device=dev, **kw)
+            out.append(logits[:, -1].cpu())
+            tok = logits[:, -1].argmax(-1)[:, None]
+        return torch.stack(out)
+
+    wrapped = run(cuda_device, True)
+    for other in (run(cuda_device, False), run(torch.device("cpu"), True)):
+        assert torch.equal(wrapped.argmax(-1), other.argmax(-1))
+        np.testing.assert_allclose(wrapped.numpy(), other.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_attention_auto_runs_the_kernel_on_the_card(cuda_device):
     cfg = layers.AttnCfg(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,

@@ -96,7 +96,10 @@ def test_k2_entry_point_device_rule_and_shapes(monkeypatch):
         ops.flash_attention(q[:, :, :3], k, v, scale=1.0, device="cpu")
     with pytest.raises(ValueError, match="q must be"):
         ops.flash_attention(q[0], k, v, scale=1.0, device="cpu")
-    assert fa.HEAD_DIMS == (16, 32, 64, 128)
+    assert fa.HEAD_DIMS == (16, 32, 64, 128, 256)
+    for bad in (0, -3, 2.5, True):
+        with pytest.raises(ValueError, match="window must be a positive"):
+            ops.flash_attention(q, k, v, scale=1.0, window=bad, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ops.flash_attention(q, k, v, scale=1.0)

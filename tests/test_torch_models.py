@@ -134,7 +134,8 @@ def _same_cfg(cfg, jcfg):
 
 
 def test_configs_match_reference_field_for_field():
-    for arch in ("rwkv6-1.6b", "rwkv6_1_6b", "qwen2.5-3b", "qwen2_5_3b"):
+    for arch in ("rwkv6-1.6b", "rwkv6_1_6b", "qwen2.5-3b", "qwen2_5_3b",
+                 "llama3-8b", "starcoder2-3b", "gemma-7b"):
         _same_cfg(base.get(arch), jbase.get(arch))
         _same_cfg(base.smoke_variant(base.get(arch)),
                   jbase.smoke_variant(jbase.get(arch)))
@@ -144,7 +145,7 @@ def test_configs_match_reference_field_for_field():
             smoke.vocab) == (2, 256, 4, 64, 512)
     assert base.ALIASES == jbase.ALIASES and base.ARCH_IDS == jbase.ARCH_IDS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.get("llama3-8b")
+        base.get("granite-moe-1b-a400m")
     with pytest.raises(ValueError, match="unknown architecture"):
         base.get("gpt-2")
     moe = dataclasses.replace(smoke, family="moe")
@@ -418,15 +419,23 @@ def test_dense_window_raises_and_cache_shapes():
     cache = bundle.init_cache(2, 16, device="cpu")
     assert tuple(cache["k"].shape) == (2, 2, 16, 1, 64)
     assert cache["v"].dtype == torch.float32 and not cache["v"].any()
-    for call in (
-            lambda: bundle.prefill_step(params, {"tokens": tokens}, window=4,
-                                        device="cpu"),
-            lambda: bundle.serve_step(params, cache, tokens[:, :1], 8,
-                                      window=4, device="cpu"),
-            lambda: bundle.init_cache(2, 16, window=4, device="cpu"),
-            lambda: transformer.forward(params, cfg, tokens, window=4)):
-        with pytest.raises(NotImplementedError, match="sliding window"):
-            call()
+    # A window bounds the cache (it wraps) and takes every dense entry point.
+    for window, slots in ((4, 4), (16, 16), (40, 16)):
+        wc = bundle.init_cache(2, 16, window=window, device="cpu")
+        assert tuple(wc["k"].shape) == (2, 2, slots, 1, 64)
+    logits, _ = bundle.prefill_step(params, {"tokens": tokens}, window=4,
+                                    device="cpu")
+    assert tuple(logits.shape) == (2, cfg.vocab)
+    step, _ = bundle.serve_step(params, cache, tokens[:, :1], 8, window=4,
+                                device="cpu")
+    assert tuple(step.shape) == (2, 1, cfg.vocab)
+    assert transformer.forward(params, cfg, tokens, window=4)[0].shape[:2] \
+        == (2, 8)
+    # The families not ported still raise, with or without a window.
+    for family in ("moe", "hybrid"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            transformer.init_cache(dataclasses.replace(cfg, family=family), 2,
+                                   16, window=4)
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +482,8 @@ def test_sim_model_forward_matches_reference(name):
 def test_sim_model_unported_families_raise():
     for name in registry.sim_models():
         arch = name.split(":", 1)[1] if name.startswith("nwp:") else None
-        if arch in (None, "qwen2_5_3b", "rwkv6_1_6b"):
+        if arch in (None, "qwen2_5_3b", "rwkv6_1_6b", "llama3_8b",
+                    "starcoder2_3b", "gemma_7b"):
             continue
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             registry.sim_model(name)

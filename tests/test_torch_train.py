@@ -206,8 +206,11 @@ def test_train_impl_is_the_reference_training_forward():
     cfg = base.smoke_variant(base.get("qwen2.5-3b"))
     assert cfg.attn_impl == "naive"
     assert transformer.train_impl(cfg) == "torch"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        transformer.train_impl(dataclasses.replace(cfg, attn_impl="chunked"))
+    for name in ("chunked", "flash"):
+        assert transformer.train_impl(
+            dataclasses.replace(cfg, attn_impl=name)) == name
+    with pytest.raises(ValueError, match="attn_impl must be one of"):
+        transformer.train_impl(dataclasses.replace(cfg, attn_impl="pallas"))
 
 
 # ---------------------------------------------------------------------------
