@@ -224,6 +224,23 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  same weights and batches, 3 steps each, losses within
                  0.15 of naive's, no K2 or K3 launch; a float32 smoke
                  flash `train_step` card vs CPU.
+ 22. moe-hybrid — (a) granite-moe-1b-a400m (32 experts top-8) and
+                 hymba-1.5b (attention beside a selective SSM) through
+                 `launch.serve.serve` at full width and depth as in phase
+                 20: K2 24 and 32 launches (GQA 2 and 5), none in decode;
+                 each prefill held to impl="torch" (`serve_vs_plain`; the
+                 MoE's paths routed as the float32 impl="torch" run routes,
+                 `MoeRoutes`); one profiled prefill and decode step each,
+                 split into K2, the MoE's route / dispatch / experts /
+                 combine and the SSM's terms / scan (`PROFILE_PARTS`);
+                 (b) `launch.train.main` on both at full width and depth,
+                 3 AdamW steps of 8 x 128 tokens: loss, aux, s/step,
+                 tokens/s, peak memory, no K2 or K3 launch; (c) the float32
+                 smoke variants of both and of dbrx-132b (~262 GB in bf16,
+                 over the card) served and one `train_step` each, card
+                 against the CPU; (d) phase 18's NWP grid with
+                 `nwp:granite_moe_1b_a400m` and `nwp:hymba_1_5b` clients,
+                 3 rounds, K1 once a round (B = 2).
 
 It then prints the card line, one JSON line describing every ported kernel
 (K2's with its launches by path and its time at each dense prefill shape),
@@ -262,7 +279,8 @@ BF16_FLOP_PER_S = 989e12
 # (`main` checks that they launch no other): ResNet-18, ResNet-56 and the
 # CharRNN at seg 1024, the NWP grid's R&A group (2 seeds, seg 64), and
 # `launch.train --dfl`'s 4 smoke qwen2.5 clients (N = 4: its own
-# register-body instantiation).
+# register-body instantiation); then phase 22's NWP grids of the
+# `nwp:granite_moe_1b_a400m` and `nwp:hymba_1_5b` clients (2 seeds, seg 64).
 K1_SHAPES = [
     ("slice", dict(b=None, n=10, l=412, k=1024)),
     ("batched_primeL", dict(b=4, n=10, l=1181, k=256)),
@@ -273,6 +291,8 @@ K1_SHAPES = [
     ("charrnn", dict(b=None, n=10, l=802, k=1024)),
     ("nwp_grid", dict(b=2, n=10, l=371, k=64)),
     ("train_dfl", dict(b=None, n=4, l=1218, k=1024)),
+    ("nwp_granite", dict(b=2, n=10, l=55708, k=64)),
+    ("nwp_hymba", dict(b=2, n=10, l=24333, k=64)),
 ]
 F32_TOL = 1e-5      # absolute; float32 sums in another order
 BF16_TOL_ULP = 1.0  # bfloat16 spacing at the result's magnitude, + F32_TOL
@@ -304,7 +324,8 @@ K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
 # (`k2_lazy_redos` counts them).  Then the other dense serving
 # shapes (`K2_TIMED` times them): llama3-8b's, starcoder2-3b's and gemma-7b's
 # prefill (D = 256, the first body) and llama3-8b's under phase 21's window
-# of 512; D = 256 in float32 and bf16, causal and full, at a ragged S; and
+# of 512; phase 22's prefills, granite-moe-1b-a400m's (GQA 2) and
+# hymba-1.5b's (GQA 5, 25 heads); D = 256 in float32 and bf16, causal and full, at a ragged S; and
 # windows at D = 64, 128 and 256 over S = 2048 (Hopper body at 64 / 128 in
 # bf16, the first body at 256 and in float32): below one tile (40), not a
 # multiple of 128 (300), phase 21's 512, and S or more, which must equal no
@@ -342,6 +363,10 @@ K2_CASES = [
      None),
     ("llama_window512", (8, 2048, 32, 8, 128), torch.bfloat16, True, "randn",
      512),
+    ("granite_serve", (8, 2048, 16, 8, 64), torch.bfloat16, True, "randn",
+     None),
+    ("hymba_serve", (8, 2048, 25, 5, 64), torch.bfloat16, True, "randn",
+     None),
     *((f"d256_2x333{'' if causal else '_full'}", (2, 333, 4, 2, 256), dt,
        causal, "randn", None)
       for dt in (torch.float32, torch.bfloat16) for causal in (True, False)),
@@ -357,9 +382,10 @@ K2_CASES = [
      512),
 ]
 # The cases timed with the L2 cold and warm beside SDPA and the bound: the
-# dense prefills at full width.
+# dense prefills at full width, then phase 22's: granite-moe-1b-a400m's
+# (GQA 2 at D = 64) and hymba-1.5b's (25 heads over 5 kv heads, GQA 5).
 K2_TIMED = ("serve", "llama_serve", "starcoder_serve", "gemma_serve",
-            "llama_window512")
+            "llama_window512", "granite_serve", "hymba_serve")
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # absolute
 # The same errors against each output row's own size (`k2_row_err`): late
 # causal rows average many values and are small, so the absolute limit
@@ -381,6 +407,16 @@ SERVE_STATE_TOL = 1e-4  # bf16 layers' caches: time-mix states (float32),
 SERVE_BF16_RATIO = 1.1  # bf16 end to end: kernel's gap to the float32 run
                         # at most this times impl="torch"'s (read 0.99-1.01
                         # for rwkv6, 0.96 for qwen2.5)
+SMOKE_TOL = 1e-4        # float32 smoke models, card vs CPU (abs and rel;
+                        # `serve_reference`)
+SERVE_SERVED_TOL = 0.0  # MoE: the served prefill vs the same kernel path
+                        # run layer by layer (the same operations; read 0)
+SERVE_MOE_OWN_RATIO = 1.1  # MoE, each path by its own routing: the served
+                           # run's flips and cache gap to the float32 run at
+                           # most this times impl="torch"'s (read 0.96-1.00
+                           # over seeds 0-2)
+SERVE_MOE_LOGITS_RATIO = 1.25  # the same for the last position's logits,
+                               # 8 rows that flips move more (read 1.01-1.14)
 SLICE_PROTOCOLS = [("ra", "ra_normalized"), ("ra", "substitution"),
                    ("aayg", "ra_normalized"), ("cfl", "ra_normalized"),
                    ("ideal_cfl", "ra_normalized")]
@@ -483,6 +519,28 @@ WRAP_STEPS = 2 * WRAP_WINDOW + 32
 TRAIN_ATTN_DEPTH = 4
 TRAIN_ATTN_TOKENS = (8, 512)
 TRAIN_ATTN_CHUNK = 128
+# Phase 22 (the MoE and hybrid families): the two served (SERVE_SHAPE) and
+# trained (TRAIN_FULL_STEPS of 8 x 128 tokens at TRAIN_FULL_LR) at full
+# width and depth; dbrx-132b (~262 GB of bf16 weights, over the card's
+# 80 GB) only as its float32 smoke variant, card against the CPU, beside
+# the other two's; phase 18's NWP grid with each family's sim model as the
+# clients, for MOE_HYBRID_NWP_ROUNDS rounds (K1 once a round, B = 2).
+MOE_HYBRID = ("granite-moe-1b-a400m", "hymba-1.5b")
+MOE_HYBRID_SMOKE = ("granite-moe-1b-a400m", "hymba-1.5b", "dbrx-132b")
+MOE_HYBRID_NWP = ("nwp:granite_moe_1b_a400m", "nwp:hymba_1_5b")
+MOE_HYBRID_NWP_ROUNDS = 3
+# `profile_serve`'s split of the MoE and SSM time: (module, function,
+# the `record_function` range it runs in), as `_ranged_parts` takes them.
+_MOE, _SSM = "repro_torch.models.moe", "repro_torch.models.ssm"
+PROFILE_PARTS = {
+    "moe": ((_MOE, "moe_layer", "moe:layer"), (_MOE, "route", "moe:route"),
+            (_MOE, "dispatch", "moe:dispatch"),
+            (_MOE, "experts", "moe:experts"),
+            (_MOE, "combine", "moe:combine")),
+    "hybrid": ((_SSM, "ssm_seq", "ssm:seq"), (_SSM, "ssm_step", "ssm:step"),
+               (_SSM, "_ssm_terms", "ssm:terms"),
+               (_SSM, "ssm_scan", "ssm:scan")),
+}
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -877,6 +935,33 @@ def _profiled(fn, ranges=()):
 
 
 @contextlib.contextmanager
+def _ranged_parts(parts):
+    """Inside: each function named by ``parts``, triples (module name,
+    function name, label), runs in a `record_function` range ``label``
+    (for callers that look it up in its module).  Yields the labels."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    saved = []
+    for mod_name, fn_name, label in parts:
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, fn_name)
+
+        def ranged(*args, _orig=orig, _label=label, **kwargs):
+            with record_function(_label):
+                return _orig(*args, **kwargs)
+
+        saved.append((mod, fn_name, orig))
+        setattr(mod, fn_name, ranged)
+    try:
+        yield tuple(label for _, _, label in parts)
+    finally:
+        for mod, fn_name, orig in reversed(saved):
+            setattr(mod, fn_name, orig)
+
+
+@contextlib.contextmanager
 def _ranged_round(prefix: str):
     """Inside: each gradient that `torch.func.grad` binds (a simulator
     binds its gradient when it is built) runs its calls in a
@@ -884,9 +969,7 @@ def _ranged_round(prefix: str):
     call (the exchange, K1 in it) in ``<prefix>:exchange``."""
     from torch.profiler import record_function
 
-    from repro_torch.core import protocols
-
-    orig_grad, orig_dispatch = torch.func.grad, protocols.dispatch_round_seg
+    orig_grad = torch.func.grad
 
     def ranged_grad(fn, *args, **kwargs):
         inner = orig_grad(fn, *args, **kwargs)
@@ -896,17 +979,13 @@ def _ranged_round(prefix: str):
                 return inner(*a, **k)
         return call
 
-    def ranged_dispatch(*args, **kwargs):
-        with record_function(f"{prefix}:exchange"):
-            return orig_dispatch(*args, **kwargs)
-
     torch.func.grad = ranged_grad
-    protocols.dispatch_round_seg = ranged_dispatch
     try:
-        yield
+        with _ranged_parts((("repro_torch.core.protocols",
+                             "dispatch_round_seg", f"{prefix}:exchange"),)):
+            yield
     finally:
         torch.func.grad = orig_grad
-        protocols.dispatch_round_seg = orig_dispatch
 
 
 def profile_round(sim, scenario):
@@ -1025,36 +1104,18 @@ def slice_codec(dev, sync, **inputs):
 def profile_codec_round(sim, scenario):
     """Phase 7, last: one R&A round under the quantizer, profiled, with the
     codec and the exchange in named ranges."""
-    from torch.profiler import record_function
-
-    from repro_torch.core import compression, protocols
-
-    names = {"encode": "slice-codec:encode",
-             "dispatch_round_seg": "slice-codec:exchange"}
-    mods = {"encode": compression, "dispatch_round_seg": protocols}
-    originals = {fn: getattr(mods[fn], fn) for fn in names}
-
-    def ranged(fn):
-        def inner(*args, **kwargs):
-            with record_function(names[fn]):
-                return originals[fn](*args, **kwargs)
-        return inner
-
     state = sim.init_scan(scenario)
-    for fn in names:
-        setattr(mods[fn], fn, ranged(fn))
-    try:
+    with _ranged_parts(
+            (("repro_torch.core.compression", "encode", "slice-codec:encode"),
+             ("repro_torch.core.protocols", "dispatch_round_seg",
+              "slice-codec:exchange"))) as ranges:
         wall_ms, events, spans = _profiled(
-            lambda: sim.advance_chunk(state, scenario),
-            ranges=tuple(names.values()))
-    finally:
-        for fn, orig in originals.items():
-            setattr(mods[fn], fn, orig)
+            lambda: sim.advance_chunk(state, scenario), ranges=ranges)
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
     k1_us = sum(ev.self_device_time_total for ev in k1)
-    codec_ms = spans[names["encode"]] / 1e3
-    exch_ms = spans[names["dispatch_round_seg"]] / 1e3
+    codec_ms = spans["slice-codec:encode"] / 1e3
+    exch_ms = spans["slice-codec:exchange"] / 1e3
     if dev_ms <= 0 or codec_ms <= 0:
         print(f"[slice-codec] profiled ra+quant round: wall {wall_ms:.2f} ms,"
               f" device split not measured (device kernels {dev_ms:.3f} ms,"
@@ -1646,6 +1707,13 @@ def serve_full(dev, tag, arch=None, window=None):
     else:
         heads = (f"{cfg.n_heads} heads and {cfg.n_kv_heads} kv heads of "
                  f"{cfg.hd}")
+    if cfg.family == "moe":
+        heads += (f", {cfg.n_experts} experts top-{cfg.top_k} (capacity "
+                  f"factor {cfg.capacity_factor:g}, groups of "
+                  f"{cfg.moe_group_size})")
+    elif cfg.family == "hybrid":
+        heads += (f", SSM d_inner {cfg.ssm_cfg().d_inner} d_state "
+                  f"{cfg.d_state}")
     print(f"[{tag}] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
           f"d {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
           f"{cfg.act}, {str(cfg.dtype)[6:]}); batch {b} x prompt "
@@ -1692,6 +1760,63 @@ def _rel_l2(got, want):
     return math.sqrt(num / den)
 
 
+class MoeRoutes:
+    """`models.moe.route` as `serve_gaps` runs it.  Routing is a top-k: a
+    last-bit difference in the router's input can swap a token's k-th
+    expert for its (k+1)-th and move the capacity drops behind it, a jump
+    no limit on the two paths' gap could hold.  So under ``mode("record")``
+    a call routes as usual and keeps its expert choices; under any other
+    label a call counts the tokens whose own top-k set differs from the
+    kept one (`flips` / `tokens` by label) and routes by the kept choices
+    with its own router probabilities (`moe.assign`: the same drops, gates
+    from its own input), or with ``own=True`` by its own choices, as
+    `moe.route` does."""
+
+    def __init__(self):
+        self.label = None
+        self.own = False
+        self.idx = None
+        self.flips = {}
+        self.tokens = {}
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.models import moe as M
+
+        orig = M.route
+
+        def route(params, cfg, xt, cap):
+            if self.label is None:
+                return orig(params, cfg, xt, cap)
+            if self.label == "record":
+                r = orig(params, cfg, xt, cap)
+                self.idx = r.idx
+                return r
+            probs = M.router_probs(params, xt)
+            own = M.top_k(probs, cfg.top_k)
+            differ = (own.sort(-1).values
+                      != self.idx.sort(-1).values).any(-1)
+            self.flips[self.label] = (self.flips.get(self.label, 0)
+                                      + int(differ.sum()))
+            self.tokens[self.label] = (self.tokens.get(self.label, 0)
+                                       + differ.numel())
+            return M.assign(probs, own if self.own else self.idx, cap)
+
+        M.route = route
+        try:
+            yield self
+        finally:
+            M.route = orig
+
+    @contextlib.contextmanager
+    def mode(self, label, own=False):
+        self.label, self.own = label, own
+        try:
+            yield
+        finally:
+            self.label, self.own = None, False
+
+
 def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
     """The serving prefill's precision, from the kernel path's bfloat16
     ``logits`` and ``cache`` (time-mix states, or K/V caches) for
@@ -1704,9 +1829,18 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
       * bf16_*_kernel / bf16_*_torch: each bfloat16 path's relative L2 gap
         to the float32 impl="torch" run, logits and all layers' caches.
 
-    Gaps named *_max are max |diff| over max |value|.  The four paths run
-    layer by layer side by side, each layer's float32 weights widened as it
-    comes and every cache compared and dropped at once, so that a model
+    Gaps named *_max are max |diff| over max |value|.  For the moe family
+    the paths above route each layer's tokens as the float32 impl="torch"
+    run routes them (`MoeRoutes`; ``routes`` counts, per path, the tokens
+    whose own choice differs), and a fifth path, the bfloat16 kernel path
+    end to end under that routing, stands in for the served ``logits``
+    and ``cache`` in bf16_*_kernel.  Two more bfloat16 paths route by
+    their own choices, as the served run does: the kernel path, which the
+    served run must equal (served_*_max), and impl="torch"; bf16_*_own_*
+    are their relative L2 gaps to the float32 run, the served run's
+    standing for the kernel's.  The paths run layer by layer side by side, each layer's float32
+    weights widened as it comes and every cache compared and dropped at
+    once, so that a model
     whose float32 weights and caches would not fit beside its bfloat16 ones
     (gemma-7b: 34 GB and 15 GB a cache set) is held the same way.  The
     launches of ``kernel`` this makes are not counted.
@@ -1719,31 +1853,61 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     names = list(cache)
     g = {"f32_cache_max": 0.0, "layer_out_max": 0.0, "layer_cache_max": 0.0}
-    sq = dict.fromkeys(("cache_kernel", "cache_torch", "cache_ref"), 0.0)
+    sq = dict.fromkeys(("cache_kernel", "cache_torch", "cache_own_kernel",
+                        "cache_own_torch", "cache_ref"), 0.0)
+    moe = cfg.family == "moe"
+    if moe:
+        g["served_cache_max"] = 0.0
+    routes = MoeRoutes()
 
     def entries(kept):
         return kept if isinstance(kept, tuple) else (kept,)
 
-    with torch.no_grad():
+    def routed(label, own=False):
+        return routes.mode(label, own) if moe else contextlib.nullcontext()
+
+    with torch.no_grad(), routes.installed():
         emb = layers.embed(T._sub(params, "embed"), prompt).to(cfg.dtype)
         x32k = x32t = emb.float()
-        xbt = xbk = emb
+        xbt = xbk = xbe = xok = xot = emb
         del emb
         for i, lp in enumerate(T.layer_params(params, cfg.n_layers)):
             lp32 = {k: v.float() for k, v in lp.items()}
-            x32k, ck32 = T._block(cfg32, lp32, x32k, impl="kernel",
-                                  window=window, return_cache=True)
-            x32t, ct32 = T._block(cfg32, lp32, x32t, impl="torch",
-                                  window=window, return_cache=True)
+            with routed("record"):
+                x32t, ct32, _ = T._block(cfg32, lp32, x32t, impl="torch",
+                                         window=window)
+            with routed("f32 kernel"):
+                x32k, ck32, _ = T._block(cfg32, lp32, x32k, impl="kernel",
+                                         window=window)
             del lp32
             ck32, ct32 = entries(ck32), entries(ct32)
             g["f32_cache_max"] = max(g["f32_cache_max"], *(
                 _rel_gap(a, b) for a, b in zip(ck32, ct32)))
             del ck32
-            xbt, cbt = T._block(cfg, lp, xbt, impl="torch", window=window,
-                                return_cache=True)
-            pairs = {"cache_kernel": [cache[n][i] for n in names],
-                     "cache_torch": [c.to(cfg.dtype) for c in entries(cbt)]}
+            with routed("bf16 torch"):
+                xbt, cbt, _ = T._block(cfg, lp, xbt, impl="torch",
+                                       window=window)
+            if moe:
+                with routed("bf16 kernel"):
+                    xbe, cbe, _ = T._block(cfg, lp, xbe, impl="kernel",
+                                           window=window)
+                served = [cache[n][i] for n in names]
+                with routed("bf16 kernel own", own=True):
+                    xok, cok, _ = T._block(cfg, lp, xok, impl="kernel",
+                                           window=window)
+                g["served_cache_max"] = max(g["served_cache_max"], *(
+                    _rel_gap(a, b) for a, b in zip(served, entries(cok))))
+                with routed("bf16 torch own", own=True):
+                    xot, cot, _ = T._block(cfg, lp, xot, impl="torch",
+                                           window=window)
+                pairs = {"cache_kernel": list(entries(cbe)),
+                         "cache_own_kernel": served,
+                         "cache_own_torch": [c.to(cfg.dtype)
+                                             for c in entries(cot)]}
+                del cbe, cok, cot
+            else:
+                pairs = {"cache_kernel": [cache[n][i] for n in names]}
+            pairs["cache_torch"] = [c.to(cfg.dtype) for c in entries(cbt)]
             for key, got in pairs.items():
                 for a, b in zip(got, ct32):
                     sq[key] += float(torch.linalg.vector_norm(
@@ -1751,10 +1915,12 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
             sq["cache_ref"] += sum(float(torch.linalg.vector_norm(b)) ** 2
                                    for b in ct32)
             del cbt, ct32, pairs
-            xk, ck = T._block(cfg, lp, xbk, impl="kernel", window=window,
-                              return_cache=True)
-            xt, ct = T._block(cfg, lp, xbk, impl="torch", window=window,
-                              return_cache=True)
+            with routed("bf16 layer kernel"):
+                xk, ck, _ = T._block(cfg, lp, xbk, impl="kernel",
+                                     window=window)
+            with routed("bf16 layer torch"):
+                xt, ct, _ = T._block(cfg, lp, xbk, impl="torch",
+                                     window=window)
             g["layer_out_max"] = max(g["layer_out_max"], _rel_gap(xk, xt))
             g["layer_cache_max"] = max(g["layer_cache_max"], *(
                 _rel_gap(a, b) for a, b in zip(entries(ck), entries(ct))))
@@ -1767,12 +1933,22 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
         lk32, lt32 = (layers.unembed(table, norm(final32, x[:, -1]))
                       for x in (x32k, x32t))
         lt = layers.unembed(table, norm(final, xbt[:, -1]))
-    check(ops.LAUNCHES[kernel] == launches + 2 * cfg.n_layers,
-          "the float32 and layer-by-layer prefills did not go through the "
-          "kernel once per layer each")
+        if moe:
+            lok, lot = (layers.unembed(table, norm(final, x[:, -1]))
+                        for x in (xok, xot))
+            g["served_logits_max"] = _rel_gap(logits, lok)
+            g["routes"] = {label: (routes.flips[label], routes.tokens[label])
+                           for label in routes.flips}
+            own = {"own_kernel": logits, "own_torch": lot}
+            logits = layers.unembed(table, norm(final, xbe[:, -1]))
+    passes = 4 if moe else 2
+    check(ops.LAUNCHES[kernel] == launches + passes * cfg.n_layers,
+          f"the {passes} kernel paths of serve_gaps did not go through the "
+          f"kernel once per layer each")
     g["f32_logits_max"] = _rel_gap(lk32, lt32)
     g["f32_same_ids"] = bool(torch.equal(lk32.argmax(-1), lt32.argmax(-1)))
-    for name, lg in (("kernel", logits), ("torch", lt)):
+    for name, lg in (("kernel", logits), ("torch", lt),
+                     *(own.items() if moe else ())):
         g[f"bf16_logits_{name}"] = _rel_l2([lg], [lt32])
         g[f"bf16_cache_{name}"] = math.sqrt(sq[f"cache_{name}"]
                                             / sq["cache_ref"])
@@ -1795,10 +1971,33 @@ def serve_vs_plain(cfg, res, tag, kernel, window=None):
     kernel path may be at most SERVE_BF16_RATIO times as far from it as the
     plain path is.  The float32 run and each bfloat16 layer hold the
     kernel to the plain path directly, at limits set from their readings.
+    A MoE's served run must equal its kernel path run layer by layer, and
+    routed by their own choices it may flip and stray at most
+    SERVE_MOE_OWN_RATIO (its logits SERVE_MOE_LOGITS_RATIO) times as much
+    as impl="torch" does.
     """
     g = serve_gaps(cfg, res.params, res.prompt, res.prefill_logits,
                    res.prefill_cache, kernel, window)
-    what = "state" if cfg.family == "ssm" else "K/V cache"
+    what = {"ssm": "state", "hybrid": "K/V cache and SSM state"}.get(
+        cfg.family, "K/V cache")
+    if "routes" in g:
+        flips = ", ".join(f"{label} {n} of {t}" for label, (n, t)
+                          in g["routes"].items())
+        print(f"[{tag}] MoE routing: tokens whose own top-{cfg.top_k} set "
+              f"differs from the float32 impl='torch' run's, summed over "
+              f"layers: {flips}")
+        print(f"[{tag}] MoE, each path by its own routing: the served run vs "
+              f"the bf16 kernel path layer by layer, logits gap/max "
+              f"{g['served_logits_max']:.3e}, worst layer K/V cache gap/max "
+              f"{g['served_cache_max']:.3e} (tol {SERVE_SERVED_TOL:g}); "
+              f"relative L2 gap to the float32 run: logits served "
+              f"{g['bf16_logits_own_kernel']:.3e} vs impl='torch' "
+              f"{g['bf16_logits_own_torch']:.3e}, K/V cache served "
+              f"{g['bf16_cache_own_kernel']:.3e} vs impl='torch' "
+              f"{g['bf16_cache_own_torch']:.3e} (served at most "
+              f"{SERVE_MOE_LOGITS_RATIO:g}x in logits, {SERVE_MOE_OWN_RATIO:g}x "
+              f"in cache and in flips); below, every path routes as the "
+              f"float32 impl='torch' run does")
     print(f"[{tag}] float32 activations, full width and depth: kernel vs "
           f"impl='torch' logits gap/max {g['f32_logits_max']:.3e} (tol "
           f"{SERVE_F32_TOL:g}), worst layer {what} gap/max "
@@ -1828,17 +2027,38 @@ def serve_vs_plain(cfg, res, tag, kernel, window=None):
           <= SERVE_BF16_RATIO * g["bf16_cache_torch"],
           "bfloat16 prefill: the kernel path is farther from the float32 "
           "run than impl='torch' allows")
+    if "routes" in g:
+        flips = {label: n for label, (n, _) in g["routes"].items()}
+        check(g["served_logits_max"] <= SERVE_SERVED_TOL
+              and g["served_cache_max"] <= SERVE_SERVED_TOL,
+              "MoE: the served prefill differs from the kernel path run "
+              "layer by layer")
+        check(flips["bf16 kernel own"]
+              <= SERVE_MOE_OWN_RATIO * flips["bf16 torch own"]
+              and g["bf16_logits_own_kernel"]
+              <= SERVE_MOE_LOGITS_RATIO * g["bf16_logits_own_torch"]
+              and g["bf16_cache_own_kernel"]
+              <= SERVE_MOE_OWN_RATIO * g["bf16_cache_own_torch"],
+              "MoE, own routing: the served run routes or lands farther from "
+              "the float32 run than impl='torch' allows")
 
 
-def serve_reference(dev, tag):
-    """Phase 10 / 14: the float32 smoke model on the card and on the CPU's
-    plain path, from the same weights and prompts."""
+def serve_reference(dev, tag, arch=None):
+    """Phase 10 / 14 / 22 (c): the float32 smoke variant of ``arch``
+    (default the tag's in `SERVE_PATHS`) through `launch.serve.serve`
+    (batch 4 x prompt 128 + 16) on the card, its kernel once a prefill
+    layer, and on the CPU's plain path from the same weights and prompts:
+    the same greedy ids, and the prefill logits and every cache leaf
+    within SMOKE_TOL."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
-    arch, kernel = SERVE_PATHS[tag]
+    if arch is None:
+        arch, kernel = SERVE_PATHS[tag]
+    else:
+        kernel = "flash_attention"
     cfg = base.smoke_variant(base.get(arch))
     params = registry.build(cfg).init(torch.Generator().manual_seed(0),
                                       device="cpu")
@@ -1851,20 +2071,30 @@ def serve_reference(dev, tag):
                       params={k: v.to(dev) for k, v in params.items()},
                       tokens=tokens.to(dev))
     check(ops.LAUNCHES[kernel] == before + cfg.n_layers,
-          "the card's smoke run did not go through the kernel")
+          f"{arch} smoke: the card's prefill did not launch {kernel} once a "
+          f"layer")
     ops.LAUNCHES[kernel] = before
-    gap = float((gpu.prefill_logits.cpu() - cpu.prefill_logits).abs().max())
-    same = bool(torch.equal(gpu.tokens, cpu.tokens))
-    print(f"[{tag}-reference] {cfg.name} float32, batch 4 x prompt 128 + 16: "
-          f"card ids == CPU plain-path ids: {same}; prefill logits gap "
-          f"{gap:.3e}")
+    wants = {"logits": cpu.prefill_logits, **cpu.prefill_cache}
+    gots = {"logits": gpu.prefill_logits, **gpu.prefill_cache}
+    worst = {name: float(((gots[name].cpu() - want).abs()
+                          - SMOKE_TOL * want.abs()).max())
+             for name, want in wants.items()}
+    same = bool(torch.equal(gpu.tokens.cpu(), cpu.tokens))
+    print(f"[{tag}-reference] {cfg.name} float32 ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}), batch 4 x prompt 128 + 16: card ids == CPU "
+          f"plain-path ids: {same}; max |gap| - {SMOKE_TOL:g} |CPU| by leaf "
+          f"(must be <= {SMOKE_TOL:g}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     check(same, f"greedy ids differ: card {gpu.tokens.tolist()} vs CPU "
           f"{cpu.tokens.tolist()}")
+    check(all(v <= SMOKE_TOL for v in worst.values()),
+          f"{arch} smoke: card vs CPU")
 
 
 def profile_serve(cfg, res, tag, kernel, window=None):
-    """Phase 11 / 15 / 20 / 21: one full-width prefill and one decode step
-    under torch.profiler (under ``window``)."""
+    """Phase 11 / 15 / 20 / 21 / 22: one full-width prefill and one decode
+    step under torch.profiler (under ``window``); for the moe and hybrid
+    families also the device time in each of `PROFILE_PARTS`' ranges."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
@@ -1877,7 +2107,9 @@ def profile_serve(cfg, res, tag, kernel, window=None):
                 res.params, {"tokens": res.prompt}, window=window)),
             ("decode step", lambda: bundle.serve_step(
                 res.params, cache, token, s, window=window))):
-        wall_ms, events = _profiled(fn)
+        with _ranged_parts(PROFILE_PARTS.get(cfg.family, ())) as ranges:
+            out = _profiled(fn, ranges=ranges)
+        wall_ms, events = out[:2]
         dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
         if dev_ms <= 0:
             print(f"[{tag}-profile] {what}: wall {wall_ms:.2f} ms, device "
@@ -1889,6 +2121,13 @@ def profile_serve(cfg, res, tag, kernel, window=None):
               f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}% of wall busy) "
               f"in {sum(ev.count for ev in events)} launches; {kernel} "
               f"{k_ms:.3f} ms = {100 * k_ms / dev_ms:.1f}% of device time")
+        if ranges:
+            spans = out[2]
+            print(f"[{tag}-profile] {what}: device ms by range (a range holds "
+                  f"those nested in it): " + ", ".join(
+                      f"{name} {spans[name] / 1e3:.3f} "
+                      f"({100 * spans[name] / 1e3 / dev_ms:.1f}%)"
+                      for name in ranges))
         for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:12]:
             print(f"[{tag}-profile]   {ev.self_device_time_total / 1e3:9.3f} "
                   f"ms x{ev.count:<5d} {ev.key[:100]}")
@@ -2599,12 +2838,14 @@ def paper_tasks_phase(dev, *, image_samples=PAPER_IMAGE_SAMPLES, hw=32,
     return total
 
 
-def nwp_grid_phase(dev, *, sequences=32, n_rounds=10):
-    """Phase 18, last: `registry.sim_model("transformer_nwp")` on the
-    non-iid char stream through `run_grid` with benchmarks/fig_nwp.py's
-    grid (R&A, C-FL and no exchange x 2 seeds on the Table-II network at
-    17 dBm and 25,000-bit packets; seq 16, seg 64, lr 0.5, 1 local epoch).
-    K1 launches once a round for the R&A group, at B = 2.  Returns them."""
+def nwp_grid_phase(dev, *, sequences=32, n_rounds=10,
+                   model_name="transformer_nwp", tag="paper-tasks"):
+    """Phase 18, last (and phase 22 (d)): `registry.sim_model(model_name)`
+    (default the tiny "transformer_nwp") on the non-iid char stream
+    through `run_grid` with benchmarks/fig_nwp.py's grid (R&A, C-FL and no
+    exchange x 2 seeds on the Table-II network at 17 dBm and 25,000-bit
+    packets; seq 16, seg 64, lr 0.5, 1 local epoch).  K1 launches once a
+    round for the R&A group, at B = 2.  Returns them."""
     import warnings
 
     from repro_torch.core import topology
@@ -2613,7 +2854,7 @@ def nwp_grid_phase(dev, *, sequences=32, n_rounds=10):
     from repro_torch.models import registry
 
     sync = _sync_of(dev)
-    model = registry.sim_model("transformer_nwp", vocab=90)
+    model = registry.sim_model(model_name, vocab=90)
     data = synthetic.fed_char_stream(
         n_clients=10, vocab=90, seq_len=16, sequences_per_client=sequences,
         test_sequences=2 * sequences, iid=False, seed=0)
@@ -2638,19 +2879,19 @@ def nwp_grid_phase(dev, *, sequences=32, n_rounds=10):
     secs = time.perf_counter() - t0
     launches, by_batch = _k1_counts()
     check(launches == n_rounds and by_batch == {2: n_rounds},
-          f"transformer_nwp grid: ra_aggregate launched {launches} times "
+          f"{model_name} grid: ra_aggregate launched {launches} times "
           f"(by batch size {by_batch}), expected {n_rounds} of B = 2")
     check(bool(np.isfinite(res.loss).all() and np.isfinite(res.acc).all()),
-          "transformer_nwp grid: non-finite values")
+          f"{model_name} grid: non-finite values")
     n_params = sum(v.numel() for v in
                    model.init_fn(torch.Generator().manual_seed(0)).values())
-    print(f"[paper-tasks] transformer_nwp ({n_params} parameters, "
+    print(f"[{tag}] {model_name} ({n_params} parameters, "
           f"{runner.sim.n_segments} segments of 64) through run_grid: "
           f"{len(grid)} scenarios x {n_rounds} rounds in {secs:.4f} s "
           f"({len(grid) / secs:.3f} scenarios/s), peak {_peak_gib(dev):.3f} "
           f"GiB, K1 launches {launches} (by B {by_batch})")
     for label, one in res.items():
-        print(f"[paper-tasks]   {label:28s} final token acc "
+        print(f"[{tag}]   {label:28s} final token acc "
               f"{float(one.mean_acc[-1]):.4f} loss "
               f"{float(one.loss_per_client[-1].mean()):.4f}")
     return launches
@@ -2771,8 +3012,6 @@ def profile_train_step(dev, cfg):
     torch.profiler: the forward and backward against the AdamW update (a
     range around `registry._update_leafwise`), bf16 / float32 products
     (GEMM kernels) against the rest."""
-    from torch.profiler import record_function
-
     from repro_torch.data import pipeline, synthetic
     from repro_torch.models import registry
 
@@ -2783,19 +3022,11 @@ def profile_train_step(dev, cfg):
         synthetic.lm_token_stream(vocab=cfg.vocab, n_tokens=200_000), 8, 128)
     batch = {"tokens": torch.from_numpy(next(batches)[:, :-1]).to(dev)}
     state, _ = bundle.train_step(state, batch, device=dev)     # warm-up
-    orig = registry._update_leafwise
-
-    def ranged_update(*args, **kwargs):
-        with record_function("train:optimizer"):
-            return orig(*args, **kwargs)
-
-    registry._update_leafwise = ranged_update
-    try:
+    with _ranged_parts((("repro_torch.models.registry", "_update_leafwise",
+                         "train:optimizer"),)) as ranges:
         wall_ms, events, spans = _profiled(
             lambda: bundle.train_step(state, batch, device=dev),
-            ranges=("train:optimizer",))
-    finally:
-        registry._update_leafwise = orig
+            ranges=ranges)
     del state
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     opt_ms = spans["train:optimizer"] / 1e3
@@ -3150,6 +3381,84 @@ def window_phase(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the MoE and hybrid families (slice 9)
+# ---------------------------------------------------------------------------
+def moe_hybrid_train(dev) -> None:
+    """Phase 22 (b): `launch.train.main` on each of `MOE_HYBRID` at full
+    width and depth (bf16, AdamW with float32 moments), TRAIN_FULL_STEPS
+    steps of 8 x 128 tokens at TRAIN_FULL_LR: losses finite, the first
+    within TRAIN_START_TOL of ln V + d_model 0.02^2 / 2 (as phase 19's),
+    the MoE's aux finite and positive; K2 and K3 launch no time."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    other = {k: ops.LAUNCHES[k] for k in ("flash_attention", "rwkv6_scan")}
+    for arch in MOE_HYBRID:
+        torch.cuda.empty_cache()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        out = train.main(["--arch", arch, "--full-config", "--steps",
+                          str(TRAIN_FULL_STEPS), "--batch", "8", "--seq",
+                          "128", "--lr", str(TRAIN_FULL_LR)])
+        wall = time.perf_counter() - t0
+        cfg, losses, auxes = out["cfg"], out["losses"], out["auxes"]
+        start = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+        check(all(math.isfinite(x) for x in losses + auxes)
+              and abs(losses[0] - start) <= TRAIN_START_TOL,
+              f"{arch} full training: losses {losses}, aux {auxes} (step 0 "
+              f"expected within {TRAIN_START_TOL} of {start:.4f})")
+        if cfg.family == "moe":
+            check(all(x > 0 for x in auxes), f"{arch}: aux {auxes}")
+        tok_s = [out["tokens_per_step"] / x for x in out["step_s"][1:]]
+        print(f"[moe-hybrid] (b) {arch} full config, {out['n_params']} "
+              f"parameters (bf16, AdamW float32 moments, remat "
+              f"{cfg.remat}), {TRAIN_FULL_STEPS} steps of 8 x 128 tokens at "
+              f"lr {TRAIN_FULL_LR:g}: losses {[round(x, 4) for x in losses]} "
+              f"(ln V + d 0.02^2 / 2 = {start:.4f}; the last below the "
+              f"first: {losses[-1] < losses[0]}), aux "
+              f"{[round(x, 4) for x in auxes]}; s/step "
+              f"{[round(x, 4) for x in out['step_s']]} (step 0 includes "
+              f"first-use setup); tokens/s after step 0 "
+              f"{[round(x, 1) for x in tok_s]}; peak {_peak_gib(dev):.3f} "
+              f"GiB; main() {wall:.2f} s")
+        del out
+    torch.cuda.empty_cache()
+    check(all(ops.LAUNCHES[k] == n for k, n in other.items()),
+          f"training launched K2 or K3: {other} -> "
+          f"{ {k: ops.LAUNCHES[k] for k in other} }")
+    print("[moe-hybrid] (b) K2 and K3 launched no time in either training "
+          "run")
+
+
+def moe_hybrid_phase(dev) -> tuple[dict, dict]:
+    """Phase 22: (a) `MOE_HYBRID` served at full width and depth
+    (`serve_full`: K2 once a prefill layer, none in decode; each prefill
+    held to impl="torch" by `serve_vs_plain`), each with one profiled
+    prefill and decode step split by `PROFILE_PARTS`; (b) trained
+    (`moe_hybrid_train`); (c) `MOE_HYBRID_SMOKE`'s float32 smoke variants
+    served and one `train_step` each, card against the CPU; (d) phase 18's
+    NWP grid with each of `MOE_HYBRID_NWP` as the clients.  Returns K2's
+    launches by architecture and K1's by grid."""
+    k2 = {}
+    for arch in MOE_HYBRID:
+        cfg, res, k2[arch] = serve_full(dev, "moe-hybrid", arch=arch)
+        profile_serve(cfg, res, "moe-hybrid", "flash_attention")
+        del res
+        torch.cuda.empty_cache()
+    moe_hybrid_train(dev)
+    for arch in MOE_HYBRID_SMOKE:
+        serve_reference(dev, "moe-hybrid", arch)
+    train_step_reference((torch.device("cpu"), dev),
+                         cases=tuple((arch, {}) for arch in MOE_HYBRID_SMOKE))
+    k1 = {}
+    for name in MOE_HYBRID_NWP:
+        k1[name] = nwp_grid_phase(dev, n_rounds=MOE_HYBRID_NWP_ROUNDS,
+                                  model_name=name, tag="moe-hybrid")
+        torch.cuda.empty_cache()
+    return k2, k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3298,6 +3607,18 @@ def main() -> int:
     window_launches = window_phase(dev)
     print(f"[window] phase 21 took {time.perf_counter() - t0:.2f} s")
 
+    # 22. moe-hybrid (granite-moe-1b-a400m, hymba-1.5b, dbrx-132b's smoke)
+    t0 = time.perf_counter()
+    with _k1_shapes(k1_seen):
+        mh_k2, mh_k1 = moe_hybrid_phase(dev)
+    print(f"[moe-hybrid] phase 22 took {time.perf_counter() - t0:.2f} s")
+    checked = {(s["b"] or 1, s["n"], s["l"], s["k"]) for _, s in K1_SHAPES}
+    unchecked = sorted(str(x) for x in k1_seen
+                       if x[0] not in checked
+                       or x[1] not in (torch.float32, torch.bfloat16))
+    check(not unchecked, f"phase 22 launched K1 at {unchecked}, which "
+          f"phase 3 does not hold to the plain version (K1_SHAPES)")
+
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
                     and r["variant"] == "ra_normalized")
@@ -3310,13 +3631,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/ra_aggregate.py:177",
         "launches": (launches + codec_launches + grid_launches
                      + sum(tier_launches.values()) + paper_launches
-                     + nwp_launches + train_launches),
+                     + nwp_launches + train_launches
+                     + sum(mh_k1.values())),
         "launches_by_path": {"slice": launches,
                              "slice-codec": codec_launches,
                              "grid": grid_launches, **tier_launches,
                              "paper-tasks": paper_launches,
                              "nwp-grid": nwp_launches,
-                             "train": train_launches},
+                             "train": train_launches,
+                             **{f"moe-hybrid:{m}": n
+                                for m, n in mh_k1.items()}},
         "tx_launches": tx_launches + grid_tx,
         "grid_launches_by_batch": {str(b): c for b, c in
                                    grid_batches.items()},
@@ -3361,7 +3685,8 @@ def main() -> int:
               if r["case"] in K2_TIMED), "non-finite K2 time")
     k2_paths = {"dense-serve": k2_launches,
                 **{f"dense-zoo:{a}": n for a, n in zoo_launches.items()},
-                "window": window_launches}
+                "window": window_launches,
+                **{f"moe-hybrid:{a}": n for a, n in mh_k2.items()}}
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",

@@ -5,10 +5,12 @@ Port of the reference package's `configs/base.py`.  Every full config
 cites its source in `ModelCfg.source`; dtypes are torch dtypes.
 `smoke_variant` shrinks any config to <=2 layers, d_model<=512, <=4
 experts while keeping the family topology.  Only the families the port
-runs have their config files here (rwkv6-1.6b and the dense qwen2.5-3b,
-llama3-8b, starcoder2-3b and gemma-7b); `get` raises `NotImplementedError`
-for the others, which come with their families (ROADMAP Queue 1 item 7).
-`all_configs` comes with the last of them.
+runs have their config files here (rwkv6-1.6b, the dense qwen2.5-3b,
+llama3-8b, starcoder2-3b and gemma-7b, the moe granite-moe-1b-a400m and
+dbrx-132b, and the hybrid hymba-1.5b); `get` raises `NotImplementedError`
+for whisper-base (enc_dec) and llama-3.2-vision-90b (vlm), which come with
+their families (ROADMAP Queue 1 item 7e).  `all_configs` comes with the
+last of them.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def get(arch: str) -> ModelCfg:
     if importlib.util.find_spec(name) is None:
         raise NotImplementedError(
             f"{arch}: its family is not ported yet; see ROADMAP.md Queue 1 "
-            f"item 7")
+            f"item 7e")
     return importlib.import_module(name).CONFIG
 
 

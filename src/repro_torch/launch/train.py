@@ -13,7 +13,8 @@ the smoke LM across simulated clients, exchanging through
 Weights are drawn from seed 0 with a generator on the device (every D-FL
 client starts from the same draw, paper Sec. III); the exchange's success
 masks from a generator of their own.  `main` returns what it measured:
-each step's loss and seconds (host clock, ending in a device sync), each
+each step's loss, MoE aux loss (0 for the other families) and seconds
+(host clock, ending in a device sync), each
 exchange round's mean client loss, K1's launches, the parameter count and
 the final parameters (client 0's under ``--dfl``).
 """
@@ -67,7 +68,7 @@ def main(argv: list[str] | None = None) -> dict:
     if registry.needs_modal(cfg):
         raise NotImplementedError(
             f"{cfg.name}: modal inputs are not ported yet; see ROADMAP.md "
-            f"Queue 1 item 7")
+            f"Queue 1 item 7e")
     bundle = registry.build(cfg, lr=args.lr)
 
     def make_batch(tokens: np.ndarray) -> dict:
@@ -79,10 +80,12 @@ def main(argv: list[str] | None = None) -> dict:
         state, metrics = bundle.train_step(state, make_batch(tokens),
                                            device=dev)
         loss = float(metrics["loss"])       # waits for the device
-        return state, loss, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        out["auxes"].append(float(metrics["aux"]))
+        return state, loss, dt
 
-    out = {"cfg": cfg, "losses": [], "step_s": [], "round_losses": [],
-           "tokens_per_step": args.batch * args.seq}
+    out = {"cfg": cfg, "losses": [], "auxes": [], "step_s": [],
+           "round_losses": [], "tokens_per_step": args.batch * args.seq}
     k1_before = ops.LAUNCHES["ra_aggregate"]
     t_start = time.perf_counter()
 

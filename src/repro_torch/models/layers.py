@@ -8,7 +8,7 @@ grouped-query attention with optional QKV bias and sliding window
 the KV cache with `decode_attention` (including the wrapped sliding-window
 cache: RoPE at ``rope_pos``, ``full_cache``), the MLP with all four
 activations, and the tied embedding.  Cross-attention is not ported yet
-(ROADMAP Queue 1 item 7).
+(ROADMAP Queue 1 item 7e).
 
 Conventions, as in the reference:
 

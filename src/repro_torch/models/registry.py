@@ -157,7 +157,7 @@ def build(cfg: T.ModelCfg, *, optimizer: str = "adamw", lr: float = 3e-4,
         if needs_modal(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: modal inputs are not ported yet; see ROADMAP.md "
-                f"Queue 1 item 7")
+                f"Queue 1 item 7e")
         dev = resolve_device(device)
         tokens = batch["tokens"]
         _on(dev, "loss_fn", [tokens, *params.values()])
@@ -249,7 +249,7 @@ def nwp_cfg(arch: str = "qwen2_5_3b", *, vocab: int = 90,
     `smoke_variant` with the char-stream vocabulary, shrunk (``tiny``) to
     simulator scale (d_model 32, 2 heads of 16, d_ff 64).  ``tiny=False``
     keeps the smoke geometry.  An architecture whose family is not ported
-    raises `NotImplementedError` (ROADMAP.md Queue 1 item 7)."""
+    raises `NotImplementedError` (ROADMAP.md Queue 1 item 7e)."""
     cfg = configs.smoke_variant(configs.get(arch))
     if needs_modal(cfg):
         raise ValueError(

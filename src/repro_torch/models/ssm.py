@@ -1,8 +1,27 @@
-"""RWKV-6 "Finch" time-mix: data-dependent decay linear attention.
+"""State-space and linear-attention sequence mixers: the Mamba-style
+selective SSM (hymba's parallel SSM heads) and the RWKV-6 "Finch" time-mix
+(data-dependent decay linear attention).
 
-Port of the rwkv6 half of the reference package's `models/ssm.py`; the
-Mamba-style `ssm_*` functions come with the hybrid family (ROADMAP Queue 1
-item 7).  Per head, with state S (key index first, value index second):
+Port of the reference package's `models/ssm.py`.
+
+Selective SSM (diagonal A, data-dependent B, C and dt), per channel d and
+state index n:
+
+    h_t = exp(-dt_t a) * h_{t-1} + dt_t u_t b_t          (a = exp(log_a))
+    y_t = sum_n h_t c_t + d_skip u_t,   out = (y * gate) @ w_out
+
+`ssm_seq` runs the whole sequence with `ssm_scan`, a chunked scan in
+plain PyTorch (the reference runs `jax.lax.associative_scan`; no Pallas
+kernel computes it): the recurrence runs inside chunks of L positions,
+all chunks at once, the chunks' end states are carried across chunks,
+and a second pass through the chunks from their carried states gives
+every position's output.  Each step's decay and input are formed as
+the step comes, so no (B, S, Di, N) term is held.  The recurrence, its
+terms and the ``w_out`` product are float32 whatever the parameters'
+dtype; `ssm_seq` returns x's dtype and `ssm_step` the state in the
+state's dtype.
+
+RWKV-6, per head, with state S (key index first, value index second):
 
     out_t = r_t · (S_{t-1} + diag(exp(u)) k_t v_t^T)
     S_t   = diag(exp(w_t)) S_{t-1} + k_t v_t^T          (w_t = log decay <= 0)
@@ -34,6 +53,147 @@ IMPLS = ("auto", "torch", "kernel")
 LOG_DECAY_FLOOR = -60.0 / 64.0
 
 
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SSMCfg:
+    d_model: int
+    d_state: int = 16
+    expand: int = 1          # d_inner = expand * d_model
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+
+def init_ssm(gen: torch.Generator, cfg: SSMCfg,
+             dtype=torch.float32) -> Params:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.d_state
+    s = 1.0 / math.sqrt(d)
+    dev = gen.device
+    # log A in [-ln N, 0]: stable decays.
+    log_a = -torch.log(torch.linspace(1.0, float(n), n, device=dev))
+    p = {
+        "w_in": layers._normal(gen, (d, di), s, dtype),
+        "w_gate": layers._normal(gen, (d, di), s, dtype),
+        "w_bc": layers._normal(gen, (di, 2 * n), 1.0 / math.sqrt(di), dtype),
+        "w_dt": layers._normal(gen, (di, 1), 1.0 / math.sqrt(di), dtype),
+        "log_a": log_a[None, :].repeat(di, 1).to(dtype),
+        "d_skip": torch.ones((di,), dtype=dtype, device=dev),
+        "w_out": layers._normal(gen, (di, d), 1.0 / math.sqrt(di), dtype),
+        "dt_bias": torch.zeros((1,), dtype=dtype, device=dev),
+    }
+    return dict(sorted(p.items()))
+
+
+def _softplus(z: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(z)) as the reference takes it (`logaddexp(z, 0)`);
+    `F.softplus` returns z itself above its threshold."""
+    return torch.logaddexp(z, torch.zeros_like(z))
+
+
+def _ssm_terms(params: Params, u: torch.Tensor):
+    """u: (B, S, Di) -> the recurrence's float32 terms: dt (B, S, 1), dt u
+    (B, S, Di), b and c (B, S, N), and -a (Di, N).  Step t's decay is
+    exp(dt_t (-a)) and its input (dt u)_t b_t^T; the reference forms both
+    at (B, S, Di, N)."""
+    u = u.float()
+    b_t, c_t = (u @ params["w_bc"].float()).chunk(2, dim=-1)
+    dt = _softplus(u @ params["w_dt"].float() + params["dt_bias"].float())
+    neg_a = -torch.exp(params["log_a"].float())
+    return dt, dt * u, b_t, c_t, neg_a
+
+
+def ssm_scan(dt: torch.Tensor, dtu: torch.Tensor, b_t: torch.Tensor,
+             c_t: torch.Tensor, neg_a: torch.Tensor):
+    """The recurrence h_t = exp(dt_t (-a)) h_{t-1} + (dt u)_t b_t^T from
+    h = 0, read out as y_t = h_t c_t.  Terms as `_ssm_terms` gives them.
+    Returns (y (B, S, Di), final state (B, Di, N)), float32.
+
+    Chunks of L positions (the sequence padded at its end with steps of decay 1 and input 0, which leave the state as it
+    is): pass 1 runs each chunk's recurrence from 0, all chunks at once;
+    the chunks' end states are carried across chunks (state_c =
+    prod decay state_{c-1} + end_c, the product exp(-a sum dt)); pass 2
+    runs each chunk again from its carried state and reads y.  2 L + S / L
+    sequential steps in all, each a few elementwise kernels over every
+    chunk (the same bytes whatever L), so L = sqrt(S / 2), which makes the
+    fewest: 32 at S = 2048, 8 at S = 128."""
+    bsz, s, di = dtu.shape
+    n = b_t.shape[-1]
+    ln = max(1, round(math.sqrt(s / 2)))
+    nc = -(-s // ln)
+    pad = nc * ln - s
+    if pad:
+        dt, dtu, b_t, c_t = (F.pad(t, (0, 0, 0, pad))
+                             for t in (dt, dtu, b_t, c_t))
+    dt = dt.reshape(bsz, nc, ln, 1, 1)
+    dtu = dtu.reshape(bsz, nc, ln, di, 1)
+    b_t = b_t.reshape(bsz, nc, ln, 1, n)
+    c_t = c_t.reshape(bsz, nc, ln, n, 1)
+
+    def decay(t):
+        return torch.exp(dt[:, :, t] * neg_a)          # (B, nc, Di, N)
+
+    def inp(t):
+        return dtu[:, :, t] * b_t[:, :, t]             # (B, nc, Di, N)
+
+    h = inp(0)
+    for t in range(1, ln):
+        h = torch.addcmul(inp(t), decay(t), h)
+    whole = torch.exp(dt.sum(2) * neg_a)               # (B, nc, Di, N)
+    state = torch.zeros_like(h[:, 0])
+    carried = []
+    for c in range(nc):
+        carried.append(state)
+        state = torch.addcmul(h[:, c], whole[:, c], state)
+    h = torch.stack(carried, dim=1)
+    ys = []
+    for t in range(ln):
+        h = torch.addcmul(inp(t), decay(t), h)
+        ys.append(h @ c_t[:, :, t])                    # (B, nc, Di, 1)
+    y = torch.stack(ys, dim=2).reshape(bsz, nc * ln, di)[:, :s]
+    return y, h[:, -1]
+
+
+def ssm_seq(params: Params, cfg: SSMCfg, x: torch.Tensor, *,
+            return_state: bool = False):
+    """Full-sequence selective SSM.  x: (B, S, D) -> (B, S, D) in x's
+    dtype [, final state (B, Di, N) float32]."""
+    u = F.silu(x @ params["w_in"])
+    gate = F.silu(x @ params["w_gate"])
+    dt, dtu, b_t, c_t, neg_a = _ssm_terms(params, u)
+    y, state = ssm_scan(dt, dtu, b_t, c_t, neg_a)
+    y = y + u.float() * params["d_skip"].float()
+    out = ((y * gate.float()) @ params["w_out"].float()).to(x.dtype)
+    return (out, state) if return_state else out
+
+
+def init_ssm_state(batch: int, cfg: SSMCfg, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    return torch.zeros((batch, cfg.d_inner, cfg.d_state), dtype=dtype,
+                       device=device)
+
+
+def ssm_step(params: Params, cfg: SSMCfg, x: torch.Tensor,
+             state: torch.Tensor):
+    """Single-token step.  x: (B, 1, D); state: (B, Di, N).  The math is
+    float32; returns (out (B, 1, D) in x's dtype, new state in the
+    state's dtype)."""
+    u = F.silu(x @ params["w_in"])
+    gate = F.silu(x @ params["w_gate"])
+    dt, dtu, b_t, c_t, neg_a = _ssm_terms(params, u)
+    decay = torch.exp(dt[:, 0, :, None] * neg_a)       # (B, Di, N)
+    new_state = decay * state.float() + dtu[:, 0, :, None] * b_t[:, 0, None]
+    y = (new_state @ c_t[:, 0, :, None])[..., 0][:, None]
+    y = y + u.float() * params["d_skip"].float()
+    out = ((y * gate.float()) @ params["w_out"].float()).to(x.dtype)
+    return out, new_state.to(state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 "Finch"
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class RWKV6Cfg:
     d_model: int

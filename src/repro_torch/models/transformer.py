@@ -1,21 +1,25 @@
-"""Transformer assembly, functional PyTorch: the ``dense`` and ``ssm``
-families.
+"""Transformer assembly, functional PyTorch: the decoder-only families
+``dense``, ``moe``, ``ssm`` and ``hybrid``.
 
-Port of the reference package's `models/transformer.py` for the dense and
-ssm families: `ModelCfg`, init, the full forward, `prefill` (builds the
-decode cache, returns last-token logits) and `serve_step` (one token
-against the cache), with the sliding window throughout (the window mask in
-the forward and prefill, `init_cache(window=)`'s wrapped cache of at most
-``window`` slots, `serve_step`'s ``abs_pos`` / ``full_cache``).  Per layer:
+Port of the reference package's `models/transformer.py` for the
+decoder-only families: `ModelCfg`, init, the full forward, `prefill`
+(builds the decode cache, returns last-token logits) and `serve_step` (one
+token against the cache), with the sliding window throughout (the window
+mask in the forward and prefill, `init_cache(window=)`'s wrapped cache of
+at most ``window`` slots, `serve_step`'s ``abs_pos`` / ``full_cache``).
+Per layer:
 
-  dense : {ln1, attn, ln2, mlp}   (GQA + RoPE + optional QKV bias; qwen2.5,
+  dense  : {ln1, attn, ln2, mlp}  (GQA + RoPE + optional QKV bias; qwen2.5,
                                    llama3, starcoder2, gemma)
-  ssm   : {ln1, rwkv6 time-mix, ln2, mlp}                          (rwkv6)
+  moe    : {ln1, attn, ln2, moe}                   (granite-moe, dbrx)
+  ssm    : {ln1, rwkv6 time-mix, ln2, mlp}                         (rwkv6)
+  hybrid : {ln1, attn ∥ selective ssm (0.5 (a + s)), ln2, mlp}    (hymba)
 
-As in the reference, gemma's embeddings are scaled by sqrt(d_model) in
-`forward` only; `prefill` and `serve_step` embed without it.  The other
-families (moe, hybrid, enc_dec, vlm) raise `NotImplementedError`; they come
-with ROADMAP Queue 1 item 7.
+`forward` returns the sum of the layers' MoE load-balance losses (0 for
+the other families).  As in the reference, gemma's embeddings are scaled by
+sqrt(d_model) in `forward` only; `prefill` and `serve_step` embed without
+it.  The modal families (enc_dec, vlm) raise `NotImplementedError`; they
+come with ROADMAP Queue 1 item 7e.
 
 Parameters are a flat ``dict[str, Tensor]`` in the reference's leaf order
 (sorted keys, dotted names: "embed.table", "final_norm.scale",
@@ -35,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import func_transform_active
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 
 Params = dict[str, torch.Tensor]
@@ -93,12 +98,21 @@ class ModelCfg:
                          rope_theta=self.rope_theta, causal=causal,
                          sliding_window=window)
 
+    def moe_cfg(self) -> M.MoECfg:
+        return M.MoECfg(d_model=self.d_model, d_ff=self.d_ff,
+                        n_experts=self.n_experts, top_k=self.top_k,
+                        act=self.act, capacity_factor=self.capacity_factor,
+                        group_size=self.moe_group_size)
+
+    def ssm_cfg(self) -> S.SSMCfg:
+        return S.SSMCfg(d_model=self.d_model, d_state=self.d_state)
+
     def rwkv_cfg(self) -> S.RWKV6Cfg:
         return S.RWKV6Cfg(d_model=self.d_model,
                           n_heads=self.rwkv_heads or self.n_heads or 16)
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelCfg) -> None:
@@ -108,7 +122,7 @@ def check_family(cfg: ModelCfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (only "
-            f"{PORTED_FAMILIES}); see ROADMAP.md Queue 1 item 7")
+            f"{PORTED_FAMILIES}); see ROADMAP.md Queue 1 item 7e")
 
 
 def _norm_init(cfg: ModelCfg):
@@ -135,17 +149,22 @@ def _prefixed(prefix: str, params: Params) -> Params:
 def _init_block(gen: torch.Generator, cfg: ModelCfg) -> Params:
     """One decoder layer (unstacked)."""
     dev = gen.device
-    # Draw order as the reference's split keys: the mixer, then the MLP.
+    # Draw order as the reference's split keys: the mixer, the MLP (or the
+    # experts), then the hybrid's SSM.
     if cfg.family == "ssm":
-        mixer = _prefixed("mix", S.init_rwkv6(gen, cfg.rwkv_cfg(), cfg.dtype))
+        p = _prefixed("mix", S.init_rwkv6(gen, cfg.rwkv_cfg(), cfg.dtype))
     else:
-        mixer = _prefixed("attn", L.init_attention(gen, cfg.attn_cfg(),
-                                                   cfg.dtype))
-    p = {**_prefixed("ln1", _norm_init(cfg)(cfg.d_model, cfg.dtype, dev)),
-         **_prefixed("ln2", _norm_init(cfg)(cfg.d_model, cfg.dtype, dev)),
-         **mixer,
-         **_prefixed("mlp", L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
-                                       cfg.dtype))}
+        p = _prefixed("attn", L.init_attention(gen, cfg.attn_cfg(),
+                                               cfg.dtype))
+    if cfg.family == "moe":
+        p.update(_prefixed("moe", M.init_moe(gen, cfg.moe_cfg(), cfg.dtype)))
+    else:
+        p.update(_prefixed("mlp", L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                             cfg.act, cfg.dtype)))
+    if cfg.family == "hybrid":
+        p.update(_prefixed("ssm", S.init_ssm(gen, cfg.ssm_cfg(), cfg.dtype)))
+    p.update(_prefixed("ln1", _norm_init(cfg)(cfg.d_model, cfg.dtype, dev)))
+    p.update(_prefixed("ln2", _norm_init(cfg)(cfg.d_model, cfg.dtype, dev)))
     return dict(sorted(p.items()))
 
 
@@ -198,10 +217,12 @@ def _mixer(cfg: ModelCfg, lp: Params, h: torch.Tensor, impl: str,
            window: int | None):
     """The layer's sequence mixer on its normed input: the rwkv6 time-mix
     (ssm; the attention impls "naive" / "chunked" / "flash" run its plain
-    scan) or causal self-attention under ``window`` (dense), through
-    `ssm.rwkv6_seq` / `layers.self_attention` with ``impl``.  Returns (out,
-    what the decode cache keeps of the layer: the time-mix's final state, or
-    (k, v))."""
+    scan), causal self-attention under ``window`` (dense, moe), or both
+    attention and the selective SSM, mean-fused (hybrid), through
+    `ssm.rwkv6_seq` / `layers.self_attention` with ``impl`` and
+    `ssm.ssm_seq`.  Returns (out, what the decode cache keeps of the
+    layer: the time-mix's final state, (k, v), or (k, v, the SSM's final
+    state))."""
     if cfg.family == "ssm":
         if impl in ("naive", "chunked", "flash"):
             impl = "torch"
@@ -213,64 +234,78 @@ def _mixer(cfg: ModelCfg, lp: Params, h: torch.Tensor, impl: str,
     q, k, v = L._qkv(ap, cfg.attn_cfg(), h, positions)
     out = L.self_attention(q, k, v, causal=True, window=window, impl=impl,
                            chunk=cfg.attn_chunk)
-    return out.reshape(b, s, -1) @ ap["wo"], (k, v)
+    out = out.reshape(b, s, -1) @ ap["wo"]
+    if cfg.family == "hybrid":
+        s_, state = S.ssm_seq(_sub(lp, "ssm"), cfg.ssm_cfg(), h,
+                              return_state=True)
+        return 0.5 * (out + s_), (k, v, state)
+    return out, (k, v)
 
 
 def _block(cfg: ModelCfg, lp: Params, x: torch.Tensor, *, impl: str = "auto",
-           window: int | None = None, return_cache: bool = False):
-    """One layer: x + mixer(ln1 x), then + mlp(ln2 x).  Returns x, or with
-    ``return_cache`` (x, what the decode cache keeps of the layer).  The
-    normed input is passed straight to `_mixer`, so it is freed before the
-    MLP runs."""
+           window: int | None = None):
+    """One layer: x + mixer(ln1 x), then + mlp(ln2 x) (or the experts').
+    Returns (x, what the decode cache keeps of the layer, the MoE's aux
+    loss or None).  The normed input is passed straight to `_mixer`, so it
+    is freed before the MLP runs."""
     norm = _norm(cfg)
     mix, kept = _mixer(cfg, lp, norm(_sub(lp, "ln1"), x), impl, window)
     x = x + mix
-    x = x + L.mlp(_sub(lp, "mlp"), norm(_sub(lp, "ln2"), x), cfg.act)
-    return (x, kept) if return_cache else x
+    h = norm(_sub(lp, "ln2"), x)
+    if cfg.family == "moe":
+        y, aux = M.moe_layer(_sub(lp, "moe"), cfg.moe_cfg(), h)
+    else:
+        y, aux = L.mlp(_sub(lp, "mlp"), h, cfg.act), None
+    return x + y, kept, aux
 
 
 def _remat_block(cfg: ModelCfg, impl: str, window: int | None, names: list,
-                 x: torch.Tensor, *leaves: torch.Tensor) -> torch.Tensor:
-    """`_block` with the layer's leaves as positional tensors, the form
-    `torch.utils.checkpoint` records."""
-    return _block(cfg, dict(zip(names, leaves)), x, impl=impl, window=window)
+                 x: torch.Tensor, *leaves: torch.Tensor):
+    """`_block`'s (x, aux) with the layer's leaves as positional tensors,
+    the form `torch.utils.checkpoint` records."""
+    x, _, aux = _block(cfg, dict(zip(names, leaves)), x, impl=impl,
+                       window=window)
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
             impl: str = "auto", window: int | None = None,
             return_hidden: bool = False):
-    """tokens: (B, S) -> (logits (B, S, V) float32, aux loss 0).
+    """tokens: (B, S) -> (logits (B, S, V) float32, aux loss float32).
 
-    ``return_hidden`` gives the final normed hidden states (B, S, D)
-    instead of logits.  ``impl`` selects the time-mix scan or the attention
-    (see `layers.self_attention`); training callers pass `train_impl` (on
-    the card "auto" reaches K2 / K3, which refuse autograd).  ``window``
-    masks keys ``window`` or more positions back.  Gemma's embeddings are
-    scaled by sqrt(d_model), in ``cfg.dtype`` (the reference multiplies by
-    a numpy float64 scalar, which promotes bfloat16 activations to float32
-    for the rest of its forward; ROADMAP Queue 3).  With ``cfg.remat`` and
-    grad mode on, each layer is checkpointed (recomputed in the backward),
-    as the reference wraps its layer scan in `jax.checkpoint`; the values
-    are the same.  Under a `torch.func` transform (the simulator's vmapped
-    gradient) layers are not checkpointed: it takes no saved-tensor
-    hooks."""
+    The aux loss is the sum over layers of the MoE's load-balance loss (0
+    for the other families).  ``return_hidden`` gives the final normed
+    hidden states (B, S, D) instead of logits.  ``impl`` selects the
+    time-mix scan or the attention (see `layers.self_attention`); training
+    callers pass `train_impl` (on the card "auto" reaches K2 / K3, which
+    refuse autograd).  ``window`` masks keys ``window`` or more positions
+    back.  Gemma's embeddings are scaled by sqrt(d_model), in
+    ``cfg.dtype`` (the reference multiplies by a numpy float64 scalar,
+    which promotes bfloat16 activations to float32 for the rest of its
+    forward; ROADMAP Queue 3).  With ``cfg.remat`` and grad mode on, each
+    layer is checkpointed (recomputed in the backward), as the reference
+    wraps its layer scan in `jax.checkpoint`; the values are the same.
+    Under a `torch.func` transform (the simulator's vmapped gradient)
+    layers are not checkpointed: it takes no saved-tensor hooks."""
     check_family(cfg)
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
     if cfg.family == "dense" and cfg.name.startswith("gemma"):
         x = x * math.sqrt(cfg.d_model)
     remat = (cfg.remat and torch.is_grad_enabled()
              and not func_transform_active())
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_params(params, cfg.n_layers):
         if remat:
-            x = checkpoint(_remat_block, cfg, impl, window, list(lp), x,
-                           *lp.values(), use_reentrant=False)
+            x, aux = checkpoint(_remat_block, cfg, impl, window, list(lp), x,
+                                *lp.values(), use_reentrant=False)
         else:
-            x = _block(cfg, lp, x, impl=impl, window=window)
+            x, _, aux = _block(cfg, lp, x, impl=impl, window=window)
+        if aux is not None:
+            total = total + aux
     x = _norm(cfg)(_sub(params, "final_norm"), x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
-        return x, aux
-    return L.unembed(_sub(params, "embed"), x), aux
+        return x, total
+    return L.unembed(_sub(params, "embed"), x), total
 
 
 # ---------------------------------------------------------------------------
@@ -281,13 +316,14 @@ def prefill(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
     """tokens: (B, S) -> (last-token logits (B, V) float32, cache ready for
     `serve_step`).  The cache holds, in ``cfg.dtype``, each layer's final
     time-mix state ``rwkv_state`` (n_layers, B, H, Dh, Dh) for the ssm
-    family, and each layer's attention keys and values ``k`` / ``v``
-    (n_layers, B, S, KV, Dh) for the dense family.  ``window`` masks
-    attention to keys ``window`` or more positions back (K2 takes it on the
-    card).  Where the port runs plain PyTorch (``impl="torch"``, or
-    ``"auto"`` on the CPU) it runs the reference's prefill attention:
-    `layers._sdpa_chunked` under ``cfg.attn_impl == "chunked"``, else the
-    masked `_sdpa`."""
+    family, each layer's attention keys and values ``k`` / ``v``
+    (n_layers, B, S, KV, Dh) for the dense and moe families, and for the
+    hybrid family ``k`` / ``v`` and each layer's final SSM state
+    ``ssm_state`` (n_layers, B, Di, N).  ``window`` masks attention to keys
+    ``window`` or more positions back (K2 takes it on the card).  Where
+    the port runs plain PyTorch (``impl="torch"``, or ``"auto"`` on the
+    CPU) it runs the reference's prefill attention: `layers._sdpa_chunked`
+    under ``cfg.attn_impl == "chunked"``, else the masked `_sdpa`."""
     check_family(cfg)
     if cfg.attn_impl == "chunked" and (
             impl == "torch" or (impl == "auto" and tokens.device.type != "cuda")):
@@ -295,25 +331,29 @@ def prefill(params: Params, cfg: ModelCfg, tokens: torch.Tensor, *,
     x = L.embed(_sub(params, "embed"), tokens).to(cfg.dtype)
     kept = []
     for lp in layer_params(params, cfg.n_layers):
-        x, entry = _block(cfg, lp, x, impl=impl, window=window,
-                          return_cache=True)
-        # A float32 time-mix state is cast as it comes, not held to the end;
-        # k and v are already in cfg.dtype.
-        kept.append(entry.to(cfg.dtype) if cfg.family == "ssm" else entry)
+        x, entry, _ = _block(cfg, lp, x, impl=impl, window=window)
+        # A float32 recurrent state is cast as it comes, not held to the
+        # end; k and v are already in cfg.dtype.
+        if cfg.family == "ssm":
+            entry = (entry.to(cfg.dtype),)
+        elif cfg.family == "hybrid":
+            entry = (*entry[:2], entry[2].to(cfg.dtype))
+        kept.append(entry)
     last = _norm(cfg)(_sub(params, "final_norm"), x[:, -1])
     logits = L.unembed(_sub(params, "embed"), last)
-    if cfg.family == "ssm":
-        return logits, {"rwkv_state": torch.stack(kept)}
-    return logits, {name: torch.stack([kv[i] for kv in kept])
-                    for i, name in enumerate(("k", "v"))}
+    names = {"ssm": ("rwkv_state",),             # in the order _mixer keeps
+             "hybrid": ("k", "v", "ssm_state")}.get(cfg.family, ("k", "v"))
+    return logits, {name: torch.stack([e[i] for e in kept])
+                    for i, name in enumerate(names)}
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, *,
                window: int | None = None, device=None) -> Params:
-    """Decode cache, zeros: one recurrent state per layer (ssm), or
-    attention keys and values (n_layers, B, T, KV, Dh) (dense), T =
-    min(max_len, window): a windowed cache wraps (`serve_step`'s ``pos`` is
-    the absolute position mod T)."""
+    """Decode cache, zeros: one recurrent state per layer (ssm), attention
+    keys and values (n_layers, B, T, KV, Dh) (dense, moe), or both
+    (hybrid: ``ssm_state`` (n_layers, B, Di, N)); T = min(max_len,
+    window): a windowed cache wraps (`serve_step`'s ``pos`` is the absolute
+    position mod T)."""
     check_family(cfg)
     if cfg.family == "ssm":
         rc = cfg.rwkv_cfg()
@@ -322,22 +362,30 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, *,
             dtype=cfg.dtype, device=device)}
     t = max_len if window is None else min(max_len, window)
     shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if cfg.family == "hybrid":
+        cache["ssm_state"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_cfg().d_inner, cfg.d_state),
+            dtype=cfg.dtype, device=device)
+    return cache
 
 
 def serve_step(params: Params, cfg: ModelCfg, cache: Params,
                token: torch.Tensor, pos, *, window: int | None = None,
                abs_pos=None, full_cache: bool = False):
     """One decode step.  token: (B, 1).  Returns (logits (B, 1, V) float32,
-    new cache).  ``pos`` is the cache slot the dense family writes the
+    new cache).  ``pos`` is the cache slot the attention families write the
     token's keys and values to, in place (see `layers.decode_attention`;
     the returned cache holds the same tensors): its position, or with a
     wrapped sliding-window cache its absolute position mod the cache's
     length.  ``abs_pos``: the absolute position for RoPE (default ``pos``).
     ``full_cache``: every slot holds a key of the window (the wrapped
     cache's steady state), so none is masked.  The ssm family returns new
-    states.  Decode runs in plain PyTorch."""
+    time-mix states, the hybrid new SSM states beside its K/V cache; the
+    moe family routes the step's B tokens as one group (as the reference
+    does, so its drops differ from a forward's).  Decode runs in plain
+    PyTorch."""
     check_family(cfg)
     norm = _norm(cfg)
     x = L.embed(_sub(params, "embed"), token).to(cfg.dtype)
@@ -353,10 +401,22 @@ def serve_step(params: Params, cfg: ModelCfg, cache: Params,
                 _sub(lp, "attn"), cfg.attn_cfg(window=window), h,
                 {"k": cache["k"][i], "v": cache["v"][i]}, pos,
                 rope_pos=abs_pos, full_cache=full_cache)
+        if cfg.family == "hybrid":
+            s_, st = S.ssm_step(_sub(lp, "ssm"), cfg.ssm_cfg(), h,
+                                cache["ssm_state"][i])
+            states.append(st)
+            mix = 0.5 * (mix + s_)
         x = x + mix
-        x = x + L.mlp(_sub(lp, "mlp"), norm(_sub(lp, "ln2"), x), cfg.act)
+        h = norm(_sub(lp, "ln2"), x)
+        if cfg.family == "moe":
+            y, _ = M.moe_layer(_sub(lp, "moe"), cfg.moe_cfg(), h)
+        else:
+            y = L.mlp(_sub(lp, "mlp"), h, cfg.act)
+        x = x + y
     x = norm(_sub(params, "final_norm"), x)
     logits = L.unembed(_sub(params, "embed"), x)
     if cfg.family == "ssm":
         return logits, {"rwkv_state": torch.stack(states)}
+    if cfg.family == "hybrid":
+        return logits, dict(cache, ssm_state=torch.stack(states))
     return logits, cache

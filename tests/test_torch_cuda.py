@@ -1100,3 +1100,141 @@ def test_k1_launches_on_the_training_paths(cuda_device):
     assert total == 4 * 2 * 3          # 4 tasks x (R&A + AaYG) x 3 rounds
     assert chip_smoke.nwp_grid_phase(cuda_device, sequences=8,
                                      n_rounds=2) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "dbrx-132b",
+                                  "hymba-1.5b"])
+def test_moe_hybrid_smoke_prefill_and_decode_on_the_card_match_the_cpu(
+        cuda_device, arch):
+    """Each MoE / hybrid config's float32 smoke prefill on the card (K2 once
+    a layer) and 8 greedy decode steps (no K2) against the CPU's plain
+    path: the same ids, logits and every cache leaf within 1e-4."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = cfgbase.smoke_variant(cfgbase.get(arch))
+    bundle_params = registry.build(cfg).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(batch=2, prompt_len=150, gen=9)
+    cpu = serve.serve(cfg, **kw, device="cpu", params=bundle_params,
+                      tokens=tokens)
+    before = ops.LAUNCHES["flash_attention"]
+    gpu = serve.serve(cfg, **kw, device=cuda_device,
+                      params={k: v.to(cuda_device)
+                              for k, v in bundle_params.items()},
+                      tokens=tokens.to(cuda_device))
+    assert gpu.prefill_launches["flash_attention"] == cfg.n_layers
+    assert gpu.decode_launches["flash_attention"] == 0
+    assert ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert torch.equal(gpu.tokens, cpu.tokens)
+    np.testing.assert_allclose(gpu.prefill_logits.cpu().numpy(),
+                               cpu.prefill_logits.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    assert list(gpu.prefill_cache) == list(cpu.prefill_cache)
+    for name, want in cpu.prefill_cache.items():
+        np.testing.assert_allclose(gpu.prefill_cache[name].cpu().numpy(),
+                                   want.numpy(), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.0, 0.5])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, cf):
+    """`moe_layer` at 3 groups of 512 tokens on the card against the CPU:
+    the same kept selections, y and aux within 1e-5 in float32; in
+    bfloat16 y keeps its dtype and aux is float32."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoECfg(d_model=128, d_ff=96, n_experts=16, top_k=4,
+                     capacity_factor=cf, group_size=512)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(3, 512, 128)).astype(np.float32))
+    want, waux = moe.moe_layer(params, cfg, x)
+    gp = {k: v.to(cuda_device) for k, v in params.items()}
+    got, aux = moe.moe_layer(gp, cfg, x.to(cuda_device))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+    cap = moe._capacity(512, cfg)
+    r_cpu = moe.route(params, cfg, x, cap)
+    r_gpu = moe.route(gp, cfg, x.to(cuda_device), cap)
+    assert torch.equal(r_gpu.idx.cpu(), r_cpu.idx)
+    assert torch.equal(r_gpu.keep.cpu(), r_cpu.keep)
+    assert 0 < int(r_cpu.keep.sum()) < r_cpu.keep.numel()
+    y16, aux16 = moe.moe_layer({k: v.bfloat16() for k, v in gp.items()}, cfg,
+                               x.to(cuda_device).bfloat16())
+    assert y16.dtype == torch.bfloat16 and aux16.dtype == torch.float32
+    assert bool(torch.isfinite(y16).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 100, 2048])
+def test_ssm_seq_and_step_on_the_card_match_the_cpu(cuda_device, s):
+    """`ssm_seq` (output and final state) on the card against the CPU
+    within 1e-5, and one `ssm_step` from that state."""
+    cfg = ssm.SSMCfg(d_model=96, d_state=16)
+    params = ssm.init_ssm(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, s, 96)).astype(np.float32))
+    want, wstate = ssm.ssm_seq(params, cfg, x, return_state=True)
+    gp = {k: v.to(cuda_device) for k, v in params.items()}
+    got, state = ssm.ssm_seq(gp, cfg, x.to(cuda_device), return_state=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(state.cpu().numpy(), wstate.numpy(),
+                               atol=1e-5, rtol=1e-5)
+    step_x = x[:, :1]
+    wo, wst = ssm.ssm_step(params, cfg, step_x, wstate)
+    go, gst = ssm.ssm_step(gp, cfg, step_x.to(cuda_device), state)
+    np.testing.assert_allclose(go.cpu().numpy(), wo.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(gst.cpu().numpy(), wst.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "hymba_1_5b"])
+def test_nwp_sim_model_rounds_under_vmap_on_the_card(cuda_device, arch):
+    """`nwp:<arch>` clients through `GridRunner.run` on the card (each
+    round one vmap over the R&A group's 2 scenarios, the clients'
+    gradients vmapped inside): one K1 launch a round, of B = 2; rows
+    within 1e-4 of `run_sequential` on the card."""
+    import warnings
+
+    from repro_torch.core import topology
+    from repro_torch.data import synthetic
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.kernels import ra_aggregate
+    from repro_torch.models import registry
+
+    model = registry.sim_model(f"nwp:{arch}", vocab=90)
+    data = synthetic.fed_char_stream(
+        n_clients=10, vocab=90, seq_len=16, sequences_per_client=8,
+        test_sequences=16, iid=False, seed=0)
+    cfg = simulator.SimConfig(n_rounds=2, seg_len=64, local_epochs=1, lr=0.5)
+    net = topology.make_network(
+        topology.TABLE_II_COORDS, edge_density=0.5, packet_len_bits=25_000,
+        n_clients=10, tx_power_dbm=17.0)
+    grid = scenarios.ScenarioGrid.product(
+        networks=[("tab2", net)],
+        protocols=[("ra", "ra_normalized"), ("none", "ra_normalized")],
+        seeds=range(2))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore",
+                              simulator.PacketLengthMismatchWarning)
+        runner = scenarios.GridRunner(model.init_fn, model.apply_fn, data,
+                                      cfg, device=cuda_device)
+        seq = runner.run_sequential(grid)
+        ops.LAUNCHES["ra_aggregate"] = 0
+        ra_aggregate.BATCH_LAUNCHES.clear()
+        got = runner.run(grid)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ra_aggregate"] == 2
+    assert ra_aggregate.BATCH_LAUNCHES == {2: 2}
+    assert bool(np.isfinite(got.loss).all())
+    np.testing.assert_allclose(got.loss, seq.loss, atol=1e-4, rtol=0)

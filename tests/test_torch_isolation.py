@@ -52,7 +52,11 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.fl.scenarios", "repro_torch.launch.tracker",
                 "repro_torch.launch.serving", "repro_torch.launch.router",
                 "repro_torch.checkpoint.checkpoint",
-                "repro_torch.launch.train", "repro_torch.data.pipeline"):
+                "repro_torch.launch.train", "repro_torch.data.pipeline",
+                "repro_torch.models.moe", "repro_torch.models.ssm",
+                "repro_torch.configs.granite_moe_1b_a400m",
+                "repro_torch.configs.dbrx_132b",
+                "repro_torch.configs.hymba_1_5b"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 

@@ -144,13 +144,14 @@ def test_configs_match_reference_field_for_field():
     assert (smoke.n_layers, smoke.d_model, rc.n_heads, rc.head_dim,
             smoke.vocab) == (2, 256, 4, 64, 512)
     assert base.ALIASES == jbase.ALIASES and base.ARCH_IDS == jbase.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.get("granite-moe-1b-a400m")
+    for arch in ("whisper-base", "llama-3.2-vision-90b"):
+        with pytest.raises(NotImplementedError, match="item 7e"):
+            base.get(arch)
     with pytest.raises(ValueError, match="unknown architecture"):
         base.get("gpt-2")
-    moe = dataclasses.replace(smoke, family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build(moe)
+    for family in ("enc_dec", "vlm"):
+        with pytest.raises(NotImplementedError, match="item 7e"):
+            registry.build(dataclasses.replace(smoke, family=family))
 
 
 def test_bfloat16_tree_crosses_and_round_trips():
@@ -432,7 +433,7 @@ def test_dense_window_raises_and_cache_shapes():
     assert transformer.forward(params, cfg, tokens, window=4)[0].shape[:2] \
         == (2, 8)
     # The families not ported still raise, with or without a window.
-    for family in ("moe", "hybrid"):
+    for family in ("enc_dec", "vlm"):
         with pytest.raises(NotImplementedError, match="not ported"):
             transformer.init_cache(dataclasses.replace(cfg, family=family), 2,
                                    16, window=4)
@@ -482,10 +483,11 @@ def test_sim_model_forward_matches_reference(name):
 def test_sim_model_unported_families_raise():
     for name in registry.sim_models():
         arch = name.split(":", 1)[1] if name.startswith("nwp:") else None
-        if arch in (None, "qwen2_5_3b", "rwkv6_1_6b", "llama3_8b",
-                    "starcoder2_3b", "gemma_7b"):
+        if arch is None:
             continue
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            registry.sim_model(name)
+        registry.sim_model(name)      # every decoder-only family is ported
+    for arch in base.MODAL_ARCHS:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7e"):
+            registry.nwp_cfg(arch)
     with pytest.raises(ValueError, match="unknown sim model"):
         registry.sim_model("nope")
