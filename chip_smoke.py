@@ -94,7 +94,9 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  under a window of 512, D = 256 in float32 and bf16 at a
                  ragged S, and windows (40, 300, 512, S, past S; causal and
                  full) at D = 64, 128 and 256, a window of S or more
-                 bit-equal to none; times the kernel, the plain version and
+                 bit-equal to none; whisper-base's encoder (full, S =
+                 1,500) and decoder and the VLM's prefill (64 heads, GQA 8);
+                 times the kernel, the plain version and
                  `F.scaled_dot_product_attention` (the library yardstick,
                  used nowhere in the port; with the boolean window mask
                  under a window) with CUDA events, L2 cold and warm, beside
@@ -241,9 +243,30 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  against the CPU; (d) phase 18's NWP grid with
                  `nwp:granite_moe_1b_a400m` and `nwp:hymba_1_5b` clients,
                  3 rounds, K1 once a round (B = 2).
+ 23. modal     — (a) whisper-base (enc_dec: 6 encoder layers over 1,500
+                 frames, 6 decoder layers) through `launch.serve.serve` at
+                 full width and depth (bfloat16, seed 0; 8 prompts of 416
+                 tokens + 32 generated, frames a standard normal draw), its
+                 cross blocks' gates set from a numpy seed: K2 12 launches in
+                 the prefill, 6 of them full (the encoder, S = 1,500) and 6
+                 causal, none in decode; the prefill held to impl="torch"
+                 (`serve_vs_plain`, encoder and decoder layers alike, the
+                 cross K/V among the caches); one profiled prefill and
+                 decode step split into K2 by mask, the cross-attention,
+                 the GEMMs and the rest; (b) llama-3.2-vision-90b (vlm) at
+                 full width and 10 of its 100 layers the same way (K2 8
+                 launches at 64 heads over 8, 1,600 patches); (c)
+                 `launch.train.main` on whisper-base at full width and depth,
+                 3 AdamW steps of 8 x 128 tokens (zero frames, as the
+                 reference's), no K2 or K3 launch, then one `train_step`
+                 with standard normal frames and the gates set: some
+                 encoder leaf's gradient non-zero; (d) both float32 smoke
+                 variants served and one `train_step` each, card against
+                 the CPU.  Phase 12 holds K2 at the three new shapes.
 
 It then prints the card line, one JSON line describing every ported kernel
-(K2's with its launches by path and its time at each dense prefill shape),
+(K2's with its launches by path and by mask and its time at each prefill
+shape),
 and last a JSON line with the device.  Without CUDA, or without the rest of
 the repository beside it, it exits nonzero before printing any result.
 """
@@ -325,7 +348,10 @@ K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
 # shapes (`K2_TIMED` times them): llama3-8b's, starcoder2-3b's and gemma-7b's
 # prefill (D = 256, the first body) and llama3-8b's under phase 21's window
 # of 512; phase 22's prefills, granite-moe-1b-a400m's (GQA 2) and
-# hymba-1.5b's (GQA 5, 25 heads); D = 256 in float32 and bf16, causal and full, at a ragged S; and
+# hymba-1.5b's (GQA 5, 25 heads); phase 23's, whisper-base's encoder
+# (bidirectional, S = 1,500 = 11 x 128 + 92: a ragged last tile) and
+# decoder prefills (GQA 1 at D = 64) and llama-3.2-vision-90b's (64 query
+# heads, GQA 8); D = 256 in float32 and bf16, causal and full, at a ragged S; and
 # windows at D = 64, 128 and 256 over S = 2048 (Hopper body at 64 / 128 in
 # bf16, the first body at 256 and in float32): below one tile (40), not a
 # multiple of 128 (300), phase 21's 512, and S or more, which must equal no
@@ -380,12 +406,18 @@ K2_CASES = [
     ("growth_w300", (1, 700, 16, 2, 128), torch.bfloat16, True, "growth", 300),
     ("growth_w512", (1, 1100, 16, 2, 128), torch.bfloat16, True, "growth",
      512),
+    ("whisper_enc", (8, 1500, 8, 8, 64), torch.bfloat16, False, "randn",
+     None),
+    ("whisper_dec", (8, 416, 8, 8, 64), torch.bfloat16, True, "randn", None),
+    ("vlm_serve", (8, 2048, 64, 8, 128), torch.bfloat16, True, "randn", None),
 ]
 # The cases timed with the L2 cold and warm beside SDPA and the bound: the
 # dense prefills at full width, then phase 22's: granite-moe-1b-a400m's
-# (GQA 2 at D = 64) and hymba-1.5b's (25 heads over 5 kv heads, GQA 5).
+# (GQA 2 at D = 64) and hymba-1.5b's (25 heads over 5 kv heads, GQA 5);
+# then phase 23's: whisper-base's encoder and decoder, the VLM's.
 K2_TIMED = ("serve", "llama_serve", "starcoder_serve", "gemma_serve",
-            "llama_window512", "granite_serve", "hymba_serve")
+            "llama_window512", "granite_serve", "hymba_serve", "whisper_enc",
+            "whisper_dec", "vlm_serve")
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # absolute
 # The same errors against each output row's own size (`k2_row_err`): late
 # causal rows average many values and are small, so the absolute limit
@@ -540,7 +572,27 @@ PROFILE_PARTS = {
     "hybrid": ((_SSM, "ssm_seq", "ssm:seq"), (_SSM, "ssm_step", "ssm:step"),
                (_SSM, "_ssm_terms", "ssm:terms"),
                (_SSM, "ssm_scan", "ssm:scan")),
+    # The cross-attention: the prefill's key / value projections and
+    # attention (`_sdpa` with its own projections), a decode step's.
+    **dict.fromkeys(("enc_dec", "vlm"), (
+        ("repro_torch.models.layers", "cross_kv", "xattn"),
+        ("repro_torch.models.layers", "cross_attention", "xattn"),
+        ("repro_torch.models.transformer", "_decode_xattn", "xattn"))),
 }
+GEMM_KERNELS = r"gemm|xmma|cutlass|sm90_|nvjet"   # cuBLAS's kernel names
+# Phase 23 (the enc-dec and VLM families): whisper-base served at full width
+# and depth (1,500 encoder frames, 8 prompts of 416 tokens + 32 generated:
+# 448, the Whisper decoder's text context) and trained (TRAIN_FULL_STEPS
+# of 8 x 128 tokens); llama-3.2-vision-90b served at full width and
+# VLM_LAYERS of its 100 layers (2 groups of 4 self layers + 1 cross layer:
+# 19.2 GB of bf16 weights, the whole model's 173 GB being over the card),
+# at SERVE_SHAPE.  Every cross block's gate is drawn as zero, which hides
+# the cross path (and whisper's encoder) from the logits: every comparison
+# of two paths first sets the gates from GATE_SEED (`set_gates`).
+MODAL_SERVE = ("whisper-base", "llama-3.2-vision-90b")
+WHISPER_SHAPE = dict(batch=8, prompt_len=416, gen=32)
+VLM_LAYERS = 10
+GATE_SEED = 23
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -899,7 +951,7 @@ def run_slice(sim, scenarios, base, sync):
     return launches
 
 
-def _profiled(fn, ranges=()):
+def _profiled(fn, ranges=(), keep=False):
     """(wall ms, CUDA kernel events) of one call of ``fn`` under
     torch.profiler, ending in a device sync.  Kernel events only: CPU-side
     aten ops also report the device time of the kernels they launched.
@@ -907,7 +959,8 @@ def _profiled(fn, ranges=()):
     ``fn``) it also returns {name: device us of the kernels launched in
     that range}, the ranges' own events left out of the kernel list; a
     name ending in ``*`` sums every CPU event whose name starts with the
-    rest (none of which may nest in another)."""
+    rest (none of which may nest in another).  With ``keep`` the profiler
+    comes last."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -931,7 +984,8 @@ def _profiled(fn, ranges=()):
                        if matches(ev.key, name)
                        and ev.device_type.name == "CPU")
              for name in ranges}
-    return wall_ms, kernels, spans
+    return (wall_ms, kernels, spans, prof) if keep else (wall_ms, kernels,
+                                                         spans)
 
 
 @contextlib.contextmanager
@@ -1662,38 +1716,92 @@ def k2_checks(dev, timer):
     return rows
 
 
-def serve_full(dev, tag, arch=None, window=None):
-    """Phase 9 / 13 / 20 / 21: a serving path at full width through
-    `launch.serve.serve` (``arch``, default the tag's in `SERVE_PATHS`,
-    under ``window``); its kernel's launches are counted per phase."""
+def k2_per_prefill(cfg) -> dict:
+    """K2's launches in one prefill of ``cfg``, by mask: one a decoder
+    self-attention layer causal, one an encoder layer full (enc_dec); the
+    vlm's cross blocks run the plain attention."""
+    from repro_torch.models import transformer as T
+
+    if cfg.family == "enc_dec":
+        return {"causal": cfg.n_layers, "full": cfg.n_enc_layers}
+    if cfg.family == "vlm":
+        g, ns = T.vlm_groups(cfg)
+        return {"causal": g * ns, "full": 0}
+    return {"causal": cfg.n_layers, "full": 0}
+
+
+def set_gates(params, seed=GATE_SEED) -> list:
+    """Set every cross block's ``gate`` leaf (drawn as zero, so that the
+    cross path, and for enc_dec the encoder, would not reach the logits)
+    to a uniform draw in [0.5, 1.0] from numpy ``seed``, in place.
+    Returns the values set, by leaf."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, leaf in params.items():
+        if name.split(".")[-1] == "gate":
+            vals = rng.uniform(0.5, 1.0, size=tuple(leaf.shape))
+            leaf.copy_(torch.from_numpy(vals))
+            out.append((name, [round(float(v), 4) for v in
+                               leaf.float().flatten().tolist()]))
+    return out
+
+
+# K2's launches by mask on each served path, by "tag:model" (`serve_full`).
+K2_SERVED_MASKS: dict[str, dict] = {}
+
+
+def serve_full(dev, tag, arch=None, window=None, cfg=None, shape=None):
+    """Phase 9 / 13 / 20 / 21 / 22 / 23: a serving path at full width
+    through `launch.serve.serve` (``arch``, default the tag's in
+    `SERVE_PATHS`, or the config ``cfg``, under ``window``, at ``shape``,
+    default `SERVE_SHAPE`); its kernel's launches are counted per phase (K2's
+    also by mask).  A modal family's weights are drawn from the served
+    seed as `serve` draws them, with every gate set (`set_gates`)."""
+    from repro_torch import resolve_device
     from repro_torch.configs import base
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as _rwkv
     from repro_torch.launch import serve
+    from repro_torch.models import registry
 
-    if arch is None:
+    if arch is None and cfg is None:
         arch, kernel = SERVE_PATHS[tag]
     else:
         kernel = "flash_attention"
-    cfg = base.get(arch)
+    if cfg is None:
+        cfg = base.get(arch)
+    shape = SERVE_SHAPE if shape is None else shape
+    modal = registry.needs_modal(cfg)
     # Warm-up (cuBLAS handles and plans, the allocator) with a short prompt,
     # before the counted run.
-    serve.serve(cfg, batch=SERVE_SHAPE["batch"], prompt_len=64, gen=2, seed=1,
+    serve.serve(cfg, batch=shape["batch"], prompt_len=64, gen=2, seed=1,
                 window=window)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
+    params = None
+    if modal:
+        params = registry.build(cfg).init(
+            torch.Generator(resolve_device(dev)).manual_seed(
+                serve._seeds(0)[0]), device=dev)
+        gates = set_gates(params)
+        print(f"[{tag}] {cfg.name}: gates set uniform in [0.5, 1.0] from "
+              f"numpy seed {GATE_SEED}: {gates}")
     ops.LAUNCHES[kernel] = 0
+    for key in fa.MASK_LAUNCHES:
+        fa.MASK_LAUNCHES[key] = 0
     for body in _rwkv.BODIES:
         _rwkv.BODY_LAUNCHES[body] = 0
-    res = serve.serve(cfg, **SERVE_SHAPE, seed=0, window=window)
+    res = serve.serve(cfg, **shape, seed=0, window=window, params=params)
     launches = ops.LAUNCHES[kernel]
+    masks = dict(fa.MASK_LAUNCHES)
     bodies = dict(_rwkv.BODY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    del params
     n_params = sum(t.numel() for t in res.params.values())
-    b, gen = SERVE_SHAPE["batch"], SERVE_SHAPE["gen"]
+    b, gen = shape["batch"], shape["gen"]
     check(tuple(res.tokens.shape) == (b, gen), f"ids {tuple(res.tokens.shape)}")
     check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab,
           "generated ids outside the vocabulary")
@@ -1714,10 +1822,16 @@ def serve_full(dev, tag, arch=None, window=None):
     elif cfg.family == "hybrid":
         heads += (f", SSM d_inner {cfg.ssm_cfg().d_inner} d_state "
                   f"{cfg.d_state}")
+    elif cfg.family == "enc_dec":
+        heads += (f", {cfg.n_enc_layers} encoder layers over "
+                  f"{cfg.enc_seq} frames")
+    elif cfg.family == "vlm":
+        heads += (f", a cross layer every {cfg.cross_attn_every} over "
+                  f"{cfg.n_modal_tokens} patches")
     print(f"[{tag}] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, "
           f"d {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
           f"{cfg.act}, {str(cfg.dtype)[6:]}); batch {b} x prompt "
-          f"{SERVE_SHAPE['prompt_len']} + {gen} generated; window {window}")
+          f"{shape['prompt_len']} + {gen} generated; window {window}")
     print(f"[{tag}] prefill {res.prefill_s:.4f} s; decode {res.decode_steps} "
           f"steps x batch {b} in {res.decode_s:.4f} s = "
           f"{res.decode_tokens_per_s:.1f} tok/s "
@@ -1725,12 +1839,15 @@ def serve_full(dev, tag, arch=None, window=None):
           f"max_memory_allocated {peak / 2**30:.3f} GiB")
     print(f"[{tag}] ids, row 0: {res.tokens[0].tolist()}")
     pre, dec = res.prefill_launches[kernel], res.decode_launches[kernel]
+    expected = (k2_per_prefill(cfg) if kernel == "flash_attention"
+                else {"causal": cfg.n_layers, "full": 0})
+    n_expected = sum(expected.values())
     print(f"[{tag}] {kernel} launches on the serving path: {pre} in the "
           f"prefill, {dec} in decode, {launches} in all (expected "
-          f"{cfg.n_layers}, one per layer of the prefill)")
-    check(pre == cfg.n_layers and dec == 0 and launches == cfg.n_layers,
+          f"{n_expected}, one per self-attention layer of the prefill)")
+    check(pre == n_expected and dec == 0 and launches == n_expected,
           f"{kernel} launched {pre} times in the prefill and {dec} in decode, "
-          f"expected {cfg.n_layers} and 0")
+          f"expected {n_expected} and 0")
     if kernel == "rwkv6_scan":
         print(f"[{tag}] rwkv6_scan launches by body: {bodies} (expected all "
               f"{cfg.n_layers} through the chunked body)")
@@ -1738,7 +1855,11 @@ def serve_full(dev, tag, arch=None, window=None):
               f"rwkv6_scan bodies on the serving path: {bodies}")
     else:
         print(f"[{tag}] flash_attention at head dim {cfg.hd} runs the "
-              f"{fa.body(cfg.dtype, cfg.hd)} body")
+              f"{fa.body(cfg.dtype, cfg.hd)} body; launches by mask {masks} "
+              f"(expected {expected})")
+        check(masks == expected, f"flash_attention by mask: {masks}, "
+              f"expected {expected}")
+        K2_SERVED_MASKS[f"{tag}:{cfg.name}"] = masks
 
     serve_vs_plain(cfg, res, tag, kernel, window)
     return cfg, res, launches
@@ -1817,19 +1938,24 @@ class MoeRoutes:
             self.label, self.own = None, False
 
 
-def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
+def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None,
+               modal=None):
     """The serving prefill's precision, from the kernel path's bfloat16
     ``logits`` and ``cache`` (time-mix states, or K/V caches) for
-    ``params`` and ``prompt`` under ``window``:
+    ``params`` and ``prompt`` (and a modal family's ``modal`` embeddings)
+    under ``window``:
 
       * f32_*: the same weights (widened, exactly) with float32 activations
         at full depth, kernel against impl="torch";
       * layer_*: the bfloat16 model layer by layer from the same input,
-        kernel against impl="torch" (worst layer);
+        kernel against impl="torch" (worst layer; an encoder layer's output
+        is its side stream);
       * bf16_*_kernel / bf16_*_torch: each bfloat16 path's relative L2 gap
         to the float32 impl="torch" run, logits and all layers' caches.
 
-    Gaps named *_max are max |diff| over max |value|.  For the moe family
+    Gaps named *_max are max |diff| over max |value|.  A "layer" is a step
+    of `transformer.units`: an encoder layer, the encoder's norm, a decoder
+    layer, a vlm self layer or cross block.  For the moe family
     the paths above route each layer's tokens as the float32 impl="torch"
     run routes them (`MoeRoutes`; ``routes`` counts, per path, the tokens
     whose own choice differs), and a fifth path, the bfloat16 kernel path
@@ -1851,7 +1977,6 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
 
     launches = ops.LAUNCHES[kernel]
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    names = list(cache)
     g = {"f32_cache_max": 0.0, "layer_out_max": 0.0, "layer_cache_max": 0.0}
     sq = dict.fromkeys(("cache_kernel", "cache_torch", "cache_own_kernel",
                         "cache_own_torch", "cache_ref"), 0.0)
@@ -1860,54 +1985,53 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
         g["served_cache_max"] = 0.0
     routes = MoeRoutes()
 
-    def entries(kept):
-        return kept if isinstance(kept, tuple) else (kept,)
-
     def routed(label, own=False):
         return routes.mode(label, own) if moe else contextlib.nullcontext()
 
+    def step(c, kind, lp, stream, impl):
+        x, src, kept, _ = T.apply_unit(c, kind, lp, *stream, impl=impl,
+                                       window=window)
+        return (x, src), kept
+
+    def worst(key, gaps):
+        g[key] = max([g[key], *gaps])
+
     with torch.no_grad(), routes.installed():
         emb = layers.embed(T._sub(params, "embed"), prompt).to(cfg.dtype)
-        x32k = x32t = emb.float()
-        xbt = xbk = xbe = xok = xot = emb
+        # Each path's (decoder stream, side stream): the side stream is the
+        # modal input (float32 in the float32 run), None for the others.
+        f32k = f32t = (emb.float(), T._modal(cfg32, modal, cast=True))
+        bt = bk = be = ok = ot = (emb, T._modal(cfg, modal, cast=True))
         del emb
-        for i, lp in enumerate(T.layer_params(params, cfg.n_layers)):
+        for kind, lp, at in T.units(params, cfg):
+            names = T.cache_names(cfg, kind)
             lp32 = {k: v.float() for k, v in lp.items()}
             with routed("record"):
-                x32t, ct32, _ = T._block(cfg32, lp32, x32t, impl="torch",
-                                         window=window)
+                f32t, ct32 = step(cfg32, kind, lp32, f32t, "torch")
             with routed("f32 kernel"):
-                x32k, ck32, _ = T._block(cfg32, lp32, x32k, impl="kernel",
-                                         window=window)
+                f32k, ck32 = step(cfg32, kind, lp32, f32k, "kernel")
             del lp32
-            ck32, ct32 = entries(ck32), entries(ct32)
-            g["f32_cache_max"] = max(g["f32_cache_max"], *(
-                _rel_gap(a, b) for a, b in zip(ck32, ct32)))
+            worst("f32_cache_max", [_rel_gap(a, b) for a, b in zip(ck32, ct32)])
             del ck32
             with routed("bf16 torch"):
-                xbt, cbt, _ = T._block(cfg, lp, xbt, impl="torch",
-                                       window=window)
+                bt, cbt = step(cfg, kind, lp, bt, "torch")
+            served = [T._at(cache[n], at) for n in names]
             if moe:
                 with routed("bf16 kernel"):
-                    xbe, cbe, _ = T._block(cfg, lp, xbe, impl="kernel",
-                                           window=window)
-                served = [cache[n][i] for n in names]
+                    be, cbe = step(cfg, kind, lp, be, "kernel")
                 with routed("bf16 kernel own", own=True):
-                    xok, cok, _ = T._block(cfg, lp, xok, impl="kernel",
-                                           window=window)
-                g["served_cache_max"] = max(g["served_cache_max"], *(
-                    _rel_gap(a, b) for a, b in zip(served, entries(cok))))
+                    ok, cok = step(cfg, kind, lp, ok, "kernel")
+                worst("served_cache_max",
+                      [_rel_gap(a, b) for a, b in zip(served, cok)])
                 with routed("bf16 torch own", own=True):
-                    xot, cot, _ = T._block(cfg, lp, xot, impl="torch",
-                                           window=window)
-                pairs = {"cache_kernel": list(entries(cbe)),
+                    ot, cot = step(cfg, kind, lp, ot, "torch")
+                pairs = {"cache_kernel": list(cbe),
                          "cache_own_kernel": served,
-                         "cache_own_torch": [c.to(cfg.dtype)
-                                             for c in entries(cot)]}
+                         "cache_own_torch": [c.to(cfg.dtype) for c in cot]}
                 del cbe, cok, cot
             else:
-                pairs = {"cache_kernel": [cache[n][i] for n in names]}
-            pairs["cache_torch"] = [c.to(cfg.dtype) for c in entries(cbt)]
+                pairs = {"cache_kernel": served}
+            pairs["cache_torch"] = [c.to(cfg.dtype) for c in cbt]
             for key, got in pairs.items():
                 for a, b in zip(got, ct32):
                     sq[key] += float(torch.linalg.vector_norm(
@@ -1916,33 +2040,33 @@ def serve_gaps(cfg, params, prompt, logits, cache, kernel, window=None):
                                    for b in ct32)
             del cbt, ct32, pairs
             with routed("bf16 layer kernel"):
-                xk, ck, _ = T._block(cfg, lp, xbk, impl="kernel",
-                                     window=window)
+                sk, ck = step(cfg, kind, lp, bk, "kernel")
             with routed("bf16 layer torch"):
-                xt, ct, _ = T._block(cfg, lp, xbk, impl="torch",
-                                     window=window)
-            g["layer_out_max"] = max(g["layer_out_max"], _rel_gap(xk, xt))
-            g["layer_cache_max"] = max(g["layer_cache_max"], *(
-                _rel_gap(a, b) for a, b in zip(entries(ck), entries(ct))))
-            xbk = xk
-            del xt, ck, ct
+                st, ct = step(cfg, kind, lp, bk, "torch")
+            worst("layer_out_max", [_rel_gap(a, b) for a, b in zip(sk, st)
+                                    if b is not None])
+            worst("layer_cache_max", [_rel_gap(a, b) for a, b in zip(ck, ct)])
+            bk = sk
+            del st, ck, ct
         norm = T._norm(cfg)
         final = T._sub(params, "final_norm")
         table = T._sub(params, "embed")
         final32 = {k: v.float() for k, v in final.items()}
-        lk32, lt32 = (layers.unembed(table, norm(final32, x[:, -1]))
-                      for x in (x32k, x32t))
-        lt = layers.unembed(table, norm(final, xbt[:, -1]))
+        lk32, lt32 = (layers.unembed(table, norm(final32, x[0][:, -1]))
+                      for x in (f32k, f32t))
+        lt = layers.unembed(table, norm(final, bt[0][:, -1]))
         if moe:
-            lok, lot = (layers.unembed(table, norm(final, x[:, -1]))
-                        for x in (xok, xot))
+            lok, lot = (layers.unembed(table, norm(final, x[0][:, -1]))
+                        for x in (ok, ot))
             g["served_logits_max"] = _rel_gap(logits, lok)
             g["routes"] = {label: (routes.flips[label], routes.tokens[label])
                            for label in routes.flips}
             own = {"own_kernel": logits, "own_torch": lot}
-            logits = layers.unembed(table, norm(final, xbe[:, -1]))
+            logits = layers.unembed(table, norm(final, be[0][:, -1]))
     passes = 4 if moe else 2
-    check(ops.LAUNCHES[kernel] == launches + passes * cfg.n_layers,
+    per = (sum(k2_per_prefill(cfg).values()) if kernel == "flash_attention"
+           else cfg.n_layers)
+    check(ops.LAUNCHES[kernel] == launches + passes * per,
           f"the {passes} kernel paths of serve_gaps did not go through the "
           f"kernel once per layer each")
     g["f32_logits_max"] = _rel_gap(lk32, lt32)
@@ -1976,10 +2100,19 @@ def serve_vs_plain(cfg, res, tag, kernel, window=None):
     SERVE_MOE_OWN_RATIO (its logits SERVE_MOE_LOGITS_RATIO) times as much
     as impl="torch" does.
     """
+    on_card = res.prompt.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     g = serve_gaps(cfg, res.params, res.prompt, res.prefill_logits,
-                   res.prefill_cache, kernel, window)
-    what = {"ssm": "state", "hybrid": "K/V cache and SSM state"}.get(
-        cfg.family, "K/V cache")
+                   res.prefill_cache, kernel, window, res.modal)
+    if on_card:
+        print(f"[{tag}] the comparisons below held "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB at their "
+              f"peak (the served weights included; each layer's float32 "
+              f"copy made as it comes)")
+    what = {"ssm": "state", "hybrid": "K/V cache and SSM state",
+            "enc_dec": "self and cross K/V cache",
+            "vlm": "self and cross K/V cache"}.get(cfg.family, "K/V cache")
     if "routes" in g:
         flips = ", ".join(f"{label} {n} of {t}" for label, (n, t)
                           in g["routes"].items())
@@ -2044,16 +2177,18 @@ def serve_vs_plain(cfg, res, tag, kernel, window=None):
 
 
 def serve_reference(dev, tag, arch=None):
-    """Phase 10 / 14 / 22 (c): the float32 smoke variant of ``arch``
-    (default the tag's in `SERVE_PATHS`) through `launch.serve.serve`
-    (batch 4 x prompt 128 + 16) on the card, its kernel once a prefill
-    layer, and on the CPU's plain path from the same weights and prompts:
-    the same greedy ids, and the prefill logits and every cache leaf
+    """Phase 10 / 14 / 22 (c) / 23 (d): the float32 smoke variant of
+    ``arch`` (default the tag's in `SERVE_PATHS`) through
+    `launch.serve.serve` (batch 4 x prompt 128 + 16) on the card, its
+    kernel once a prefill self-attention layer, and on the CPU's plain
+    path from the same weights, prompts (and modal embeddings, the gates
+    set): the same greedy ids, and the prefill logits and every cache leaf
     within SMOKE_TOL."""
     from repro_torch.configs import base
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import registry
+    from repro_torch.models import transformer as T
 
     if arch is None:
         arch, kernel = SERVE_PATHS[tag]
@@ -2064,15 +2199,24 @@ def serve_reference(dev, tag, arch=None):
                                       device="cpu")
     tokens = torch.randint(0, cfg.vocab, (4, 128),
                            generator=torch.Generator().manual_seed(1))
+    modal = None
+    if registry.needs_modal(cfg):
+        set_gates(params)
+        modal = torch.randn((4, T.modal_len(cfg), cfg.d_model),
+                            generator=torch.Generator().manual_seed(2))
     kw = dict(batch=4, prompt_len=128, gen=16)
-    cpu = serve.serve(cfg, **kw, device="cpu", params=params, tokens=tokens)
+    cpu = serve.serve(cfg, **kw, device="cpu", params=params, tokens=tokens,
+                      modal=modal)
     before = ops.LAUNCHES[kernel]
     gpu = serve.serve(cfg, **kw, device=dev,
                       params={k: v.to(dev) for k, v in params.items()},
-                      tokens=tokens.to(dev))
-    check(ops.LAUNCHES[kernel] == before + cfg.n_layers,
+                      tokens=tokens.to(dev),
+                      modal=None if modal is None else modal.to(dev))
+    per = (sum(k2_per_prefill(cfg).values()) if kernel == "flash_attention"
+           else cfg.n_layers)
+    check(ops.LAUNCHES[kernel] == before + per,
           f"{arch} smoke: the card's prefill did not launch {kernel} once a "
-          f"layer")
+          f"self-attention layer")
     ops.LAUNCHES[kernel] = before
     wants = {"logits": cpu.prefill_logits, **cpu.prefill_cache}
     gots = {"logits": gpu.prefill_logits, **gpu.prefill_cache}
@@ -2091,10 +2235,63 @@ def serve_reference(dev, tag, arch=None):
           f"{arch} smoke: card vs CPU")
 
 
+@contextlib.contextmanager
+def _k2_masks():
+    """Inside: the mask of each `ops.flash_attention` call is kept in call
+    order, "causal" or "full" (an encoder's).  Yields that list.  The
+    profiler ties no range to K2's ctypes launch, and CUDA events around it
+    would also time the card waiting for a host-bound launch, so
+    `_k2_us_by_mask` pairs the list with the profiled K2 kernels in time
+    order."""
+    from repro_torch.kernels import ops
+
+    orig = ops.flash_attention
+    masks = []
+
+    def kept(*args, causal=True, **kwargs):
+        masks.append("causal" if causal else "full")
+        return orig(*args, causal=causal, **kwargs)
+
+    ops.flash_attention = kept
+    try:
+        yield masks
+    finally:
+        ops.flash_attention = orig
+
+
+def _k2_us_by_mask(prof, masks) -> dict | None:
+    """K2's device us by mask: the profiled K2 kernels in start order paired
+    with ``masks`` (`_k2_masks`); None when their counts differ."""
+    kernels = sorted((ev for ev in prof.events()
+                      if ev.device_type.name == "CUDA"
+                      and "flash_attention" in ev.name),
+                     key=lambda ev: ev.time_range.start)
+    if len(kernels) != len(masks):
+        return None
+    out = {"causal": 0.0, "full": 0.0}
+    for mask, ev in zip(masks, kernels):
+        out[mask] += ev.time_range.elapsed_us()
+    return out
+
+
+def _range_kernel_us(prof, label: str, pattern: str) -> float:
+    """Device us of the kernels matching ``pattern`` launched inside the
+    ``label`` ranges of ``prof``, from its event tree."""
+    def walk(ev):
+        return (sum(k.duration for k in ev.kernels
+                    if re.search(pattern, k.name, re.I))
+                + sum(walk(child) for child in ev.cpu_children))
+
+    return sum(walk(ev) for ev in prof.events() if ev.name == label)
+
+
 def profile_serve(cfg, res, tag, kernel, window=None):
-    """Phase 11 / 15 / 20 / 21 / 22: one full-width prefill and one decode
-    step under torch.profiler (under ``window``); for the moe and hybrid
-    families also the device time in each of `PROFILE_PARTS`' ranges."""
+    """Phase 11 / 15 / 20 / 21 / 22 / 23: one full-width prefill and one
+    decode step under torch.profiler (under ``window``); for the moe,
+    hybrid and modal families also the device time in each of
+    `PROFILE_PARTS`' ranges; for the modal families K2 by mask (an
+    encoder's, full; a decoder's, causal), the cross-attention, the GEMMs
+    outside it and the rest."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
@@ -2102,13 +2299,21 @@ def profile_serve(cfg, res, tag, kernel, window=None):
     s = res.prompt.shape[1]
     token = res.tokens[:, :1].to(res.prompt.device)
     cache = serve.grow_cache(res.prefill_cache, s + 1)
+    batch = {"tokens": res.prompt}
+    modal = registry.needs_modal(cfg)
+    if modal:
+        batch["modal_embeds"] = res.modal
     for what, fn in (
             ("prefill", lambda: bundle.prefill_step(
-                res.params, {"tokens": res.prompt}, window=window)),
+                res.params, batch, window=window)),
             ("decode step", lambda: bundle.serve_step(
                 res.params, cache, token, s, window=window))):
-        with _ranged_parts(PROFILE_PARTS.get(cfg.family, ())) as ranges:
-            out = _profiled(fn, ranges=ranges)
+        with contextlib.ExitStack() as stack:
+            ranges = tuple(dict.fromkeys(stack.enter_context(
+                _ranged_parts(PROFILE_PARTS.get(cfg.family, ())))))
+            if modal:
+                masks = stack.enter_context(_k2_masks())
+            out = _profiled(fn, ranges=ranges, keep=modal)
         wall_ms, events = out[:2]
         dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
         if dev_ms <= 0:
@@ -2128,9 +2333,36 @@ def profile_serve(cfg, res, tag, kernel, window=None):
                       f"{name} {spans[name] / 1e3:.3f} "
                       f"({100 * spans[name] / 1e3 / dev_ms:.1f}%)"
                       for name in ranges))
+        if modal:
+            modal_split(tag, what, cfg, out[2], out[3],
+                        _k2_us_by_mask(out[3], masks), events, dev_ms)
         for ev in sorted(events, key=lambda x: -x.self_device_time_total)[:12]:
             print(f"[{tag}-profile]   {ev.self_device_time_total / 1e3:9.3f} "
                   f"ms x{ev.count:<5d} {ev.key[:100]}")
+
+
+def modal_split(tag, what, cfg, spans, prof, k2_us, events, dev_ms) -> None:
+    """Phase 23's split of a profiled prefill or decode step: K2 by mask
+    (``k2_us``, `_k2_us_by_mask`; its sum alone where that is None), the
+    cross-attention (its projections included), the GEMMs outside it and
+    the rest, in device ms and shares of the device time."""
+    gemm_us = sum(ev.self_device_time_total for ev in events
+                  if re.search(GEMM_KERNELS, ev.key, re.I)
+                  and "flash_attention" not in ev.key)
+    in_xattn = _range_kernel_us(prof, "xattn", GEMM_KERNELS)
+    k2_all = sum(ev.self_device_time_total for ev in events
+                 if "flash_attention" in ev.key)
+    parts = ({"k2 (launches and kernels did not pair; by mask not "
+              "measured)": k2_all} if k2_us is None else
+             {"k2 encoder (full)": k2_us["full"],
+              "k2 decoder (causal)": k2_us["causal"]})
+    parts.update({"cross-attention": spans["xattn"],
+                  "GEMMs outside cross-attention": gemm_us - in_xattn})
+    parts["the rest"] = dev_ms * 1e3 - sum(parts.values())
+    print(f"[{tag}-profile] {cfg.name} {what} split: " + ", ".join(
+        f"{name} {us / 1e3:.3f} ms ({100 * us / 1e3 / dev_ms:.1f}%)"
+        for name, us in parts.items())
+        + f"; the cross-attention's own GEMMs {in_xattn / 1e3:.3f} ms")
 
 
 def _reset_k1_counts():
@@ -2921,32 +3153,39 @@ def _adamw_gap(got: dict, want: dict, grads: dict, lr: float,
 
 def train_step_reference(devices, cases=(("qwen2.5-3b", {}),
                                          ("rwkv6-1.6b", {}))):
-    """Phase 19, last (and phase 21 (d)): one float32 smoke `train_step`
-    (AdamW, lr 3e-4) of each case's architecture (its smoke config with
-    the case's overrides) on ``devices[1]`` and on ``devices[0]`` from the
-    same weights and tokens: loss within 1e-5, moments within 1e-4,
+    """Phase 19, last (and phases 21 (d), 22 (c), 23 (d)): one float32
+    smoke `train_step` (AdamW, lr 3e-4) of each case's architecture (its
+    smoke config with the case's overrides) on ``devices[1]`` and on
+    ``devices[0]`` from the same weights and tokens (and modal embeddings,
+    the gates set): loss within 1e-5, moments within 1e-4,
     parameters within 1e-4 where the gradient is above float32 noise
     (`_adamw_gap`)."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import registry
+    from repro_torch.models import transformer as T
 
     for arch, overrides in cases:
         cfg = dataclasses.replace(cfgbase.smoke_variant(cfgbase.get(arch)),
                                   **overrides)
         bundle = registry.build(cfg)
         params0 = bundle.init(torch.Generator().manual_seed(0), device="cpu")
-        tokens = torch.from_numpy(np.random.default_rng(3).integers(
-            0, cfg.vocab, size=(4, 64)))
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, size=(4, 64)))}
+        if registry.needs_modal(cfg):
+            set_gates(params0)
+            batch["modal_embeds"] = torch.from_numpy(
+                np.random.default_rng(4).normal(size=(
+                    4, T.modal_len(cfg), cfg.d_model)).astype(np.float32))
         leaves = {k: v.clone().requires_grad_() for k, v in params0.items()}
-        loss, _ = bundle.loss_fn(leaves, {"tokens": tokens}, device="cpu")
+        loss, _ = bundle.loss_fn(leaves, batch, device="cpu")
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
         outs = []
         for d in devices:
             params = {k: v.clone().to(d) for k, v in params0.items()}
             state = {"params": params, "opt": bundle.optimizer.init(params)}
-            outs.append(bundle.train_step(state, {"tokens": tokens.to(d)},
-                                          device=d))
+            outs.append(bundle.train_step(
+                state, {k: v.to(d) for k, v in batch.items()}, device=d))
         (s0, m0), (s1, m1) = outs
         loss_gap = abs(float(m1["loss"]) - float(m0["loss"]))
         mom_gap = max(float((s1["opt"][n][k].cpu() - s0["opt"][n][k]).abs()
@@ -3030,8 +3269,7 @@ def profile_train_step(dev, cfg):
     del state
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     opt_ms = spans["train:optimizer"] / 1e3
-    gemm = [ev for ev in events
-            if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", ev.key, re.I)]
+    gemm = [ev for ev in events if re.search(GEMM_KERNELS, ev.key, re.I)]
     gemm_ms = sum(ev.self_device_time_total for ev in gemm) / 1e3
     if dev_ms <= 0:
         print(f"[train-profile] one full-width step: wall {wall_ms:.2f} ms, "
@@ -3459,6 +3697,127 @@ def moe_hybrid_phase(dev) -> tuple[dict, dict]:
     return k2, k1
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the enc-dec and VLM families (slice 10)
+# ---------------------------------------------------------------------------
+def modal_train(dev) -> None:
+    """Phase 23 (c): whisper-base through `launch.train.main` at full width
+    and depth (bf16, AdamW with float32 moments), TRAIN_FULL_STEPS steps of
+    8 x 128 tokens at TRAIN_FULL_LR, fed zero frames as the reference's
+    `launch/train.py` feeds them: losses finite, the first within
+    TRAIN_START_TOL of ln V + d_model 0.02^2 / 2; K2 and K3 launch no time.
+    Zero frames stay zero through the encoder (a layernorm of zeros is its
+    bias, zero at init), so that run cannot show the encoder learning: one
+    more `train_step` from fresh weights with standard normal frames and
+    the gates set must give some encoder leaf a non-zero gradient."""
+    from repro_torch import resolve_device
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+
+    arch = MODAL_SERVE[0]
+    other = {k: ops.LAUNCHES[k] for k in ("flash_attention", "rwkv6_scan")}
+    torch.cuda.empty_cache()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    out = train.main(["--arch", arch, "--full-config", "--steps",
+                      str(TRAIN_FULL_STEPS), "--batch", "8", "--seq", "128",
+                      "--lr", str(TRAIN_FULL_LR)])
+    wall = time.perf_counter() - t0
+    cfg, losses = out["cfg"], out["losses"]
+    start = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - start) <= TRAIN_START_TOL,
+          f"{arch} full training: losses {losses} (step 0 expected within "
+          f"{TRAIN_START_TOL} of {start:.4f})")
+    tok_s = [out["tokens_per_step"] / x for x in out["step_s"][1:]]
+    print(f"[modal] (c) {arch} full config, {out['n_params']} parameters "
+          f"(bf16, AdamW float32 moments, remat {cfg.remat}), "
+          f"{TRAIN_FULL_STEPS} steps of 8 x 128 tokens and 8 x "
+          f"{cfg.enc_seq} zero frames at lr {TRAIN_FULL_LR:g}: losses "
+          f"{[round(x, 4) for x in losses]} (ln V + d 0.02^2 / 2 = "
+          f"{start:.4f}; the last below the first: {losses[-1] < losses[0]})"
+          f"; s/step {[round(x, 4) for x in out['step_s']]} (step 0 includes "
+          f"first-use setup); tokens/s after step 0 "
+          f"{[round(x, 1) for x in tok_s]}; peak {_peak_gib(dev):.3f} GiB; "
+          f"main() {wall:.2f} s")
+    del out
+    torch.cuda.empty_cache()
+
+    bundle = registry.build(cfg, lr=TRAIN_FULL_LR)
+    params = bundle.init(torch.Generator(resolve_device(dev)).manual_seed(0),
+                         device=dev)
+    gates = set_gates(params)
+    rng = np.random.default_rng(GATE_SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab, size=(8, 128))).to(dev),
+             "modal_embeds": torch.from_numpy(rng.normal(size=(
+                 8, T.modal_len(cfg), cfg.d_model)).astype(np.float32)
+                 ).to(dev, cfg.dtype)}
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        total, _ = bundle.loss_fn(leaves, batch, device=dev)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            total, list(leaves.values()))))
+    del leaves, total
+    norms = {prefix: math.sqrt(sum(
+        float(torch.linalg.vector_norm(g.float())) ** 2
+        for k, g in grads.items() if k.startswith(prefix)))
+        for prefix in ("enc_layers.", "enc_norm.", "layers.xattn.",
+                       "layers.gate", "layers.attn.", "embed.")}
+    nonzero = sorted(k for k, g in grads.items()
+                     if k.startswith("enc_layers.") and bool(g.any()))
+    del grads
+    state = {"params": params, "opt": bundle.optimizer.init(params)}
+    state, metrics = bundle.train_step(state, batch, device=dev)
+    print(f"[modal] (c) one train_step with N(0, 1) frames and gates "
+          f"{[v for _, v in gates]}: loss {float(metrics['loss']):.4f}; "
+          f"gradient norms by part "
+          + ", ".join(f"{k} {v:.4e}" for k, v in norms.items())
+          + f"; {len(nonzero)} enc_layers leaves with a non-zero gradient")
+    check(math.isfinite(float(metrics["loss"])) and nonzero
+          and norms["enc_layers."] > 0,
+          f"{arch}: no encoder leaf has a non-zero gradient")
+    del state, params, batch
+    torch.cuda.empty_cache()
+    check(all(ops.LAUNCHES[k] == n for k, n in other.items()),
+          f"training launched K2 or K3: {other} -> "
+          f"{ {k: ops.LAUNCHES[k] for k in other} }")
+    print("[modal] (c) K2 and K3 launched no time in training")
+
+
+def modal_phase(dev) -> dict:
+    """Phase 23: (a) whisper-base served at full width and depth
+    (`serve_full` at WHISPER_SHAPE: K2 12 launches a prefill, 6 full in
+    the encoder; the gates set; the prefill held to impl="torch" by
+    `serve_vs_plain`), one profiled prefill and decode step; (b)
+    llama-3.2-vision-90b at full width and VLM_LAYERS layers the same way
+    (K2 8 launches, GQA 8 over 64 heads); (c) whisper-base trained
+    (`modal_train`); (d) both configs' float32 smoke variants served and
+    one `train_step` each, card against the CPU.  Returns K2's launches by
+    architecture."""
+    from repro_torch.configs import base
+
+    k2 = {}
+    for arch in MODAL_SERVE:
+        cfg = base.get(arch)
+        shape = WHISPER_SHAPE
+        if cfg.family == "vlm":
+            cfg, shape = dataclasses.replace(cfg, n_layers=VLM_LAYERS), None
+        cfg, res, k2[arch] = serve_full(dev, "modal", cfg=cfg, shape=shape)
+        profile_serve(cfg, res, "modal", "flash_attention")
+        del res
+        torch.cuda.empty_cache()
+    modal_train(dev)
+    for arch in MODAL_SERVE:
+        serve_reference(dev, "modal", arch)
+    train_step_reference((torch.device("cpu"), dev),
+                         cases=tuple((arch, {}) for arch in MODAL_SERVE))
+    return k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3619,6 +3978,11 @@ def main() -> int:
     check(not unchecked, f"phase 22 launched K1 at {unchecked}, which "
           f"phase 3 does not hold to the plain version (K1_SHAPES)")
 
+    # 23. modal (whisper-base, llama-3.2-vision-90b at 10 layers)
+    t0 = time.perf_counter()
+    modal_k2 = modal_phase(dev)
+    print(f"[modal] phase 23 took {time.perf_counter() - t0:.2f} s")
+
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
                     and r["variant"] == "ra_normalized")
@@ -3686,7 +4050,8 @@ def main() -> int:
     k2_paths = {"dense-serve": k2_launches,
                 **{f"dense-zoo:{a}": n for a, n in zoo_launches.items()},
                 "window": window_launches,
-                **{f"moe-hybrid:{a}": n for a, n in mh_k2.items()}}
+                **{f"moe-hybrid:{a}": n for a, n in mh_k2.items()},
+                **{f"modal:{a}": n for a, n in modal_k2.items()}}
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -3694,6 +4059,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:98",
         "launches": sum(k2_paths.values()),
         "launches_by_path": k2_paths,
+        "launches_by_mask": K2_SERVED_MASKS,
         "max_abs_err": max(r["err"] for r in k2_rows
                            if r["dtype"] == "float32"),
         "ms": k2_row["ms_cold"],

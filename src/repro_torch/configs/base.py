@@ -4,19 +4,16 @@ input shapes.
 Port of the reference package's `configs/base.py`.  Every full config
 cites its source in `ModelCfg.source`; dtypes are torch dtypes.
 `smoke_variant` shrinks any config to <=2 layers, d_model<=512, <=4
-experts while keeping the family topology.  Only the families the port
-runs have their config files here (rwkv6-1.6b, the dense qwen2.5-3b,
+experts while keeping the family topology.  Every architecture of the
+reference has its config file here: rwkv6-1.6b, the dense qwen2.5-3b,
 llama3-8b, starcoder2-3b and gemma-7b, the moe granite-moe-1b-a400m and
-dbrx-132b, and the hybrid hymba-1.5b); `get` raises `NotImplementedError`
-for whisper-base (enc_dec) and llama-3.2-vision-90b (vlm), which come with
-their families (ROADMAP Queue 1 item 7e).  `all_configs` comes with the
-last of them.
+dbrx-132b, the hybrid hymba-1.5b, the enc_dec whisper-base and the vlm
+llama-3.2-vision-90b.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-import importlib.util
 
 import torch
 
@@ -35,10 +32,9 @@ ARCH_IDS = [
     "gemma_7b",
 ]
 
-# The families whose inputs include modal embeddings (enc_dec, vlm): the
-# simulator's ``apply(params, x)`` cannot carry them, so the NWP zoo
-# (`models.registry.SIM_MODEL_IDS`) skips them.  Named here so the zoo's
-# ids need no config the port lacks.
+# The architectures whose inputs include modal embeddings (enc_dec, vlm):
+# the simulator's ``apply(params, x)`` cannot carry them, so the NWP zoo
+# (`models.registry.SIM_MODEL_IDS`) skips them.
 MODAL_ARCHS = ("whisper_base", "llama3_2_vision_90b")
 
 # CLI-friendly aliases (--arch qwen2.5-3b etc.)
@@ -80,12 +76,11 @@ def get(arch: str) -> ModelCfg:
     arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch!r}; one of {ARCH_IDS}")
-    name = f"{__package__}.{arch}"
-    if importlib.util.find_spec(name) is None:
-        raise NotImplementedError(
-            f"{arch}: its family is not ported yet; see ROADMAP.md Queue 1 "
-            f"item 7e")
-    return importlib.import_module(name).CONFIG
+    return importlib.import_module(f"{__package__}.{arch}").CONFIG
+
+
+def all_configs() -> dict[str, ModelCfg]:
+    return {a: get(a) for a in ARCH_IDS}
 
 
 def smoke_variant(cfg: ModelCfg) -> ModelCfg:

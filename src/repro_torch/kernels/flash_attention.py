@@ -41,6 +41,10 @@ _MAX_TILES = 2**31 - 1    # work tiles: one per (query tile, batch, head)
 BLOCK = {"wgmma": (128, 256), "simt": (64, 128)}
 TMA_MAX_STRIDE = 2**40    # byte strides: multiples of 16 below this
 ENCODE_FAILED = 100000    # the C launch's code for a refused tensor map
+# Launches by mask, counted where `ops.flash_attention` launches the kernel
+# (beside its total in `ops.LAUNCHES`): "causal", or "full" (bidirectional,
+# an encoder's).
+MASK_LAUNCHES: dict[str, int] = {"causal": 0, "full": 0}
 
 
 def check_shapes(q, k, v) -> None:

@@ -325,4 +325,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _fa.launch(load_library("flash_attention"), q, k, v, scale=scale,
                      causal=causal, window=window)
     count_launch(LAUNCHES, "flash_attention")
+    count_launch(_fa.MASK_LAUNCHES, "causal" if causal else "full")
     return out

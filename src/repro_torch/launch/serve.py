@@ -13,7 +13,9 @@ Port of the reference package's `launch/serve.py` (single device).  Usage:
 
 `main`, like the reference's, serves the config's smoke variant; `serve`
 takes any config (the full-width one included) and returns the generated
-ids with the prefill and decode times.  After the prefill, attention caches
+ids with the prefill and decode times.  The modal families (enc_dec, vlm)
+prefill with frame / patch embeddings (B, T, d_model), a standard normal
+draw unless given, as the reference's `main` draws them.  After the prefill, attention caches
 (``k`` / ``v``) grow along their sequence axis to ``prompt_len + gen``, as
 the reference's `main` grows them; with ``window`` the prefill masks keys
 that far back (K2 takes the window on the card) and each decode step reads
@@ -52,6 +54,8 @@ class ServeResult:
     tokens: torch.Tensor          # (B, gen) int64 generated ids, on the CPU
     prompt: torch.Tensor          # (B, prompt_len) prompt ids, on the device
     params: transformer.Params    # the weights served
+    modal: torch.Tensor | None    # (B, T, D) modal embeddings prefilled
+                                  # (enc_dec, vlm), on the device
     prefill_logits: torch.Tensor  # (B, V) float32 last-token logits
     prefill_cache: transformer.Params  # the cache as prefill left it
                                        # (attention caches not yet grown)
@@ -68,7 +72,8 @@ class ServeResult:
 
 def grow_cache(cache: transformer.Params, total: int) -> transformer.Params:
     """Attention caches ``k`` / ``v`` (..., T, KV, Dh) zero-padded along T
-    to ``total`` slots (new tensors); other leaves as they are."""
+    to ``total`` slots (new tensors); other leaves (recurrent states, the
+    cross keys and values ``xk`` / ``xv``) as they are."""
     def grow(name, leaf):
         if name in ("k", "v") and leaf.ndim >= 4:
             pad = list(leaf.shape)
@@ -85,23 +90,27 @@ def _since(before: dict[str, int], *already: dict[str, int]) -> dict[str, int]:
             for name, n in ops.LAUNCHES.items()}
 
 
-def _seeds(seed: int) -> tuple[int, int]:
-    """Independent seeds for the weights and the prompts: correlating
-    prompt tokens with the parameter draws would make the run
-    unrepresentative."""
-    kids = np.random.SeedSequence(seed).spawn(2)
+def _seeds(seed: int) -> tuple[int, int, int]:
+    """Independent seeds for the weights, the prompts and the modal
+    embeddings: correlating them with the parameter draws would make the
+    run unrepresentative.  The first two are `SeedSequence.spawn(2)`'s,
+    which `spawn(3)` keeps."""
+    kids = np.random.SeedSequence(seed).spawn(3)
     return tuple(int(k.generate_state(1, dtype=np.uint64)[0] >> 1) for k in kids)
 
 
 def serve(cfg: transformer.ModelCfg, *, batch: int, prompt_len: int,
           gen: int, window: int | None = None, device=None, seed: int = 0,
           params: transformer.Params | None = None,
-          tokens: torch.Tensor | None = None) -> ServeResult:
+          tokens: torch.Tensor | None = None,
+          modal: torch.Tensor | None = None) -> ServeResult:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then greedy-decode
     until each row has ``gen`` tokens (the first from prefill).
 
     Weights and prompts are drawn from ``seed`` on the device unless
-    ``params`` / ``tokens`` are given (they must lie on the device).
+    ``params`` / ``tokens`` are given (they must lie on the device); so are
+    the modal families' embeddings ``modal`` (B, T, d_model), a float32
+    standard normal draw (the prefill casts them to ``cfg.dtype``).
     """
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
@@ -113,7 +122,7 @@ def serve(cfg: transformer.ModelCfg, *, batch: int, prompt_len: int,
         def sync():
             pass
     bundle = registry.build(cfg)
-    s_params, s_tokens = _seeds(seed)
+    s_params, s_tokens, s_modal = _seeds(seed)
     if params is None:
         params = bundle.init(torch.Generator(dev).manual_seed(s_params),
                              device=dev)
@@ -121,12 +130,19 @@ def serve(cfg: transformer.ModelCfg, *, batch: int, prompt_len: int,
         tokens = torch.randint(
             0, cfg.vocab, (batch, prompt_len), device=dev,
             generator=torch.Generator(dev).manual_seed(s_tokens))
+    inputs = {"tokens": tokens}
+    if registry.needs_modal(cfg):
+        if modal is None:
+            modal = torch.randn(
+                (batch, transformer.modal_len(cfg), cfg.d_model), device=dev,
+                generator=torch.Generator(dev).manual_seed(s_modal))
+        inputs["modal_embeds"] = modal
 
     launches = dict(ops.LAUNCHES)
     sync()
     t0 = time.perf_counter()
-    logits, cache = bundle.prefill_step(params, {"tokens": tokens},
-                                        window=window, device=dev)
+    logits, cache = bundle.prefill_step(params, inputs, window=window,
+                                        device=dev)
     sync()
     prefill_s = time.perf_counter() - t0
     prefill_launches = _since(launches)
@@ -146,7 +162,7 @@ def serve(cfg: transformer.ModelCfg, *, batch: int, prompt_len: int,
     decode_launches = _since(launches, prefill_launches)
     return ServeResult(
         tokens=torch.cat(generated, dim=1).cpu(), prompt=tokens, params=params,
-        prefill_logits=prefill_logits, prefill_cache=prefill_cache,
+        modal=modal, prefill_logits=prefill_logits, prefill_cache=prefill_cache,
         prefill_s=prefill_s, decode_s=decode_s, decode_steps=gen - 1,
         prefill_launches=prefill_launches, decode_launches=decode_launches)
 

@@ -1,10 +1,12 @@
 """End-to-end training entry point (single device).
 
 Port of the reference package's `launch/train.py`: a plain (non-FL)
-training loop for any ported architecture, at its smoke size or (with
+training loop for any architecture, at its smoke size or (with
 ``--full-config``) at full width and depth, or R&A D-FL pre-training of
 the smoke LM across simulated clients, exchanging through
-`core.protocols.ra_round` (K1 on the card).  Usage:
+`core.protocols.ra_round` (K1 on the card).  The modal families (enc_dec,
+vlm) are fed zero frame / patch embeddings, as the reference feeds them.
+Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --steps 50 --dfl --clients 4                  # on the CUDA card
@@ -32,7 +34,7 @@ from ..configs import base as cfgbase
 from ..core import protocols, routing, topology
 from ..data import pipeline, synthetic
 from ..kernels import ops
-from ..models import registry
+from ..models import registry, transformer
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -65,14 +67,16 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = cfgbase.get(args.arch)
     if not args.full_config:
         cfg = cfgbase.smoke_variant(cfg)
-    if registry.needs_modal(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: modal inputs are not ported yet; see ROADMAP.md "
-            f"Queue 1 item 7e")
     bundle = registry.build(cfg, lr=args.lr)
 
     def make_batch(tokens: np.ndarray) -> dict:
-        return {"tokens": torch.from_numpy(tokens[:, :-1]).to(dev)}
+        batch = {"tokens": torch.from_numpy(tokens[:, :-1]).to(dev)}
+        if registry.needs_modal(cfg):
+            # As the reference's: zero frame / patch embeddings.
+            batch["modal_embeds"] = torch.zeros(
+                (args.batch, transformer.modal_len(cfg), cfg.d_model),
+                dtype=cfg.dtype, device=dev)
+        return batch
 
     def step(state, tokens):
         sync()

@@ -5,10 +5,11 @@ dense slices run: dense init, RMSNorm and LayerNorm, split-half RoPE,
 grouped-query attention with optional QKV bias and sliding window
 (`attention` with an optional ``attn_mask``, its prefill core
 `self_attention`, the plain `_sdpa`, the online-softmax `_sdpa_chunked`),
-the KV cache with `decode_attention` (including the wrapped sliding-window
-cache: RoPE at ``rope_pos``, ``full_cache``), the MLP with all four
-activations, and the tied embedding.  Cross-attention is not ported yet
-(ROADMAP Queue 1 item 7e).
+`cross_attention` (queries from one sequence, keys and values from
+another, no RoPE, an optional key mask), the KV cache with
+`decode_attention` (including the wrapped sliding-window cache: RoPE at
+``rope_pos``, ``full_cache``), the MLP with all four activations, and the
+tied embedding.
 
 Conventions, as in the reference:
 
@@ -249,6 +250,41 @@ def attention(params: Params, cfg: AttnCfg, x: torch.Tensor, *,
         mask = _mask(s, cfg.causal, cfg.sliding_window, x.device) & attn_mask
         out = _sdpa(q, k, v, mask, scale=1.0 / math.sqrt(cfg.head_dim))
     return out.reshape(b, s, -1) @ params["wo"]
+
+
+def cross_attention(params: Params, cfg: AttnCfg, x: torch.Tensor,
+                    kv_src: torch.Tensor, *,
+                    kv_mask: torch.Tensor | None = None,
+                    kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                    ) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, D), keys and values from
+    kv_src (B, T, D), through the plain `_sdpa`; no RoPE.  With
+    ``cfg.qkv_bias`` each projection gets its bias, per head, added to the
+    rounded product.  ``kv_mask``: optional (B, T) bool (True = attend),
+    the same for every query.  ``kv``: kv_src's unbiased key and value
+    projections (B, T, KV, Dh), when the caller has them already (the
+    prefill keeps them as its cross cache)."""
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    h, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    k, v = cross_kv(params, cfg, kv_src) if kv is None else kv
+    if cfg.qkv_bias:
+        q = q + params["bq"].reshape(h, dh)
+        k = k + params["bk"].reshape(nkv, dh)
+        v = v + params["bv"].reshape(nkv, dh)
+    mask = None if kv_mask is None else kv_mask[:, None, :].expand(b, s, t)
+    out = _sdpa(q, k, v, mask, scale=1.0 / math.sqrt(dh))
+    return out.reshape(b, s, -1) @ params["wo"]
+
+
+def cross_kv(params: Params, cfg: AttnCfg, kv_src: torch.Tensor):
+    """kv_src's (B, T, D) key and value projections (B, T, KV, Dh), without
+    bias: what the decode cache keeps of a cross-attention."""
+    b, t, _ = kv_src.shape
+    shape = (b, t, cfg.n_kv_heads, cfg.head_dim)
+    return ((kv_src @ params["wk"]).reshape(shape),
+            (kv_src @ params["wv"]).reshape(shape))
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg,

@@ -125,6 +125,13 @@ def build(cfg: T.ModelCfg, *, optimizer: str = "adamw", lr: float = 3e-4,
     T.check_family(cfg)
     opt = optimizers.get(optimizer, lr)
 
+    def _modal(batch) -> dict:
+        """The forward's modal keyword from ``batch`` (the modal families
+        only)."""
+        if needs_modal(cfg):
+            return {"modal_embeds": batch["modal_embeds"]}
+        return {}
+
     def init(gen: torch.Generator, *, device=None) -> T.Params:
         """Parameters drawn with ``gen`` (on the generator's device) and
         placed on ``device``."""
@@ -132,11 +139,15 @@ def build(cfg: T.ModelCfg, *, optimizer: str = "adamw", lr: float = 3e-4,
         return {k: v.to(dev) for k, v in T.init_params(gen, cfg).items()}
 
     def prefill_step(params, batch, *, window=None, impl="auto", device=None):
+        """The prefill of ``batch["tokens"]`` (and, for the modal families,
+        ``batch["modal_embeds"]``): (last-token logits, decode cache)."""
         dev = resolve_device(device)
-        _on(dev, "prefill_step", [batch["tokens"], *params.values()])
+        modal = _modal(batch)
+        _on(dev, "prefill_step", [batch["tokens"], *modal.values(),
+                                  *params.values()])
         with torch.no_grad():
             return T.prefill(params, cfg, batch["tokens"], window=window,
-                             impl=impl)
+                             impl=impl, **modal)
 
     def serve_step(params, cache, token, pos, *, window=None, abs_pos=None,
                    full_cache=False, device=None):
@@ -151,26 +162,25 @@ def build(cfg: T.ModelCfg, *, optimizer: str = "adamw", lr: float = 3e-4,
                             device=resolve_device(device))
 
     def loss_fn(params, batch, *, window=None, device=None):
-        """Next-token loss of ``batch["tokens"]`` (B, S): returns (loss +
+        """Next-token loss of ``batch["tokens"]`` (B, S), given the modal
+        families' ``batch["modal_embeds"]`` (B, T, D): returns (loss +
         aux_weight * aux, {"loss", "aux"}), differentiable (the training
         forward, `transformer.train_impl`)."""
-        if needs_modal(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: modal inputs are not ported yet; see ROADMAP.md "
-                f"Queue 1 item 7e")
         dev = resolve_device(device)
         tokens = batch["tokens"]
-        _on(dev, "loss_fn", [tokens, *params.values()])
+        modal = _modal(batch)
+        _on(dev, "loss_fn", [tokens, *modal.values(), *params.values()])
         impl = T.train_impl(cfg)
         if cfg.loss_vocab_chunk:
             hidden, aux = T.forward(params, cfg, tokens, impl=impl,
-                                    window=window, return_hidden=True)
+                                    window=window, return_hidden=True,
+                                    **modal)
             loss = chunked_cross_entropy(params["embed.table"],
                                          hidden[:, :-1], tokens[:, 1:],
                                          cfg.loss_vocab_chunk)
         else:
             logits, aux = T.forward(params, cfg, tokens, impl=impl,
-                                    window=window)
+                                    window=window, **modal)
             loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
         return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
@@ -183,7 +193,8 @@ def build(cfg: T.ModelCfg, *, optimizer: str = "adamw", lr: float = 3e-4,
         `_update_leafwise`), and the returned state is the same dicts."""
         dev = resolve_device(device)
         params = state["params"]
-        _on(dev, "train_step", [batch["tokens"], *params.values()])
+        _on(dev, "train_step", [batch["tokens"], *_modal(batch).values(),
+                                *params.values()])
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_()
                       for k, v in params.items()}
@@ -248,8 +259,9 @@ def nwp_cfg(arch: str = "qwen2_5_3b", *, vocab: int = 90,
     """A next-word-prediction `ModelCfg` derived from a config entry: its
     `smoke_variant` with the char-stream vocabulary, shrunk (``tiny``) to
     simulator scale (d_model 32, 2 heads of 16, d_ff 64).  ``tiny=False``
-    keeps the smoke geometry.  An architecture whose family is not ported
-    raises `NotImplementedError` (ROADMAP.md Queue 1 item 7e)."""
+    keeps the smoke geometry.  A modal architecture (enc_dec, vlm) raises
+    `ValueError`: its side inputs do not fit the simulator's
+    ``apply(params, x)``."""
     cfg = configs.smoke_variant(configs.get(arch))
     if needs_modal(cfg):
         raise ValueError(

@@ -400,7 +400,10 @@ def test_rwkv6_seq_auto_runs_the_kernel_on_the_card(cuda_device):
 K2_SHAPES = [(2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 96, 6, 2, 16),
              (1, 200, 4, 1, 128), (2, 33, 2, 2, 64),
              (1, 128, 16, 2, 128), (1, 200, 16, 2, 128), (1, 257, 16, 2, 128),
-             (2, 96, 4, 2, 64), (3, 640, 16, 2, 128), (2, 1000, 16, 2, 64)]
+             (2, 96, 4, 2, 64), (3, 640, 16, 2, 128), (2, 1000, 16, 2, 64),
+             # whisper-base's encoder (S = 1,500: a ragged last tile) and
+             # decoder prefills, the VLM's (64 heads over 8), at batch 1
+             (1, 1500, 8, 8, 64), (1, 416, 8, 8, 64), (1, 2048, 64, 8, 128)]
 K2_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # Inputs whose rows' maxima jump at later key tiles, so that the Hopper
 # body's lazy softmax redoes those tiles exactly (randn inputs at scale
@@ -1238,3 +1241,56 @@ def test_nwp_sim_model_rounds_under_vmap_on_the_card(cuda_device, arch):
     assert ra_aggregate.BATCH_LAUNCHES == {2: 2}
     assert bool(np.isfinite(got.loss).all())
     np.testing.assert_allclose(got.loss, seq.loss, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_modal_smoke_prefill_on_the_card_matches_impl_torch_and_the_cpu(
+        cuda_device, arch):
+    """Each modal config's float32 smoke prefill with its gates set on the
+    card: through K2 (whisper: 2 full encoder and 2 causal decoder
+    launches; the VLM: one a self layer) against impl="torch" on the card
+    and the CPU's plain path, logits and every cache leaf (k, v, xk, xv)
+    within 1e-4; then 8 greedy decode steps (no K2), the same ids as the
+    CPU's."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, transformer
+
+    cfg = cfgbase.smoke_variant(cfgbase.get(arch))
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    chip_smoke.set_gates(params)
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    modal = torch.randn((2, transformer.modal_len(cfg), cfg.d_model),
+                        generator=torch.Generator().manual_seed(2))
+    kw = dict(batch=2, prompt_len=150, gen=9)
+    cpu = serve.serve(cfg, **kw, device="cpu", params=params, tokens=tokens,
+                      modal=modal)
+    on_card = {k: v.to(cuda_device) for k, v in params.items()}
+    batch = {"tokens": tokens.to(cuda_device),
+             "modal_embeds": modal.to(cuda_device)}
+    expected = chip_smoke.k2_per_prefill(cfg)
+    before = ops.LAUNCHES["flash_attention"]
+    masks = dict(flash_attention.MASK_LAUNCHES)
+    got = bundle.prefill_step(on_card, batch, device=cuda_device)
+    assert ops.LAUNCHES["flash_attention"] == before + sum(expected.values())
+    assert {k: flash_attention.MASK_LAUNCHES[k] - masks[k]
+            for k in masks} == expected
+    plain = bundle.prefill_step(on_card, batch, impl="torch",
+                                device=cuda_device)
+    assert ops.LAUNCHES["flash_attention"] == before + sum(expected.values())
+    for want in (plain, (cpu.prefill_logits, cpu.prefill_cache)):
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        assert list(got[1]) == list(want[1]) == ["k", "v", "xk", "xv"]
+        for name in got[1]:
+            np.testing.assert_allclose(got[1][name].cpu().numpy(),
+                                       want[1][name].cpu().numpy(),
+                                       atol=1e-4, rtol=1e-4, err_msg=name)
+    res = serve.serve(cfg, **kw, device=cuda_device, params=on_card,
+                      tokens=batch["tokens"], modal=batch["modal_embeds"])
+    assert res.decode_launches["flash_attention"] == 0
+    assert torch.equal(res.tokens, cpu.tokens)

@@ -56,7 +56,9 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.models.moe", "repro_torch.models.ssm",
                 "repro_torch.configs.granite_moe_1b_a400m",
                 "repro_torch.configs.dbrx_132b",
-                "repro_torch.configs.hymba_1_5b"):
+                "repro_torch.configs.hymba_1_5b",
+                "repro_torch.configs.whisper_base",
+                "repro_torch.configs.llama3_2_vision_90b"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 

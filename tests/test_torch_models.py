@@ -144,14 +144,22 @@ def test_configs_match_reference_field_for_field():
     assert (smoke.n_layers, smoke.d_model, rc.n_heads, rc.head_dim,
             smoke.vocab) == (2, 256, 4, 64, 512)
     assert base.ALIASES == jbase.ALIASES and base.ARCH_IDS == jbase.ARCH_IDS
+    # Every architecture of the reference has its config, the modal ones
+    # included, and all_configs gives them key for key.
     for arch in ("whisper-base", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="item 7e"):
-            base.get(arch)
+        _same_cfg(base.get(arch), jbase.get(arch))
+    every, jevery = base.all_configs(), jbase.all_configs()
+    assert list(every) == list(jevery) == base.ARCH_IDS
+    for arch in every:
+        _same_cfg(every[arch], jevery[arch])
     with pytest.raises(ValueError, match="unknown architecture"):
         base.get("gpt-2")
+    # Every family of the reference builds; another is refused.
     for family in ("enc_dec", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 7e"):
-            registry.build(dataclasses.replace(smoke, family=family))
+        assert registry.build(dataclasses.replace(
+            smoke, family=family)).cfg.family == family
+    with pytest.raises(ValueError, match="unknown model family"):
+        registry.build(dataclasses.replace(smoke, family="gnn"))
 
 
 def test_bfloat16_tree_crosses_and_round_trips():
@@ -432,11 +440,17 @@ def test_dense_window_raises_and_cache_shapes():
     assert tuple(step.shape) == (2, 1, cfg.vocab)
     assert transformer.forward(params, cfg, tokens, window=4)[0].shape[:2] \
         == (2, 8)
-    # The families not ported still raise, with or without a window.
-    for family in ("enc_dec", "vlm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            transformer.init_cache(dataclasses.replace(cfg, family=family), 2,
-                                   16, window=4)
+    # The modal families' caches wrap their self-attention K/V under a
+    # window too; their cross K/V keep the modal input's length.
+    modal = {"enc_dec": dict(n_enc_layers=2, enc_seq=12),
+             "vlm": dict(n_layers=4, cross_attn_every=2, n_modal_tokens=12)}
+    for family, kw in modal.items():
+        mc = transformer.init_cache(
+            dataclasses.replace(cfg, family=family, **kw), 2, 16, window=4)
+        lead = (2,) if family == "enc_dec" else (2, 1)
+        assert tuple(mc["k"].shape) == (*lead, 2, 4, 1, 64)
+        assert tuple(mc["xv"].shape) == (2, 2, 12, 1, 64)
+        assert list(mc) == ["k", "v", "xk", "xv"]
 
 
 # ---------------------------------------------------------------------------
@@ -486,8 +500,8 @@ def test_sim_model_unported_families_raise():
         if arch is None:
             continue
         registry.sim_model(name)      # every decoder-only family is ported
-    for arch in base.MODAL_ARCHS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7e"):
+    for arch in base.MODAL_ARCHS:      # as the reference refuses them
+        with pytest.raises(ValueError, match="needs side inputs"):
             registry.nwp_cfg(arch)
     with pytest.raises(ValueError, match="unknown sim model"):
         registry.sim_model("nope")
