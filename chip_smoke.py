@@ -263,10 +263,35 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  encoder leaf's gradient non-zero; (d) both float32 smoke
                  variants served and one `train_step` each, card against
                  the CPU.  Phase 12 holds K2 at the three new shapes.
+ 24. multi-rank — 10 ranks on the one card over gloo (NCCL needs a card
+                 per rank), started by `launch.mesh.spawn`; any rank's
+                 failure fails the phase.  First each collective of
+                 `launch.mesh` on CUDA tensors against its values; (a)
+                 `core.dfl_step.ra_exchange` at the slice's width (rank =
+                 client, `init_cnn` from seed m, 412 segments) for each
+                 comm, without and with `MULTI_RANK_MASK`, against the
+                 single-process `protocols.ra_round_seg` (K1) on the same
+                 draws (1e-5; sampled-out ranks bit-equal), then each comm
+                 timed (median of 10, barrier to barrier) with the bytes a
+                 rank hands to its collectives; (b) one
+                 `make_dfl_train_step` round (2 GD steps on each rank's 600
+                 samples, the `loss` policy at 0.5) against a
+                 single-process replay of every client's steps and
+                 `ra_round_seg` under the mask it selects (same selection,
+                 1e-4); (c) grid12 through `run_grid` over a (2, 2)
+                 ('grid', 'model') mesh of ranks 0-3 against phase 16's
+                 `run_sequential` (loss 1e-4, accuracy within one test
+                 sample): each model shard launches K1 9 times on its
+                 window, (2, 10, 206, 1024), counted per rank; grid
+                 seconds and peak memory a rank; (d) `run_resumable` on a
+                 (1, 2) mesh of ranks 0-1, stopped after one chunk and
+                 resumed against the unbroken run, and its one-chunk
+                 checkpoint finished here in one process.  Phase 3 holds
+                 K1 at both window shapes.  REPRO_AGG_IMPL must be unset.
 
 It then prints the card line, one JSON line describing every ported kernel
 (K2's with its launches by path and by mask and its time at each prefill
-shape),
+shape; K1's launches by path include phase 24's, ``multi-rank:*``),
 and last a JSON line with the device.  Without CUDA, or without the rest of
 the repository beside it, it exits nonzero before printing any result.
 """
@@ -276,6 +301,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -303,7 +329,10 @@ BF16_FLOP_PER_S = 989e12
 # CharRNN at seg 1024, the NWP grid's R&A group (2 seeds, seg 64), and
 # `launch.train --dfl`'s 4 smoke qwen2.5 clients (N = 4: its own
 # register-body instantiation); then phase 22's NWP grids of the
-# `nwp:granite_moe_1b_a400m` and `nwp:hymba_1_5b` clients (2 seeds, seg 64).
+# `nwp:granite_moe_1b_a400m` and `nwp:hymba_1_5b` clients (2 seeds, seg 64);
+# then phase 24's model shards' windows (206 of the slice's 412 segments):
+# grid12's groups split over a (2, 2) mesh (2 scenarios a grid row) and
+# `run_resumable`'s R&A scenario on a (1, 2) mesh.
 K1_SHAPES = [
     ("slice", dict(b=None, n=10, l=412, k=1024)),
     ("batched_primeL", dict(b=4, n=10, l=1181, k=256)),
@@ -316,6 +345,8 @@ K1_SHAPES = [
     ("train_dfl", dict(b=None, n=4, l=1218, k=1024)),
     ("nwp_granite", dict(b=2, n=10, l=55708, k=64)),
     ("nwp_hymba", dict(b=2, n=10, l=24333, k=64)),
+    ("grid12_shard", dict(b=2, n=10, l=206, k=1024)),
+    ("slice_shard", dict(b=None, n=10, l=206, k=1024)),
 ]
 F32_TOL = 1e-5      # absolute; float32 sums in another order
 BF16_TOL_ULP = 1.0  # bfloat16 spacing at the result's magnitude, + F32_TOL
@@ -2373,6 +2404,7 @@ def _reset_k1_counts():
     for key in _ra.VARIANT_LAUNCHES:
         _ra.VARIANT_LAUNCHES[key] = 0
     _ra.BATCH_LAUNCHES.clear()
+    _ra.SHAPE_LAUNCHES.clear()
 
 
 @contextlib.contextmanager
@@ -2401,6 +2433,20 @@ def _k1_counts():
         _ra.BATCH_LAUNCHES.items()))
 
 
+def grid12_grid():
+    """sweep_grid's 12 scenarios: two packet lengths x R&A (both modes) and
+    AaYG x two seeds."""
+    from repro_torch.core import topology
+    from repro_torch.fl import scenarios
+
+    return scenarios.ScenarioGrid.product(
+        networks=[(f"pkt{bits}", topology.paper_network(packet_len_bits=bits))
+                  for bits in (32768, 400_000)],
+        protocols=[("ra", "ra_normalized"), ("ra", "substitution"),
+                   ("aayg", "ra_normalized")],
+        seeds=[0, 1])
+
+
 def grid_grids():
     """Phase 16's three sub-grids at the slice's width: (name, grid)."""
     from repro_torch.core import topology
@@ -2408,12 +2454,7 @@ def grid_grids():
 
     grid = scenarios.ScenarioGrid
     table_ii = topology.paper_network(packet_len_bits=32768)
-    grid12 = grid.product(
-        networks=[(f"pkt{bits}", topology.paper_network(packet_len_bits=bits))
-                  for bits in (32768, 400_000)],
-        protocols=[("ra", "ra_normalized"), ("ra", "substitution"),
-                   ("aayg", "ra_normalized")],
-        seeds=[0, 1])
+    grid12 = grid12_grid()
     relays = grid.concat(
         grid.product(networks=[("standard", table_ii)],
                      protocols=[("ideal_cfl", "ra_normalized")]),
@@ -3818,6 +3859,435 @@ def modal_phase(dev) -> dict:
     return k2
 
 
+# Phase 24: the multi-rank path.  Every rank is a process on the one card;
+# NCCL needs a card per rank, so the ranks meet over gloo.
+MULTI_RANK_WORLD = 10                   # (a), (b): one rank per client
+MULTI_RANK_GRID = ([0, 1, 2, 3], 2)     # (c): a (2, 2) ('grid', 'model') mesh
+MULTI_RANK_RESUME = ([0, 1], 2)         # (d): a (1, 2) mesh
+MULTI_RANK_MASK = np.array([1, 0, 1, 1, 0, 1, 1, 1, 0, 1], np.float32)
+MULTI_RANK_REPEATS = 10                 # timed exchanges per comm
+MULTI_RANK_SEED = 24                    # the exchanges' shared uniforms
+MULTI_RANK_TOL = 1e-5                   # (a) vs protocols.ra_round_seg
+MULTI_RANK_DFL_TOL = 1e-4               # (b) vs the single-process replay
+MULTI_RANK_TIMEOUT_S = 300.0
+
+
+def _mr_sync(dev):
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+
+
+def _mr_probe(dev) -> None:
+    """Phase 24, first: each collective of `launch.mesh` on this rank's
+    tensors (CUDA tensors over gloo on the card) against its values."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(w * 3, dtype=torch.float32, device=dev) + 100 * r
+    rows = [torch.arange(3, dtype=torch.float32) + 3 * r + 100 * q
+            for q in range(w)]
+    got = {"all_to_all": mesh.all_to_all(x),
+           "reduce_scatter": mesh.reduce_scatter(x),
+           "all_reduce": mesh.all_reduce(torch.full((4,), r + 1.0,
+                                                    device=dev)),
+           "all_gather": mesh.all_gather(torch.full((2,), float(r),
+                                                    device=dev))}
+    want = {"all_to_all": torch.cat(rows), "reduce_scatter": sum(rows),
+            "all_reduce": torch.full((4,), w * (w + 1) / 2),
+            "all_gather": torch.arange(float(w)).repeat_interleave(2)}
+    for name, t in got.items():
+        check(t.device == x.device and torch.equal(t.cpu(), want[name]),
+              f"[multi-rank] rank {r}: {name} on {dev} returned "
+              f"{t.cpu().tolist()}, expected {want[name].tolist()}")
+
+
+def _mr_clients(n, cnn_kwargs=None, hw=(28, 28)):
+    """Client m's parameters: `init_cnn` drawn from seed m."""
+    from repro_torch.models import smallnets
+
+    return [smallnets.init_cnn(torch.Generator().manual_seed(m),
+                               in_hw=tuple(hw), **(cnn_kwargs or {}))
+            for m in range(n)]
+
+
+def _mr_exchange(dev, me, clients, p, rho, u, seg_len) -> dict:
+    """Phase 24 (a) on one rank: `ra_exchange` for each comm, without and
+    with `MULTI_RANK_MASK`, against the single-process
+    `protocols.ra_round_seg` (K1) on the same draws; then each comm timed
+    (no mask), barrier to barrier."""
+    from repro_torch.core import dfl_step, protocols
+    from repro_torch.launch import mesh
+
+    names = sorted(clients[0])
+    stacked = {k: torch.stack([c[k] for c in clients]).to(dev) for k in names}
+    mine = {k: v.to(dev) for k, v in clients[me].items()}
+    mask = torch.from_numpy(MULTI_RANK_MASK).to(dev)
+    w_seg, spec, m_params = protocols._to_segments(stacked, seg_len)
+    want = {}
+    for mname, part in (("none", None), ("mask", mask)):
+        out, _e = protocols.ra_round_seg(w_seg, p, rho, 0, part, u=u,
+                                         agg_impl="kernel")
+        want[mname] = {k: v[me] for k, v in protocols._from_segments(
+            out, spec, m_params).items()}
+    del stacked, w_seg
+    res = {"err": 0.0, "bytes": {}, "secs": {}}
+    for comm in dfl_step.COMMS:
+        for mname, part in (("none", None), ("mask", mask)):
+            mesh.reset_counters()
+            got = dfl_step.ra_exchange(mine, p, rho, seg_len=seg_len,
+                                       comm=comm, participation=part, u=u)
+            err = max(float((got[k] - want[mname][k]).abs().max())
+                      for k in names)
+            res["err"] = max(res["err"], err)
+            check(err <= MULTI_RANK_TOL,
+                  f"[multi-rank] rank {me} {comm}/{mname}: max |err| "
+                  f"{err:.3e} vs ra_round_seg (tol {MULTI_RANK_TOL:g})")
+            if part is not None and MULTI_RANK_MASK[me] == 0:
+                check(all(torch.equal(got[k], mine[k]) for k in names),
+                      f"[multi-rank] rank {me} {comm}: sampled out, but its "
+                      f"parameters changed")
+            res["bytes"][comm] = sum(mesh.WIRE_BYTES.values())
+        secs = []
+        for _ in range(MULTI_RANK_REPEATS):
+            _mr_sync(dev)
+            t0 = time.perf_counter()
+            dfl_step.ra_exchange(mine, p, rho, seg_len=seg_len, comm=comm,
+                                 u=u)
+            _mr_sync(dev)
+            secs.append(time.perf_counter() - t0)
+        res["secs"][comm] = statistics.median(secs)
+    return res
+
+
+def _mr_dfl_round(dev, me, clients, data, p, rho, u, seg_len, lr) -> dict:
+    """Phase 24 (b) on one rank: one `make_dfl_train_step` round (2
+    full-batch GD steps on this rank's shard, the `loss` policy at 0.5),
+    against a single-process replay of every client's steps followed by
+    `ra_round_seg` under the mask the replay selects."""
+    from repro_torch.core import dfl_step, protocols, selection
+    from repro_torch.models.smallnets import apply_cnn, ce_loss
+
+    n = len(clients)
+    shards = [(torch.from_numpy(data.train_x[m]).to(dev),
+               torch.from_numpy(data.train_y[m]).to(dev)) for m in range(n)]
+
+    def local_step(x, y, kept=None):
+        def loss_fn(params):
+            return ce_loss(apply_cnn(params, x), y)
+
+        def step(state, _batch):
+            g, loss = torch.func.grad_and_value(loss_fn)(state["params"])
+            params = {k: v - lr * g[k] for k, v in state["params"].items()}
+            if kept is not None:
+                kept[:] = [params]
+            return dict(state, params=params), {"loss": loss.detach()}
+
+        return step
+
+    # The replay first (it also warms cuDNN for the timed round): every
+    # client's two steps in this process.
+    trained, losses, norms = [], [], []
+    for m in range(n):
+        step = local_step(*shards[m])
+        st = {"params": {k: v.to(dev) for k, v in clients[m].items()}}
+        ls = []
+        for _ in range(2):
+            st, met = step(st, None)
+            ls.append(met["loss"])
+        trained.append(st["params"])
+        losses.append(torch.stack(ls).mean())
+        norms.append(torch.sqrt(sum(
+            ((st["params"][k] - clients[m][k].to(dev)) ** 2).sum()
+            for k in sorted(st["params"]))))
+    kept = []
+    fn = dfl_step.make_dfl_train_step(
+        local_step(*shards[me], kept), p=p, seg_len=seg_len,
+        n_local_steps=2, selection_policy="loss", select_frac=0.5)
+    start = {k: v.to(dev) for k, v in clients[me].items()}
+    _mr_sync(dev)
+    t0 = time.perf_counter()
+    new, metrics = fn({"params": start}, None, rho, u=u)
+    _mr_sync(dev)
+    secs = time.perf_counter() - t0
+
+    signals = selection.SelectionSignals(loss=torch.stack(losses),
+                                         upd_norm=torch.stack(norms))
+    mask = selection.select_clients(
+        selection.POLICY_IDS["loss"], torch.ones(n, device=dev), signals,
+        p, rho[:n, :n], 0.5)
+    names = sorted(clients[0])
+    stacked = {k: torch.stack([t[k] for t in trained]) for k in names}
+    w_seg, spec, m_params = protocols._to_segments(stacked, seg_len)
+    out, _e = protocols.ra_round_seg(w_seg, p, rho, 0, mask, u=u,
+                                     agg_impl="kernel")
+    want = {k: v[me] for k, v in protocols._from_segments(
+        out, spec, m_params).items()}
+    gap = max(float((new["params"][k] - want[k]).abs().max()) for k in names)
+    check(gap <= MULTI_RANK_DFL_TOL,
+          f"[multi-rank] rank {me}: dfl round departs from the replay by "
+          f"{gap:.3e} (tol {MULTI_RANK_DFL_TOL:g})")
+    kept_own = all(torch.equal(new["params"][k], kept[0][k]) for k in names)
+    check(kept_own == (float(mask[me]) == 0.0),
+          f"[multi-rank] rank {me}: selected by the replay "
+          f"{bool(mask[me])}, but kept its own parameters {kept_own}")
+    check(tuple(metrics["loss"].shape) == (2,), "dfl round: 2 loss rows")
+    return {"gap": gap, "secs": secs, "mask": mask.cpu().numpy()}
+
+
+def _mr_grid(dev, data, init, base) -> dict:
+    """Phase 24 (c) on one rank: grid12 through `run_grid` over the
+    (2, 2) mesh of ranks `MULTI_RANK_GRID` (the other ranks build the
+    mesh with them and sit it out)."""
+    import warnings
+
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+    from repro_torch.models import smallnets
+
+    warnings.filterwarnings("ignore",
+                            category=simulator.PacketLengthMismatchWarning)
+    grid12 = grid12_grid()
+    _reset_k1_counts()
+    _reset_peak(dev)
+    _mr_sync(dev)
+    t0 = time.perf_counter()
+    res = scenarios.run_grid(init, smallnets.apply_cnn, data, grid12,
+                             base, device=dev, devices=MULTI_RANK_GRID)
+    _mr_sync(dev)
+    out = {"secs": time.perf_counter() - t0, "peak_gib": _peak_gib(dev),
+           "k1": ops.LAUNCHES["ra_aggregate"],
+           "k1_by_shape": dict(_ra.SHAPE_LAUNCHES)}
+    if res is not None:
+        out["result"] = (res.labels, res.acc, res.loss, res.bias)
+    return out
+
+
+def _mr_resumable(dev, data, init, net, base, ckpt_dir) -> dict | None:
+    """Phase 24 (d) on one rank: the slice's R&A scenario through
+    `run_resumable` on the (1, 2) mesh of ranks `MULTI_RANK_RESUME`,
+    unbroken and stopped after one chunk then resumed; a third run stops
+    after one chunk, for the parent to finish in one process."""
+    import os
+
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.fl import simulator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+    from repro_torch.launch import mesh
+    from repro_torch.models import smallnets
+
+    ranks, dm = MULTI_RANK_RESUME
+    pair = mesh.grid_model_mesh(ranks, model_shards=dm, device=dev)
+    if pair.coords is None:
+        return None
+    sim = simulator.build_sim(
+        init, smallnets.apply_cnn, data, seg_len=base.seg_len,
+        local_epochs=base.local_epochs, n_rounds=base.n_rounds,
+        device=dev, model_shards=dm, mesh=pair)
+    sc = simulator.make_scenario(net, dataclasses.replace(
+        base, protocol="ra", mode="ra_normalized"))
+    _reset_k1_counts()
+    t0 = time.perf_counter()
+    unbroken = checkpoint.run_resumable(
+        sim, sc, ckpt_dir=os.path.join(ckpt_dir, "unbroken"), mesh=pair)
+    stopped = checkpoint.run_resumable(
+        sim, sc, ckpt_dir=os.path.join(ckpt_dir, "resumed"),
+        stop_after=1, mesh=pair)
+    resumed = checkpoint.run_resumable(
+        sim, sc, ckpt_dir=os.path.join(ckpt_dir, "resumed"), mesh=pair)
+    checkpoint.run_resumable(
+        sim, sc, ckpt_dir=os.path.join(ckpt_dir, "to_single"),
+        stop_after=1, mesh=pair)
+    secs = time.perf_counter() - t0
+    check(stopped is None, "run_resumable(stop_after=1) finished the run")
+    loss_gap = float(np.abs(resumed["loss"] - unbroken["loss"]).max())
+    acc_gap = float(np.abs(resumed["acc"] - unbroken["acc"]).max())
+    test_n = len(data.test_y)
+    check(loss_gap <= GRID_LOSS_TOL and acc_gap <= 1.0 / test_n + 1e-6,
+          f"[multi-rank] rank {pair.rank}: resumed run departs from the "
+          f"unbroken one: loss {loss_gap:.3e}, accuracy {acc_gap:.4f}")
+    return {"unbroken": unbroken, "loss_gap": loss_gap, "acc_gap": acc_gap,
+            "secs": secs, "k1": ops.LAUNCHES["ra_aggregate"],
+            "k1_by_shape": dict(_ra.SHAPE_LAUNCHES),
+            "l_local": sim.local_segments}
+
+
+def multi_rank_rank(rank: int, ckpt_dir: str, samples_per_client=600,
+                    hw=(28, 28), cnn_kwargs=None) -> dict:
+    """Phase 24's body in each of the `MULTI_RANK_WORLD` ranks (spawned by
+    `launch.mesh.spawn`): the collectives' probe, then (a)-(d)."""
+    from repro_torch.core import routing
+    from repro_torch.launch import mesh
+
+    dev = mesh.rank_device()
+    marks = [("start", time.perf_counter())]
+    data, net, init, base = slice_inputs(samples_per_client, hw, cnn_kwargs)
+    n = data.n_clients
+    _mr_probe(dev)
+    marks.append(("setup+probe", time.perf_counter()))
+    clients = _mr_clients(n, cnn_kwargs, hw)
+    p = torch.tensor(data.weights(), dtype=torch.float32, device=dev)
+    rho = routing.e2e_success(net.link_eps)[0].to(dev)
+    m_params = sum(v.numel() for v in clients[0].values())
+    l = -(-m_params // base.seg_len)
+    u = torch.rand((n, n, l), generator=torch.Generator().manual_seed(
+        MULTI_RANK_SEED)).to(dev)
+    out = {"params": m_params, "segments": l}
+    out["exchange"] = _mr_exchange(dev, rank, clients, p, rho, u,
+                                   base.seg_len)
+    marks.append(("a", time.perf_counter()))
+    out["dfl"] = _mr_dfl_round(dev, rank, clients, data, p, rho, u,
+                               base.seg_len, base.lr)
+    marks.append(("b", time.perf_counter()))
+    del clients
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["grid"] = _mr_grid(dev, data, init, base)
+    marks.append(("c", time.perf_counter()))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["resumable"] = _mr_resumable(dev, data, init, net, base, ckpt_dir)
+    marks.append(("d", time.perf_counter()))
+    out["part_secs"] = {name: round(t - marks[i][1], 3)
+                        for i, (name, t) in enumerate(marks[1:])}
+    return out
+
+
+def multi_rank_phase(dev, seq12, *, world=MULTI_RANK_WORLD,
+                     samples_per_client=600, hw=(28, 28),
+                     cnn_kwargs=None) -> dict:
+    """Phase 24: the multi-rank path over ``world`` ranks sharing ``dev``
+    (gloo), held to the single-process runs: (a) `ra_exchange`, (b) one
+    `make_dfl_train_step` round, (c) grid12 over a (2, 2) mesh against
+    phase 16's ``seq12``, (d) `run_resumable` on a (1, 2) mesh, its
+    one-chunk checkpoint finished here in one process.  Returns K1's
+    launches by path."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.fl import simulator
+    from repro_torch.launch import mesh
+    from repro_torch.models import smallnets
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(
+            multi_rank_rank, world, backend="gloo", device=dev.type,
+            args=(d, samples_per_client, hw, cnn_kwargs),
+            timeout=MULTI_RANK_TIMEOUT_S,
+            threads=1 if dev.type == "cpu" else None)
+        spawn_secs = time.perf_counter() - t0
+        data, net, init, base = slice_inputs(samples_per_client, hw,
+                                             cnn_kwargs)
+        single = simulator.build_sim(
+            init, smallnets.apply_cnn, data, seg_len=base.seg_len,
+            local_epochs=base.local_epochs, n_rounds=base.n_rounds,
+            device=dev)
+        sc = simulator.make_scenario(net, dataclasses.replace(
+            base, protocol="ra", mode="ra_normalized"))
+        finished = checkpoint.run_resumable(
+            single, sc, ckpt_dir=os.path.join(d, "to_single"))
+    print(f"[multi-rank] {world} ranks on {dev} over gloo (launch.mesh."
+          f"spawn); every collective on {dev.type} tensors checked; "
+          f"spawn + all four parts {spawn_secs:.2f} s; rank 0's parts "
+          f"{ranks[0]['part_secs']} s")
+    test_n = len(data.test_y)
+    r0 = ranks[0]
+
+    # (a)
+    ex = [r["exchange"] for r in ranks]
+    print(f"[multi-rank] (a) ra_exchange: {r0['params']} params, "
+          f"{r0['segments']} segments of {base.seg_len}; max |err| vs "
+          f"protocols.ra_round_seg (K1) {max(e['err'] for e in ex):.3e} "
+          f"(tol {MULTI_RANK_TOL:g}); mask {MULTI_RANK_MASK.astype(int).tolist()}"
+          f": sampled-out ranks bit-equal")
+    for comm, secs in ex[0]["secs"].items():
+        print(f"[multi-rank] (a) {comm:14s} {secs * 1e3:.3f} ms an exchange "
+              f"(median of {MULTI_RANK_REPEATS}, barrier to barrier), "
+              f"{ex[0]['bytes'][comm]} B handed to collectives per rank; "
+              f"launch.mesh stages none (gloo copies CUDA operands through "
+              f"host memory itself)")
+    # (b)
+    masks = {tuple(r["dfl"]["mask"].tolist()) for r in ranks}
+    check(len(masks) == 1, f"[multi-rank] (b) replays select {masks}")
+    print(f"[multi-rank] (b) make_dfl_train_step: 2 local steps, loss "
+          f"policy at 0.5 selected {[int(x) for x in next(iter(masks))]}; "
+          f"max |gap| vs the single-process replay "
+          f"{max(r['dfl']['gap'] for r in ranks):.3e} (tol "
+          f"{MULTI_RANK_DFL_TOL:g}); round {r0['dfl']['secs']:.4f} s")
+    # (c)
+    grid_ranks, dm = MULTI_RANK_GRID
+    k1_paths = {}
+    for r in grid_ranks:
+        g = ranks[r]["grid"]
+        labels, acc, loss, bias = g["result"]
+        check(list(labels) == list(seq12.labels),
+              f"[multi-rank] rank {r}: grid labels {labels}")
+        loss_gap = float(np.abs(loss - seq12.loss).max())
+        acc_gap = float(np.abs(acc - seq12.acc).max())
+        check(loss_gap <= GRID_LOSS_TOL and acc_gap <= 1.0 / test_n + 1e-6,
+              f"[multi-rank] rank {r}: grid12 over the mesh departs from "
+              f"the single-process run: loss {loss_gap:.3e}, accuracy "
+              f"{acc_gap:.4f}")
+        if dev.type == "cuda":
+            want = {(2, 10, -(-r0["segments"] // dm), base.seg_len):
+                    3 * base.n_rounds}
+            check(g["k1_by_shape"] == want,
+                  f"[multi-rank] rank {r}: K1 launches by shape "
+                  f"{g['k1_by_shape']}, expected {want} (each shard on its "
+                  f"window, B = 2 a group)")
+        print(f"[multi-rank] (c) rank {r} (grid {r // dm}, model {r % dm}):"
+              f" grid12 {g['secs']:.3f} s, peak {g['peak_gib']:.3f} GiB, K1 "
+              f"{g['k1']} by (B, N, L_local, K) "
+              f"{ {str(k): v for k, v in g['k1_by_shape'].items()} }; max "
+              f"|loss gap| {loss_gap:.3e}, acc gap {acc_gap:.4f} vs phase "
+              f"16's run_sequential")
+    for r in range(len(grid_ranks), world):
+        check("result" not in ranks[r]["grid"] and ranks[r]["grid"]["k1"] == 0,
+              f"[multi-rank] rank {r} is outside the grid's mesh but ran it")
+    k1_paths["multi-rank:grid12"] = sum(ranks[r]["grid"]["k1"]
+                                        for r in grid_ranks)
+    # (d)
+    pair, dm = MULTI_RANK_RESUME
+    rs = [ranks[r]["resumable"] for r in pair]
+    check(all(x is not None for x in rs)
+          and all(ranks[r]["resumable"] is None
+                  for r in range(len(pair), world)),
+          "[multi-rank] (d) ran on other ranks than its mesh's")
+    unbroken = rs[0]["unbroken"]
+    loss_gap = float(np.abs(finished["loss"] - unbroken["loss"]).max())
+    acc_gap = float(np.abs(finished["acc"] - unbroken["acc"]).max())
+    check(loss_gap <= GRID_LOSS_TOL and acc_gap <= 1.0 / test_n + 1e-6,
+          f"[multi-rank] (d) the ranks' checkpoint finished in one process "
+          f"departs: loss {loss_gap:.3e}, accuracy {acc_gap:.4f}")
+    if dev.type == "cuda":
+        # unbroken n rounds, stopped after 1, resumed for n - 1, stopped
+        # after 1: one launch a round.
+        want = {(1, 10, rs[0]["l_local"], base.seg_len):
+                2 * base.n_rounds + 1}
+        got = [x["k1_by_shape"] for x in rs]
+        check(all(g == want for g in got),
+              f"[multi-rank] (d) K1 launches by shape {got}, expected {want}")
+    k1_paths["multi-rank:resumable"] = sum(x["k1"] for x in rs)
+    print(f"[multi-rank] (d) run_resumable on a (1, {dm}) mesh: "
+          f"{rs[0]['secs']:.3f} s for 4 runs; resumed vs unbroken max |loss "
+          f"gap| {max(x['loss_gap'] for x in rs):.3e}, acc gap "
+          f"{max(x['acc_gap'] for x in rs):.4f}; the ranks' one-chunk "
+          f"checkpoint finished in one process: loss gap {loss_gap:.3e}, "
+          f"acc gap {acc_gap:.4f}; K1 "
+          f"{[{str(k): v for k, v in x['k1_by_shape'].items()} for x in rs]}")
+    print(f"[multi-rank] phase 24 took {time.perf_counter() - t_phase:.2f} s")
+    shapes = {k for r in ranks for part in ("grid", "resumable")
+              if r[part] for k in r[part]["k1_by_shape"]}
+    return k1_paths, shapes
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3825,6 +4295,13 @@ def main() -> int:
         return 1
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    if "REPRO_AGG_IMPL" in os.environ:
+        # impl=None reads it (core.aggregation.default_impl): unset, no
+        # setting can take K1 off a path this script checks.
+        print("chip_smoke: unset REPRO_AGG_IMPL (it would choose the "
+              "aggregation substrate of every impl=None call)",
               file=sys.stderr)
         return 1
     from repro_torch.kernels import ops
@@ -3983,6 +4460,14 @@ def main() -> int:
     modal_k2 = modal_phase(dev)
     print(f"[modal] phase 23 took {time.perf_counter() - t0:.2f} s")
 
+    # 24. multi-rank (core.dfl_step, the ('grid', 'model') mesh, model
+    # shards in build_sim / run_grid / run_resumable), ranks over gloo
+    torch.cuda.empty_cache()
+    mr_k1, mr_shapes = multi_rank_phase(dev, seq12)
+    unchecked = sorted(str(x) for x in mr_shapes if x not in checked)
+    check(not unchecked, f"phase 24 launched K1 at {unchecked}, which "
+          f"phase 3 does not hold to the plain version (K1_SHAPES)")
+
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"
                     and r["variant"] == "ra_normalized")
@@ -3996,7 +4481,7 @@ def main() -> int:
         "launches": (launches + codec_launches + grid_launches
                      + sum(tier_launches.values()) + paper_launches
                      + nwp_launches + train_launches
-                     + sum(mh_k1.values())),
+                     + sum(mh_k1.values()) + sum(mr_k1.values())),
         "launches_by_path": {"slice": launches,
                              "slice-codec": codec_launches,
                              "grid": grid_launches, **tier_launches,
@@ -4004,7 +4489,8 @@ def main() -> int:
                              "nwp-grid": nwp_launches,
                              "train": train_launches,
                              **{f"moe-hybrid:{m}": n
-                                for m, n in mh_k1.items()}},
+                                for m, n in mh_k1.items()},
+                             **mr_k1},
         "tx_launches": tx_launches + grid_tx,
         "grid_launches_by_batch": {str(b): c for b, c in
                                    grid_batches.items()},

@@ -1,6 +1,6 @@
 """Tree and scan-state checkpointing: npz payload + JSON manifest.
 
-Port of the reference package's `checkpoint/checkpoint.py` (one device).
+Port of the reference package's `checkpoint/checkpoint.py`.
 Two layers:
 
   * Generic tree save/restore: a tree is nested dicts (keys in sorted
@@ -26,9 +26,12 @@ staged in a temporary directory beside them and `os.replace`d into place,
 arrays first and the manifest last (the commit point); a ``save_id``
 stamped into both files exposes the one torn window that order leaves.
 
-Model-sharded runs (the reference's ``mesh=`` with ``model_shards > 1``)
-are ROADMAP Queue 1 item 8; `run_resumable` raises NotImplementedError
-for a mesh.
+Model-sharded runs (``mesh=``, a sim built with ``model_shards > 1``):
+every rank of the mesh calls `run_resumable` alike.  A checkpoint holds
+the full (N, S, K) rows, gathered from the model group, and the mesh's
+first rank writes it (the others wait at a barrier), so a checkpoint
+written by W ranks restores in a single-process run and the other way
+round: on restore each rank takes its window of the rows.
 """
 from __future__ import annotations
 
@@ -40,11 +43,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..launch import mesh as launch_mesh
 
 Tree = Any
-
-_MESH = ("run_resumable(mesh=): model-sharded runs are not ported yet: "
-         "ROADMAP Queue 1 item 8")
 
 
 class CorruptCheckpoint(RuntimeError):
@@ -305,21 +308,27 @@ def _stack_rows(prev: dict | None, rows: list) -> dict | None:
     return prev
 
 
-def _saved_state(state: dict) -> dict:
-    """The round state as a tree of arrays: the generator as its state."""
-    out = {"w": state["w"], "gen": state["gen"].get_state(),
+def _saved_state(state: dict, full_rows=None) -> dict:
+    """The round state as a tree of arrays: the full rows (``full_rows``
+    gathers them from a sharded sim's window), the generator as its
+    state."""
+    w = state["w"] if full_rows is None else full_rows(state["w"])
+    out = {"w": w, "gen": state["gen"].get_state(),
            "t": np.int64(state["t"])}
     if "sig" in state:
         out["sig"] = state["sig"]
     return out
 
 
-def _live_state(saved: dict, device: torch.device) -> dict:
+def _live_state(saved: dict, device: torch.device,
+                local_window=None) -> dict:
     """`_saved_state` undone: a fresh generator on ``device`` set to the
-    saved state."""
+    saved state, and the rows (``local_window`` takes a sharded sim's
+    window of them)."""
     gen = torch.Generator(device=device)
     gen.set_state(saved["gen"])
-    state = {"w": saved["w"], "gen": gen, "t": int(saved["t"])}
+    w = saved["w"] if local_window is None else local_window(saved["w"])
+    state = {"w": w, "gen": gen, "t": int(saved["t"])}
     if "sig" in saved:
         state["sig"] = saved["sig"]
     return state
@@ -336,6 +345,25 @@ def _row_like(sim, closed: bool) -> dict:
     if closed:
         row["selected"] = np.zeros((k, n), np.float32)
     return row
+
+
+def _check_mesh(sim, mesh) -> None:
+    """The reference's checks: a sharded sim needs a mesh that carries its
+    model axis at its size."""
+    if sim.model_shards == 1:
+        return
+    if mesh is None:
+        raise ValueError(
+            f"model_shards={sim.model_shards} needs a mesh with a "
+            f"'{launch_mesh.MODEL_AXIS}' axis (e.g. "
+            "launch.mesh.grid_model_mesh)"
+        )
+    if (launch_mesh.MODEL_AXIS not in mesh.axis_names
+            or mesh.shape[launch_mesh.MODEL_AXIS] != sim.model_shards):
+        raise ValueError(
+            f"mesh axes {dict(mesh.shape)} do not provide "
+            f"{launch_mesh.MODEL_AXIS}={sim.model_shards}"
+        )
 
 
 def run_resumable(
@@ -370,16 +398,24 @@ def run_resumable(
       stop_after: advance at most this many chunks in THIS call, then
         return None (simulated preemption — chunks past the last save
         cadence are recomputed on resume, identically).
-      mesh: not ported (ROADMAP Queue 1 item 8): anything but None raises
-        NotImplementedError.
+      mesh: required iff ``sim.model_shards > 1``: a `launch.mesh` mesh
+        providing the sim's model axis at size ``model_shards`` (other
+        axes replicate).  Every rank of the mesh calls `run_resumable`;
+        its first rank writes the checkpoints.
 
     Returns:
       The metrics `sim.run_scenario` returns, as numpy arrays: acc / loss
       (n_chunks, N), bias (n_rounds,)[, selected (n_rounds, N)]; or None
       when ``stop_after`` interrupted the run before completion.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    if mesh is not None and not isinstance(mesh, launch_mesh.Mesh):
+        raise TypeError(f"mesh= must be a launch.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    _check_mesh(sim, mesh)
+    if mesh is not None and mesh.coords is None:
+        raise ValueError(f"rank {mesh.rank} is not in the mesh "
+                         f"{mesh.ranks.tolist()}")
+    writer = mesh is None or mesh.rank == int(mesh.ranks.flat[0])
     scenario = scenario.prepare().to(sim.device)
     closed = scenario.policy_id is not None
 
@@ -396,6 +432,9 @@ def run_resumable(
             step = None
         if step is not None:
             fresh = sim.init_scan(scenario)
+            fresh["w"] = torch.zeros(
+                (sim.n_clients, sim.n_segments, sim.seg_len),
+                dtype=fresh["w"].dtype, device=sim.device)
             row = _row_like(sim, closed)
             like = {
                 "state": _saved_state(fresh),
@@ -404,7 +443,8 @@ def run_resumable(
                 "round_idx": np.int32(0),
             }
             payload = restore(ckpt_dir, like)
-            state = _live_state(payload["state"], sim.device)
+            state = _live_state(payload["state"], sim.device,
+                                sim.local_window)
             prev_rows = payload["metrics"]
             start = step + 1
     if start == 0:
@@ -422,15 +462,19 @@ def run_resumable(
         if (c + 1) % save_every == 0 or c == sim.n_chunks - 1:
             prev_rows = _stack_rows(prev_rows, rows)
             rows = []
-            save(
-                ckpt_dir,
-                {
-                    "state": _saved_state(state),
-                    "metrics": prev_rows,
-                    "round_idx": np.int32((c + 1) * sim.eval_every),
-                },
-                step=c,
-            )
+            saved = _saved_state(state, sim.full_rows)
+            if writer:
+                save(
+                    ckpt_dir,
+                    {
+                        "state": saved,
+                        "metrics": prev_rows,
+                        "round_idx": np.int32((c + 1) * sim.eval_every),
+                    },
+                    step=c,
+                )
+            if mesh is not None:
+                dist.barrier(group=mesh.group)
 
     metrics = _stack_rows(prev_rows, rows)
     if metrics is None:

@@ -24,8 +24,17 @@ kernel through `kernels.ops.ra_aggregate`, whose CPU twin is the plain
 version in `kernels.ref`); ``auto`` picks the kernel for CUDA tensors and
 the einsum versions elsewhere.  Masks may arrive packed (bool/uint8) and
 are cast to float32 once, at the aggregation boundary.
+
+The process-wide default substrate, for calls that pass ``impl=None``, is
+read from ``REPRO_AGG_IMPL`` as in the reference (`default_impl`).  Its
+values map onto the port's: ``auto`` -> ``auto``, ``jnp`` -> ``torch``
+(the plain einsum versions), ``pallas`` -> ``kernel``; the port's own
+names ``torch`` and ``kernel`` are taken as they are, and anything else
+raises.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -34,6 +43,37 @@ from ..kernels import ops
 _EPS = 1e-12
 
 IMPLS = ("auto", "torch", "kernel")
+# REPRO_AGG_IMPL's values (the reference's substrate names, and the port's
+# own) -> the port's substrate.
+_ENV_IMPLS = {"auto": "auto", "jnp": "torch", "pallas": "kernel",
+              "torch": "torch", "kernel": "kernel"}
+
+
+def default_impl() -> str:
+    """The process-wide substrate (``REPRO_AGG_IMPL``, default auto),
+    mapped onto `IMPLS` by `_ENV_IMPLS`; an unknown value raises."""
+    value = os.environ.get("REPRO_AGG_IMPL", "auto")
+    if value not in _ENV_IMPLS:
+        raise ValueError(f"REPRO_AGG_IMPL={value!r} is not one of "
+                         f"{sorted(_ENV_IMPLS)}")
+    return _ENV_IMPLS[value]
+
+
+def resolve_impl(impl: str | None = None,
+                 device: torch.device | None = None) -> str:
+    """Normalize an impl choice to one of `IMPLS`.
+
+    ``None`` defers to `default_impl`.  With a ``device``, ``auto``
+    resolves to a concrete substrate: the kernel on CUDA, the einsum
+    versions elsewhere (without one it stays ``auto``, resolved per call
+    by the tensors' device).
+    """
+    impl = default_impl() if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"agg_impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto" and device is not None:
+        return "kernel" if torch.device(device).type == "cuda" else "torch"
+    return impl
 MODE_IDS = {"ra_normalized": 0, "substitution": 1}
 MODE_NAMES = tuple(MODE_IDS)
 
@@ -137,22 +177,26 @@ def keep_nonparticipants(participation: torch.Tensor,
 
 _MODE_FNS = (ra_normalized, substitution)
 
+AGGREGATORS = {
+    "ra_normalized": ra_normalized,
+    "substitution": substitution,
+    "ideal": ideal,
+}
+
 
 def apply_mode(mode_id: int, w_seg: torch.Tensor, p: torch.Tensor,
                e: torch.Tensor, *, tx: torch.Tensor | None = None,
-               impl: str = "auto") -> torch.Tensor:
+               impl: str | None = "auto") -> torch.Tensor:
     """Aggregate with the mechanism ``mode_id`` (see MODE_IDS).
 
     ``impl`` selects the substrate: ``torch`` (einsum, this module),
     ``kernel`` (`kernels.ops.ra_aggregate`: the CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors) or ``auto`` (the kernel on
-    CUDA, einsum elsewhere).  ``tx`` is an optional (N, L) transmit mask
-    (`apply_transmit_mask`); the kernel composes it on chip.
+    tensors, its plain version for CPU tensors), ``auto`` (the kernel on
+    CUDA, einsum elsewhere) or None (`default_impl`).  ``tx`` is an
+    optional (N, L) transmit mask (`apply_transmit_mask`); the kernel
+    composes it on chip.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"agg_impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "auto":
-        impl = "kernel" if w_seg.is_cuda else "torch"
+    impl = resolve_impl(impl, w_seg.device)
     if impl == "kernel":
         return ops.ra_aggregate(w_seg, p, e, tx=tx, mode=MODE_NAMES[mode_id],
                                 device=w_seg.device)

@@ -78,6 +78,26 @@ def unsegment(seg: torch.Tensor, m_params: int) -> torch.Tensor:
     return seg.reshape(seg.shape[0], -1)[:, :m_params]
 
 
+def local_slice(full: torch.Tensor, n_local: int,
+                seg_start: int) -> torch.Tensor:
+    """Slice a full-segment-axis tensor to a model shard's local window.
+
+    ``full`` carries the global segment axis last (e.g. an (N, N, S)
+    success mask sampled at the full segment count); the window is
+    ``[seg_start, seg_start + n_local)``.  The axis is zero-padded by
+    ``n_local`` first, so every window that holds a real segment is in
+    bounds and is never shifted onto other segments.  A start past the
+    padded end is clamped, as the reference's ``lax.dynamic_slice``
+    clamps it: such a window holds only padding, whose values no protocol
+    reads back (zero segments stay zero).
+    """
+    padded = torch.nn.functional.pad(full, (0, n_local))
+    start = min(int(seg_start), padded.shape[-1] - n_local)
+    # A copy, as the reference's slice is: K1 takes masks contiguous in
+    # their trailing axes.
+    return padded.narrow(-1, start, n_local).contiguous()
+
+
 def sample_success(
     rho: torch.Tensor,
     n_segments: int,

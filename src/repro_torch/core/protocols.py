@@ -27,6 +27,15 @@ unencoded segments (`dispatch_round_seg`).
 Random draws: each function that samples takes its uniforms as ``u``
 (shapes below) so a test can replay the reference's draws; without them it
 draws from ``generator`` on the segments' device.
+
+Model-axis sharding: with ``seg_total=S`` a round runs on one model
+shard's window, ``w_seg`` being the (N, L_local, K) slice of the global
+(N, S, K) rows that starts at segment ``seg_start``.  Every draw is taken
+at the full width S (``u`` has S where the shapes below say L) and sliced
+to the window (`errors.local_slice`), so the shards of one scenario,
+drawing alike, aggregate each global segment as the unsharded round does;
+the R&A mask returned is the full (N, N, S) one, so the bias diagnostic
+agrees across shards.  ``seg_total=None`` is the unsharded round.
 """
 from __future__ import annotations
 
@@ -71,6 +80,8 @@ def ra_round_seg(
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     agg_impl: str = "auto",
+    seg_total: int | None = None,
+    seg_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """R&A local aggregation on segments; returns (out, e) with the sampled
     packed-bool success mask exposed for the bias diagnostic.
@@ -83,12 +94,18 @@ def ra_round_seg(
     runs its transmit-mask variant.
     """
     n, l = w_seg.shape[0], w_seg.shape[1]
+    l_draw = l if seg_total is None else seg_total
     e = errors.sample_success(
-        rho, l, n_clients=n,
-        u=_uniform((n, n, l), u, generator, w_seg.device))
+        rho, l_draw, n_clients=n,
+        u=_uniform((n, n, l_draw), u, generator, w_seg.device))
     if participation is not None:
         e = aggregation.mask_senders(e, participation)
-    out = aggregation.apply_mode(mode_id, w_seg, p, e, tx=tx_mask,
+    e_loc, tx_loc = e, tx_mask
+    if seg_total is not None:
+        e_loc = errors.local_slice(e, l, seg_start)
+        if tx_mask is not None:
+            tx_loc = errors.local_slice(tx_mask, l, seg_start)
+    out = aggregation.apply_mode(mode_id, w_seg, p, e_loc, tx=tx_loc,
                                  impl=agg_impl)
     if tx_mask is not None:
         e = aggregation.apply_transmit_mask(e, tx_mask)
@@ -109,6 +126,8 @@ def aayg_round_seg(
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     agg_impl: str = "auto",
+    seg_total: int | None = None,
+    seg_start: int = 0,
 ) -> torch.Tensor:
     """Aggregate-as-You-Go gossip: J = n_mixes one-hop mix iterations.
 
@@ -122,17 +141,21 @@ def aayg_round_seg(
     """
     n, l, _ = w_seg.shape
     eps = link_eps[:n, :n]
-    u = _uniform((n_mixes, n, n, l), u, generator, w_seg.device)
+    u = _uniform((n_mixes, n, n, l if seg_total is None else seg_total), u,
+                 generator, w_seg.device)
     eye = torch.eye(n, dtype=torch.bool, device=w_seg.device)[:, :, None]
+    tx = None if tx_mask is None else tx_mask[:n]
+    if seg_total is not None and tx is not None:
+        tx = errors.local_slice(tx, l, seg_start)
     w = w_seg
     for j in range(n_mixes):
         e = u[j] < eps[:, :, None]                  # packed bool mask
         if participation is not None:
             e = e & (participation[:n, None, None] > 0)
         e = e | eye                                  # own model present
-        out = aggregation.apply_mode(
-            mode_id, w, p, e, tx=None if tx_mask is None else tx_mask[:n],
-            impl=agg_impl)
+        if seg_total is not None:
+            e = errors.local_slice(e, l, seg_start)
+        out = aggregation.apply_mode(mode_id, w, p, e, tx=tx, impl=agg_impl)
         if participation is not None:
             out = aggregation.keep_nonparticipants(participation[:n], out, w)
         w = out
@@ -150,6 +173,8 @@ def cfl_round_seg(
     tx_mask: torch.Tensor | None = None,
     u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    seg_total: int | None = None,
+    seg_start: int = 0,
 ) -> torch.Tensor:
     """C-FL benchmark: star aggregation at ``aggregator`` via min-PER routes.
 
@@ -163,7 +188,8 @@ def cfl_round_seg(
     the downlink broadcast.
     """
     n, l, _ = w_seg.shape
-    u = _uniform((2, n, l), u, generator, w_seg.device)
+    u = _uniform((2, n, l if seg_total is None else seg_total), u, generator,
+                 w_seg.device)
     if participation is not None:
         star = torch.zeros(n, dtype=torch.float32, device=w_seg.device)
         star[aggregator] = 1.0
@@ -178,6 +204,8 @@ def cfl_round_seg(
     e_up[aggregator] = 1.0
     if participation is not None:
         e_up = e_up * participation[:, None]
+    if seg_total is not None:
+        e_up = errors.local_slice(e_up, l, seg_start)
     if mode_id == 0:
         wts = p[:, None] * e_up
         denom = torch.clamp(wts.sum(dim=0), min=1e-12)          # (L,)
@@ -194,6 +222,8 @@ def cfl_round_seg(
     e_dn[aggregator] = 1.0
     if participation is not None:
         e_dn = e_dn * participation[:, None]
+    if seg_total is not None:
+        e_dn = errors.local_slice(e_dn, l, seg_start)
     return e_dn[:, :, None] * g[None] + (1.0 - e_dn)[:, :, None] * w_seg
 
 
@@ -220,6 +250,8 @@ def dispatch_round_seg(
     generator: torch.Generator | None = None,
     agg_impl: str = "auto",
     track_bias: bool = True,
+    seg_total: int | None = None,
+    seg_start: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One exchange round of protocol ``protocol_id`` (`PROTOCOL_IDS`).
 
@@ -234,28 +266,36 @@ def dispatch_round_seg(
     lossy protocol's channel (R&A and AaYG masks, C-FL up- and downlink);
     ``w_raw`` (the unencoded segments) is what ideal C-FL and "none" use,
     since they put nothing on the air.  None keeps the codec-free round.
+
+    ``seg_total`` / ``seg_start`` run the round on a model shard's window
+    (see the module docstring): ``w_seg`` (and ``w_raw``) are the local
+    window, ``u`` and ``tx_mask`` full width, and ``e`` comes back at the
+    full (N, N, S).
     """
     n, l, _ = w_seg.shape
     dev = w_seg.device
     w_keep = w_seg if w_raw is None else w_raw
-    e_ones = torch.ones((n, n, l), dtype=torch.bool, device=dev)
+    e_ones = torch.ones((n, n, l if seg_total is None else seg_total),
+                        dtype=torch.bool, device=dev)
+    shard = dict(seg_total=seg_total, seg_start=seg_start)
     nan = torch.full((), math.nan, dtype=torch.float32, device=dev)
     if protocol_id == PROTOCOL_IDS["ra"]:
         out, e = ra_round_seg(w_seg, p, rho, mode_id, participation,
                               tx_mask=tx_mask, u=u, generator=generator,
-                              agg_impl=agg_impl)
+                              agg_impl=agg_impl, **shard)
         bias = (aggregation.bias_sq_norm_fused(p, e).mean()
                 if track_bias else nan)
         return out, e, bias
     if protocol_id == PROTOCOL_IDS["aayg"]:
         out = aayg_round_seg(w_seg, p, link_eps, mode_id, n_mixes=n_mixes,
                              participation=participation, tx_mask=tx_mask,
-                             u=u, generator=generator, agg_impl=agg_impl)
+                             u=u, generator=generator, agg_impl=agg_impl,
+                             **shard)
         return out, e_ones, nan
     if protocol_id == PROTOCOL_IDS["cfl"]:
         out = cfl_round_seg(w_seg, p, rho, mode_id, aggregator,
                             participation, tx_mask=tx_mask, u=u,
-                            generator=generator)
+                            generator=generator, **shard)
         return out, e_ones, nan
     if protocol_id == PROTOCOL_IDS["ideal_cfl"]:
         out = ideal_round_seg(w_keep, p, participation)

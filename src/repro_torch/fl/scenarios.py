@@ -51,10 +51,19 @@ vmap folding into the kernel through its vmap rule
 each scenario draws its round's uniforms from its own generator, seeded
 with its seed, as `run_sequential` does (`simulator.ScenarioBatch`).
 
-Multi-device grids (the reference's ``devices=`` / ``sharding=`` over a
-mesh, and ``model_shards > 1``) are ROADMAP Queue 1 item 8: `GridRunner`
-takes one device (``device=``, the card by default) and raises
-NotImplementedError for more.
+Multi-rank grids.  ``devices=`` / ``sharding=`` spread a grid over the
+ranks of a `launch.mesh` mesh, one process per rank, every rank calling
+`run` with the same grid (SPMD).  Each dispatch group is padded to a
+multiple of the grid axis (a mesh wider than the group shrinks to it,
+its other ranks sitting the group out), each grid row runs its share of
+the group's scenarios, and the rows' metrics are gathered along the mesh
+(`all_gather_object` on host arrays), so every rank's `GridResult` is the
+single-device one.  On a ('grid', 'model') mesh each scenario's segment
+axis is also split over the row's model shards (`simulator.build_sim`'s
+``model_shards``): every shard launches K1 on its own window.  A call
+that names one device (None, a device, 1) is the single-device engine and
+needs no process group; one naming more ranks than an initialized default
+process group holds raises ValueError.
 
 Public API
 ----------
@@ -62,7 +71,9 @@ Public API
   ScenarioGrid.concat(*grids)     join heterogeneous grids (re-pads V and
                                   the time axis, drops rho)
   sampling_schedule(...)          (T, N) per-round client-sampling mask
-  run_grid(...)                   one-shot batched run
+  run_grid(...)                   one-shot batched run (devices= /
+                                  sharding=: over a launch.mesh mesh)
+  names_one_device(devices)       whether a devices= value is one device
   run_sequential(...)             per-scenario baseline
   GridRunner(...)                 warm-program runner for repeated grids
                                   (tracker= / max_cached_programs= /
@@ -85,6 +96,7 @@ from .. import resolve_device
 from ..core import compression, protocols, selection, topology
 from ..data.synthetic import FederatedDataset
 from ..kernels import ops
+from ..launch import mesh as launch_mesh
 from ..launch import tracker as launch_tracker
 from . import simulator
 
@@ -93,10 +105,6 @@ _INHERIT = object()
 
 PROTOCOL_IDS = protocols.PROTOCOL_IDS
 MODE_IDS = protocols.MODE_IDS
-
-_MULTI_DEVICE = ("multi-device grids (devices= / sharding= over more than "
-                 "one device, model_shards > 1) are not ported yet: "
-                 "ROADMAP Queue 1 item 8")
 
 
 def _pad_link_eps(link_eps, v_max: int) -> np.ndarray:
@@ -869,30 +877,87 @@ def validate_grid(grid: ScenarioGrid, *, n_clients: int | None = None,
                 raise AdmissionError(f"grid rejected: {e}") from None
 
 
-def _single_device(devices, sharding) -> None:
-    """Accept only what names one device: None, a device (or its name), a
-    one-element sequence of devices, or the count 1.  Anything else (a
-    mesh, several devices, the reference's ``(spec, model_shards)`` pair)
-    is Queue 1 item 8."""
-    if sharding is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+def names_one_device(devices) -> bool:
+    """Whether a ``devices=`` value names one device: None, a device (or
+    its name), the count 1, or a one-element sequence (of devices or of
+    ranks).  Such a call runs the single-device engine."""
     if devices is None or isinstance(devices, (str, torch.device)):
-        return
+        return True
     if isinstance(devices, int) and not isinstance(devices, bool):
-        if devices == 1:
-            return
-    elif (isinstance(devices, (list, tuple)) and len(devices) == 1
-          and isinstance(devices[0], (str, torch.device))):
-        return
-    raise NotImplementedError(_MULTI_DEVICE)
+        return devices == 1
+    return (isinstance(devices, (list, tuple, range, np.ndarray))
+            and len(devices) == 1)
+
+
+def _resolve_grid_mesh(devices, sharding, device: torch.device
+                       ) -> launch_mesh.Mesh | None:
+    """Normalize the ``devices=`` / ``sharding=`` knobs into a mesh.
+
+    ``sharding`` wins over ``devices``; it is a `launch.mesh.Mesh`, 1-D or
+    2-D ``('grid', 'model')``, on this runner's device.  ``devices`` is
+    anything `launch.mesh.grid_mesh` takes (an int count, a list of ranks,
+    None), or a ``(spec, model_shards)`` tuple building a 2-D
+    `launch.mesh.grid_model_mesh`; a value naming one device gives None
+    (the single-device engine).
+    """
+    if sharding is not None:
+        if not isinstance(sharding, launch_mesh.Mesh):
+            raise TypeError(f"sharding= must be a launch.mesh.Mesh, got "
+                            f"{type(sharding).__name__}")
+        names = sharding.axis_names
+        if len(names) == 2:
+            if tuple(names) != (launch_mesh.GRID_AXIS,
+                                launch_mesh.MODEL_AXIS):
+                raise ValueError(
+                    "2-D grid sharding needs axes "
+                    f"('{launch_mesh.GRID_AXIS}', "
+                    f"'{launch_mesh.MODEL_AXIS}'), got {names} "
+                    "(see launch.mesh.grid_model_mesh)"
+                )
+        elif len(names) != 1:
+            raise ValueError("grid sharding needs a 1-D or 2-D mesh, got "
+                             f"axes {names}")
+        d = sharding.device           # "cuda" names the current card
+        if d.type != device.type or (
+                None not in (d.index, device.index)
+                and d.index != device.index):
+            raise ValueError(f"the mesh's device {d} is not the runner's "
+                             f"{device}")
+        return sharding
+    if (isinstance(devices, tuple) and len(devices) == 2
+            and isinstance(devices[1], int)
+            and not isinstance(devices[1], bool)):
+        spec, model_shards = devices
+        if model_shards == 1 and names_one_device(spec):
+            return None
+        return launch_mesh.grid_model_mesh(spec, model_shards=model_shards,
+                                           device=device)
+    if names_one_device(devices):
+        return None
+    if not isinstance(devices, int) and any(
+            isinstance(d, (str, torch.device)) for d in devices):
+        raise ValueError(
+            f"devices={devices!r}: a multi-rank grid names ranks (one "
+            "process each, launch.mesh.spawn), not devices")
+    return launch_mesh.grid_mesh(devices, device=device)
+
+
+def _take_rows(batch: simulator.Scenario, axes: simulator.Scenario,
+               rows: slice) -> simulator.Scenario:
+    """The rows ``rows`` of a hoisted batch: mapped leaves sliced, hoisted
+    leaves kept."""
+    return simulator.Scenario(**{
+        name: leaf[rows] if getattr(axes, name) == 0 else leaf
+        for name, leaf in batch._asdict().items()})
 
 
 class GridRunner:
     """Scenario-grid runner: bind once, run many grids.
 
     Binds (init, apply, data, statics) into one `simulator.SimPrograms` on
-    one device and caches a built program per (hoist signature, shapes)
-    key in a bounded LRU (`ProgramCache`; ``max_cached_programs``), so
+    this rank's device (one more per model-sharded mesh) and caches a
+    built program per (hoist signature, [mesh,] shapes) key in a bounded
+    LRU (`ProgramCache`; ``max_cached_programs``), so
     repeated `run()` calls on same-shaped grids rebuild nothing.
     `warmup` builds the declared shapes' programs ahead of traffic;
     `validate` rejects malformed grids at admission (`AdmissionError`).
@@ -906,9 +971,9 @@ class GridRunner:
         agg_impl, eval_every, track_bias, local_optimizer); its
         per-scenario fields are ignored.
       device: where the grids run, as `simulator.build_sim` takes it
-        (default: the CUDA card).
-      devices / sharding: only None or a single device (more is ROADMAP
-        Queue 1 item 8 and raises NotImplementedError).
+        (default: the CUDA card); on a mesh, this rank's device.
+      devices / sharding: the default spread of `run` over ranks (see
+        `_resolve_grid_mesh`; None: one device).
       tracker: metrics sink for cache counters and batch fill ratios.
       max_cached_programs: LRU bound of the program cache (None:
         unbounded).
@@ -927,16 +992,24 @@ class GridRunner:
         tracker: launch_tracker.Tracker | None = None,
         max_cached_programs: int | None = None,
     ):
-        _single_device(devices, sharding)
-        self.sim = simulator.build_sim(
-            init_fn, apply_fn, data,
-            seg_len=cfg.seg_len, local_epochs=cfg.local_epochs,
-            n_rounds=cfg.n_rounds, aayg_mixes=cfg.aayg_mixes,
-            agg_impl=cfg.agg_impl, eval_every=cfg.eval_every,
-            track_bias=cfg.track_bias, local_optimizer=cfg.local_optimizer,
-            device=resolve_device(device),
-        )
+        dev = resolve_device(device)
+
+        def build(model_shards=1, mesh=None):
+            return simulator.build_sim(
+                init_fn, apply_fn, data,
+                seg_len=cfg.seg_len, local_epochs=cfg.local_epochs,
+                n_rounds=cfg.n_rounds, aayg_mixes=cfg.aayg_mixes,
+                agg_impl=cfg.agg_impl, eval_every=cfg.eval_every,
+                track_bias=cfg.track_bias,
+                local_optimizer=cfg.local_optimizer, device=dev,
+                model_shards=model_shards, mesh=mesh)
+
+        self._build_sim = build
+        self.sim = build()
+        # One sim per model-sharded mesh (its model group and window).
+        self._sims: dict[tuple, simulator.SimPrograms] = {}
         self.devices = devices
+        self.sharding = sharding
         self.tracker = tracker or launch_tracker.NullTracker()
         self._seg_len = cfg.seg_len
         self.programs = ProgramCache(max_cached_programs,
@@ -948,6 +1021,25 @@ class GridRunner:
         count, codec segment size); see `validate_grid`."""
         validate_grid(grid, n_clients=self.sim.n_clients,
                       seg_len=self._seg_len, strict_packet=strict_packet)
+
+    def _sim_for(self, mesh: launch_mesh.Mesh) -> simulator.SimPrograms:
+        """The sim of this rank's share on ``mesh``: the runner's own on a
+        mesh without a model axis (or of model size 1), else one bound to
+        the model group."""
+        dm = mesh.shape.get(launch_mesh.MODEL_AXIS, 1)
+        if dm == 1:
+            return self.sim
+        key = launch_mesh.mesh_fingerprint(mesh)
+        sim = self._sims.get(key)
+        if sim is None:
+            sim = self._sims[key] = self._build_sim(dm, mesh)
+        return sim
+
+    def _mesh(self, devices, sharding) -> launch_mesh.Mesh | None:
+        return _resolve_grid_mesh(
+            self.devices if devices is _INHERIT else devices,
+            self.sharding if sharding is None else sharding,
+            self.sim.device)
 
     def _index_groups(self, grid: ScenarioGrid) -> list[list[int]]:
         """The dispatch partition: rows that share every discrete id
@@ -983,21 +1075,30 @@ class GridRunner:
         routing-neutral filler rows (`_pad_scenario_batch`) up to the
         smallest bucket that fits (`_bucket_target`), and the filler rows
         are dropped.  ``validate=False`` skips admission validation.
-        ``devices`` / ``sharding``: see the class.
+
+        ``devices`` / ``sharding`` (default: the runner's) spread the grid
+        over a mesh of ranks (module docstring): every rank of the mesh
+        calls `run` with the same grid and gets the whole result; a rank
+        of the default group outside the mesh builds it with the others
+        and returns None.
         """
-        _single_device(self.devices if devices is _INHERIT else devices,
-                       sharding)
+        mesh = self._mesh(devices, sharding)
         for bits in getattr(grid, "packet_len_bits", ()):
             simulator.check_packet_len(
                 bits, self._seg_len, bits_per_value=self.sim.bits_per_value
             )
         if validate:
             self.validate(grid)
+        if mesh is not None and mesh.coords is None:
+            return None
         rows: list[dict | None] = [None] * len(grid)
         for idx, sub in self._groups(grid, pad_to):
             self.tracker.observe("grid/batch_fill",
                                  len(idx) / sub.link_eps.shape[0])
-            program, args = self._program_vmap(sub)
+            if mesh is None:
+                program, args = self._program_vmap(sub)
+            else:
+                program, args = self._program_sharded(sub, mesh)
             metrics = program(args)
             for j, i in enumerate(idx):   # filler rows j >= len(idx) dropped
                 rows[i] = {k: v[j] for k, v in metrics.items()}
@@ -1011,11 +1112,13 @@ class GridRunner:
         """Build every program `run()` would need for this grid without
         running it (on the card this builds K1 too); returns the number of
         programs built (0 when everything was warm)."""
-        _single_device(self.devices if devices is _INHERIT else devices,
-                       sharding)
+        mesh = self._mesh(devices, sharding)
         misses0 = self.programs.misses
         for _idx, sub in self._groups(grid, pad_to):
-            self._program_vmap(sub)
+            if mesh is None:
+                self._program_vmap(sub)
+            elif mesh.coords is not None:
+                self._program_sharded(sub, mesh)
         return self.programs.misses - misses0
 
     def _program_vmap(self, sub: simulator.Scenario):
@@ -1030,6 +1133,54 @@ class GridRunner:
                 ops.load_library("ra_aggregate")
             return lambda batch: sim.run_scenario_batch(
                 sim.prepare_batch(batch, axes))
+
+        return self.programs.lookup(sig, build), args
+
+    def _program_sharded(self, sub: simulator.Scenario,
+                         mesh: launch_mesh.Mesh):
+        """The multi-rank program for this sub-batch on ``mesh``, and its
+        arguments.
+
+        The sub-batch is padded to a multiple of the grid axis (a mesh
+        wider than it shrinks to its first g grid rows, every model shard
+        of each kept); grid row r runs rows ``[r * per, (r + 1) * per)``
+        with its sim (`_sim_for`: model-sharded on a 2-D mesh), and every
+        rank of the mesh gets every row's metrics (model shard 0 of each
+        grid row hands them in; the shards' metrics are the same).  The
+        program is cached per hoist signature, shrunk mesh and shapes;
+        every rank of the mesh must call it.
+        """
+        sim = self._sim_for(mesh)
+        g = sub.link_eps.shape[0]
+        shrunk = mesh.first_rows(g)
+        d = shrunk.shape[launch_mesh.GRID_AXIS]
+        sub = _pad_scenario_batch(sub, -(-g // d) * d)
+        axes, args = _hoist_uniform(sub)
+        sig = ("shard", tuple(axes._asdict().items()),
+               launch_mesh.mesh_fingerprint(shrunk), _aval_sig(args))
+
+        def build():
+            if sim.device.type == "cuda":
+                ops.load_library("ra_aggregate")
+
+            def program(batch):
+                per = len(batch.seed) // d        # the seed is mapped
+                mine = None
+                if shrunk.coords is not None:
+                    r = shrunk.coords[launch_mesh.GRID_AXIS]
+                    out = sim.run_scenario_batch(sim.prepare_batch(
+                        _take_rows(batch, axes, slice(r * per,
+                                                      (r + 1) * per)),
+                        axes))
+                    if shrunk.coords.get(launch_mesh.MODEL_AXIS, 0) == 0:
+                        mine = (r, {k: v.numpy() for k, v in out.items()})
+                parts = dict(p for p in launch_mesh.all_gather_objects(
+                    mine, mesh.group) if p is not None)
+                return {k: torch.cat([torch.from_numpy(parts[r][k])
+                                      for r in range(d)])
+                        for k in parts[0]}
+
+            return program
 
         return self.programs.lookup(sig, build), args
 
@@ -1056,7 +1207,8 @@ def run_grid(
     sharding: Any = None,
 ) -> GridResult:
     """One-shot batched grid run (see `GridRunner.run`) on ``device``
-    (default: the card).  ``cfg`` supplies the static knobs."""
+    (default: the card), over the ranks ``devices`` / ``sharding`` name
+    (None: one device).  ``cfg`` supplies the static knobs."""
     runner = GridRunner(init_fn, apply_fn, data, cfg, device=device,
                         devices=devices, sharding=sharding)
     return runner.run(grid)

@@ -53,6 +53,19 @@ numbers the scalar path uses for that scenario.  A round of the batch runs
 one local-training pass over G * N clients and one K1 launch for R&A (J
 for AaYG), whatever G is.
 
+Model-axis sharding: ``build_sim(model_shards=Dm, mesh=)`` splits the
+segment axis over the Dm ranks of this rank's model-sharding group (the
+``model`` axis of a `launch.mesh.grid_model_mesh`).  The loop's state then
+holds the local window (N, L_local, K), L_local = ceil(S / Dm), starting
+at segment (model coordinate) * L_local.  Each round all-gathers the full
+rows inside the group, trains them (every shard alike), encodes them,
+and exchanges only the window (`protocols.dispatch_round_seg` with
+``seg_total`` / ``seg_start``): draws are taken at the full width and
+sliced, so every global segment is aggregated as the unsharded loop
+aggregates it, and on the card each shard launches K1 on its window.
+Metrics come from the gathered full rows, the same on every shard.  Every
+rank of the group runs the same calls (SPMD).
+
 Entry points `build_sim` and `run` run on the CUDA card unless the caller
 passes ``device="cpu"``.  On CUDA, TF32 is off for matmuls and cuDNN
 convolutions (`repro_torch.resolve_device`): the reference computes in
@@ -68,6 +81,8 @@ Public API
   SimPrograms.round_step    (state, scenario, u=, u_codec=) -> (state, metrics)
   SimPrograms.advance_chunk (state, scenario, u=, u_codec=) -> (state, metrics)
   SimPrograms.run_scenario  scenario -> metrics dict (n_rounds)
+  SimPrograms.full_rows / local_window
+                            a model shard's window <-> the full rows
   SimPrograms.prepare_batch (batch, axes) -> ScenarioBatch (G scenarios)
   SimPrograms.{init_scan,advance_chunk,run_scenario}_batch
                             the same over a ScenarioBatch, (G, ...) metrics
@@ -87,8 +102,12 @@ from .. import resolve_device
 from ..core import (aggregation, compression, errors, protocols, routing,
                     selection, topology)
 from ..data.synthetic import FederatedDataset
+from ..launch import mesh as launch_mesh
 from ..models.smallnets import accuracy, ce_loss
 from ..optim import optimizers
+
+# Default mesh axis name of model-axis (segment) sharding.
+MODEL_AXIS = launch_mesh.MODEL_AXIS
 
 
 class PacketLengthMismatchWarning(UserWarning):
@@ -437,6 +456,12 @@ class SimPrograms:
     or one entry per scenario, each None or a per-round list as
     ``advance_chunk`` takes), and ``run_scenario_batch(sb)`` loops it,
     returning metrics with a leading G axis.
+
+    With ``model_shards > 1`` every state's ``"w"`` is this rank's window
+    (N, L_local, K) (batched: (G, N, L_local, K)); ``full_rows`` gathers
+    the full (..., N, S, K) rows from the model group and ``local_window``
+    takes this rank's window of them (both the identity when
+    ``model_shards == 1``).  ``round_step`` refuses a sharded sim.
     """
 
     round_step: Callable
@@ -455,6 +480,10 @@ class SimPrograms:
     seg_len: int
     device: torch.device
     bits_per_value: int = errors.FLOAT_BITS   # from the bound state dtype
+    model_shards: int = 1
+    local_segments: int = 0   # L_local = ceil(S / model_shards)
+    full_rows: Callable | None = None
+    local_window: Callable | None = None
 
 
 def _optimizer_factory(local_optimizer) -> Callable | None:
@@ -498,6 +527,8 @@ def build_sim(
     track_bias: bool = True,
     local_optimizer: Any = None,
     device: str | torch.device | None = None,
+    model_shards: int = 1,
+    mesh: launch_mesh.Mesh | None = None,
 ) -> SimPrograms:
     """Bind data + statics into the round loop on ``device``.
 
@@ -512,8 +543,8 @@ def build_sim(
         per-client ``Scenario.local_epochs`` clip to).
       n_rounds: rounds in `run_scenario`.
       aayg_mixes: J one-hop mix iterations for AaYG.
-      agg_impl: aggregation substrate (auto | torch | kernel; see
-        `core.aggregation.apply_mode`).
+      agg_impl: aggregation substrate (auto | torch | kernel, or None for
+        ``REPRO_AGG_IMPL``; see `core.aggregation.apply_mode`).
       eval_every: evaluate test accuracy / train loss only every k-th round
         (must divide ``n_rounds``); ``bias`` stays per-round.
       track_bias: False skips the R&A ||Lambda||^2 diagnostic (NaN).
@@ -524,13 +555,34 @@ def build_sim(
         fresh every round; it acts on all clients' rows at once (its
         updates are elementwise), outside the vmapped gradient.
       device: where the loop runs; default the CUDA card (raises without
-        one).  Pass ``"cpu"`` for the plain path.
+        one), or with a sharded ``mesh`` the mesh's device.  Pass
+        ``"cpu"`` for the plain path.
+      model_shards: Dm, the model-axis size.  With ``model_shards > 1``
+        the state holds this rank's ``L_local = ceil(S / Dm)`` segment
+        window and every rank of its model group runs the same calls;
+        ``mesh`` must carry the model axis (`launch.mesh.MODEL_AXIS`) at
+        size Dm.  ``model_shards=1`` (default) needs no mesh and is the
+        single-device loop.
+      mesh: a `launch.mesh.grid_model_mesh` holding this rank (read only
+        when ``model_shards > 1``).
     """
+    if model_shards < 1:
+        raise ValueError(f"model_shards={model_shards} must be >= 1")
+    if model_shards > 1:
+        if mesh is None:
+            raise ValueError(
+                f"model_shards={model_shards} needs a mesh with a "
+                f"'{MODEL_AXIS}' axis (e.g. launch.mesh.grid_model_mesh)")
+        if mesh.shape.get(MODEL_AXIS) != model_shards:
+            raise ValueError(f"mesh axes {mesh.shape} do not provide "
+                             f"{MODEL_AXIS}={model_shards}")
+        if device is None:
+            device = mesh.device
+    else:
+        mesh = None
     dev = resolve_device(device)
     validate_eval_schedule(n_rounds, eval_every)
-    if agg_impl not in aggregation.IMPLS:
-        raise ValueError(f"agg_impl must be one of {aggregation.IMPLS}, got "
-                         f"{agg_impl!r}")
+    agg_impl = aggregation.resolve_impl(agg_impl)
     opt_factory = _optimizer_factory(local_optimizer)
 
     n = data.n_clients
@@ -548,6 +600,11 @@ def build_sim(
     sizes = [int(t.numel()) for t in params_like.values()]
     m_params = sum(sizes)
     s_total = errors.num_segments(m_params, seg_len)
+    l_local = -(-s_total // model_shards)
+    seg_start = 0
+    if model_shards > 1:
+        model_group, model_fiber = mesh.axis_group(MODEL_AXIS)
+        seg_start = mesh.axis_index(MODEL_AXIS) * l_local
     # Segments carry the promoted state dtype; the quantizer prices it.
     bits_per_value = errors.dtype_bits(functools.reduce(
         torch.promote_types, (t.dtype for t in params_like.values())))
@@ -602,7 +659,24 @@ def build_sim(
             rows, state = new, new_state
         return rows
 
+    def full_rows(w_loc: torch.Tensor) -> torch.Tensor:
+        """This shard's (..., N, L_local, K) window -> the full
+        (..., N, S, K) rows, gathered inside the model group."""
+        if model_shards == 1:
+            return w_loc
+        full = launch_mesh.gather_along(w_loc, -2, model_group, model_fiber)
+        return full.narrow(-2, 0, s_total)
+
+    def local_window(full: torch.Tensor) -> torch.Tensor:
+        """Full (..., N, S, K) rows -> this shard's window (zero past S)."""
+        if model_shards == 1:
+            return full
+        padded = torch.nn.functional.pad(
+            full, (0, 0, 0, l_local * model_shards - s_total))
+        return padded.narrow(-2, seg_start, l_local).contiguous()
+
     def _init_rows(seed: int) -> torch.Tensor:
+        """The full (N, S, K) rows of the common init of ``seed``."""
         params0 = init_fn(torch.Generator().manual_seed(seed))
         stacked = {k: v.to(dev)[None].expand((n,) + tuple(v.shape))
                    for k, v in params0.items()}
@@ -634,8 +708,9 @@ def build_sim(
                     generator, ratio_override=None):
         """Train -> keep non-participants -> encode -> exchange.
 
-        ``part`` is the realized (N,) participation mask (None: everyone).
-        Returns (new rows, trained rows, bias).  The exchange sees the
+        ``w`` are the full (N, S, K) rows.  ``part`` is the realized (N,)
+        participation mask (None: everyone).  Returns (new rows of this
+        shard's window, trained full rows, bias).  The exchange sees the
         encoded rows under the codec's transmit mask; the exchange-free
         protocols and every sampled-out receiver keep the unencoded rows.
         ``ratio_override`` ((N,), optional) is the budget policy's
@@ -654,13 +729,15 @@ def build_sim(
                 scenario.codec_id, trained, ratio, u=u_codec,
                 generator=generator, n_real=s_total,
                 dtype_bits=bits_per_value)
-            w_raw = trained
+            w_raw = local_window(trained)
         new, _e, bias = protocols.dispatch_round_seg(
-            w_send, p, scenario.rho, scenario.link_eps,
+            local_window(w_send), p, scenario.rho, scenario.link_eps,
             scenario.protocol_id, scenario.mode_id, scenario.aggregator,
             n_mixes=aayg_mixes, participation=part, tx_mask=tx_mask,
             w_raw=w_raw, u=u, generator=generator, agg_impl=agg_impl,
             track_bias=track_bias,
+            seg_total=None if model_shards == 1 else s_total,
+            seg_start=seg_start,
         )
         if scenario.codec_id is not None and part is not None:
             # dispatch restores sampled-out receivers to its input, the
@@ -669,11 +746,12 @@ def build_sim(
             new = torch.where(part[:, None, None] > 0, new, w_raw)
         return new, trained, bias
 
-    def _advance_closed(w: torch.Tensor, scenario_t: Scenario,
-                        signals: selection.SelectionSignals, u, u_codec,
-                        generator):
-        """Closed-loop round: select -> train -> exchange -> refresh the
-        participants' signals.  Returns (rows, signals, mask, bias)."""
+    def _closed_round(w: torch.Tensor, scenario_t: Scenario,
+                      signals: selection.SelectionSignals, u, u_codec,
+                      generator):
+        """Closed-loop round on the full rows: select -> train ->
+        exchange.  Returns (new window rows, trained rows, mask, bias);
+        `_refresh` then updates the signals."""
         base = _participation(scenario_t)
         base = (torch.ones(n, dtype=torch.float32, device=dev)
                 if base is None else base)
@@ -689,13 +767,30 @@ def build_sim(
                 scenario_t.compress_ratio)
         new, trained, bias = _round_core(w, scenario_t, mask, u, u_codec,
                                          generator, ratio_override)
+        return new, trained, mask, bias
+
+    def _refresh(signals: selection.SelectionSignals, mask, trained, old,
+                 new) -> selection.SelectionSignals:
+        """The participants' signals after a round: update norms of the
+        trained vs the previous full rows, loss of the new full rows."""
         upd = selection.update_norms(_stacked_views(trained),
-                                     _stacked_views(w))
+                                     _stacked_views(old))
         chosen = mask > 0
-        signals = selection.SelectionSignals(
+        return selection.SelectionSignals(
             loss=torch.where(chosen, _batched_loss(new, xs, ys),
                              signals.loss),
             upd_norm=torch.where(chosen, upd, signals.upd_norm))
+
+    def _advance_closed(w_loc: torch.Tensor, scenario_t: Scenario,
+                        signals: selection.SelectionSignals, u, u_codec,
+                        generator):
+        """Closed-loop round of one scenario: select -> train -> exchange
+        -> refresh the participants' signals.  Returns (window rows,
+        signals, mask, bias)."""
+        w = full_rows(w_loc)
+        new, trained, mask, bias = _closed_round(w, scenario_t, signals, u,
+                                                 u_codec, generator)
+        signals = _refresh(signals, mask, trained, w, full_rows(new))
         return new, signals, mask, bias
 
     def _metrics(rows: torch.Tensor) -> dict:
@@ -717,6 +812,12 @@ def build_sim(
                 "round_step cannot run a closed-loop scenario: the "
                 "sampling policy needs the signal carry that only "
                 "init_scan / advance_chunk thread"
+            )
+        if model_shards != 1:
+            raise ValueError(
+                "round_step exposes the unsharded pytree-state API; build "
+                "the sim with model_shards=1 (run_scenario / advance_chunk "
+                "are the model-sharded entry points)"
             )
         if scenario.link_eps.ndim == 3 or (
                 scenario.participation is not None
@@ -741,10 +842,11 @@ def build_sim(
         """The segment-native state at round 0 (before training); a
         closed-loop scenario's state also carries its signals."""
         gen = torch.Generator(device=dev).manual_seed(int(scenario.seed))
-        state = {"w": _init_rows(int(scenario.seed)), "gen": gen, "t": 0}
+        full = _init_rows(int(scenario.seed))
+        state = {"w": local_window(full), "gen": gen, "t": 0}
         if scenario.policy_id is not None:
             state["sig"] = selection.init_signals(
-                _batched_loss(state["w"], xs, ys))
+                _batched_loss(full, xs, ys))
         return state
 
     @torch.no_grad()
@@ -769,11 +871,11 @@ def build_sim(
                 chosen.append(mask)
             else:
                 w, _trained, bias = _round_core(
-                    w, sc_t, _participation(sc_t), us[i], ucs[i],
+                    full_rows(w), sc_t, _participation(sc_t), us[i], ucs[i],
                     state["gen"])
             biases.append(bias)
         new_state = {"w": w, "gen": state["gen"], "t": t + eval_every}
-        metrics = {**_metrics(w), "bias": torch.stack(biases)}
+        metrics = {**_metrics(full_rows(w)), "bias": torch.stack(biases)}
         if closed:
             new_state["sig"] = sig
             metrics["selected"] = torch.stack(chosen)
@@ -848,7 +950,7 @@ def build_sim(
         once)."""
         rows = {seed: _init_rows(seed) for seed in dict.fromkeys(sb.seeds)}
         w = torch.stack([rows[seed] for seed in sb.seeds])
-        state = {"w": w, "t": 0,
+        state = {"w": local_window(w), "t": 0,
                  "gens": [torch.Generator(device=dev).manual_seed(seed)
                           for seed in sb.seeds]}
         if sb.scenario.policy_id is not None:
@@ -861,14 +963,17 @@ def build_sim(
             return None
         return torch.stack([d.to(dev) for d in draws])
 
-    def _batch_round(w, sc_t: Scenario, mapped, sig, u, u_codec):
-        """One round of every scenario of the batch, under one vmap."""
+    def _batch_round(w_loc, sc_t: Scenario, mapped, sig, u, u_codec):
+        """One round of every scenario of the batch, under one vmap (a
+        closed loop refreshes its signals under a second one, after the
+        new rows are gathered)."""
         closed = sc_t.policy_id is not None
+        w = full_rows(w_loc)
 
         def one(w_i, sig_i, u_i, uc_i, *vals):
             sc_i = sc_t._replace(**dict(zip(mapped, vals)))
             if closed:
-                return _advance_closed(w_i, sc_i, sig_i, u_i, uc_i, None)
+                return _closed_round(w_i, sc_i, sig_i, u_i, uc_i, None)
             new, _trained, bias = _round_core(
                 w_i, sc_i, _participation(sc_i), u_i, uc_i, None)
             return new, bias
@@ -877,7 +982,12 @@ def build_sim(
                  None if u_codec is None else 0) + (0,) * len(mapped))
         out = torch.func.vmap(one, in_dims=dims)(
             w, sig, u, u_codec, *(getattr(sc_t, nm) for nm in mapped))
-        return out if closed else (out[0], None, None, out[1])
+        if not closed:
+            return out[0], None, None, out[1]
+        new, trained, mask, bias = out
+        sig = torch.func.vmap(_refresh)(sig, mask, trained, w,
+                                        full_rows(new))
+        return new, sig, mask, bias
 
     @torch.no_grad()
     def advance_chunk_batch(state: dict, sb: ScenarioBatch, *, u=None,
@@ -907,7 +1017,7 @@ def build_sim(
                 chosen.append(mask)
             biases.append(bias)
         new_state = {"w": w, "gens": gens, "t": t + eval_every}
-        metrics = {**torch.func.vmap(_metrics)(w),
+        metrics = {**torch.func.vmap(_metrics)(full_rows(w)),
                    "bias": torch.stack(biases, dim=1)}
         if closed:
             new_state["sig"] = sig
@@ -948,6 +1058,10 @@ def build_sim(
         seg_len=seg_len,
         device=dev,
         bits_per_value=bits_per_value,
+        model_shards=model_shards,
+        local_segments=l_local,
+        full_rows=full_rows,
+        local_window=local_window,
     )
 
 

@@ -11,11 +11,15 @@
   * `LAUNCHES` counts kernel launches by name, incremented where the kernel
     is launched and nowhere else, so a run can show that its main path went
     through the kernel.
-  * Threads: a scenario server's dispatcher and a router's replicas launch
-    K1 outside the main thread.  `load_library` builds and binds a kernel
-    once under one lock, `build_all` stages each build in a file of its own
-    process and thread, and every launch counter is incremented under a
-    lock (`kernels.count_launch`).
+  * Threads and processes: a scenario server's dispatcher and a router's
+    replicas launch K1 outside the main thread, and the ranks of a
+    multi-rank run (`launch.mesh.spawn`) each load it.  `load_library`
+    builds and binds a kernel once under one lock, `build_all` holds a
+    file lock per kernel in the build directory while it checks for and
+    builds that kernel (so ranks starting at once compile each source
+    once, the others waiting and then loading the library), stages each
+    build in a file of its own process and thread, and every launch
+    counter is incremented under a lock (`kernels.count_launch`).
   * K2 and K3 have no backward kernel (nor has the reference): on the card
     `flash_attention` and `rwkv6_scan` raise where a gradient would flow
     through them (`refuse_autograd`), instead of returning an output that
@@ -28,7 +32,9 @@
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -78,9 +84,21 @@ def build_all(names=None) -> dict[str, str]:
 
     Returns ``{name: compiler output}`` (``-Xptxas -v``: registers, shared
     memory and spills per instantiation).  Raises if any build fails.
+    Each kernel's file lock (``build/<name>.lock``) is held from the check
+    to the end of its build, taken in name order, so processes building at
+    once compile each source once.
     """
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with contextlib.ExitStack() as locks:
+        for name in sorted(set(names)):
+            lock = locks.enter_context(open(BUILD_DIR / f"{name}.lock", "w"))
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict[str, str]:
+    """`build_all`'s body, under the kernels' file locks."""
     procs = {}
     for name in names:
         target = lib_path(name)

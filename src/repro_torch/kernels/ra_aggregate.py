@@ -32,10 +32,11 @@ _MASK_CODES = {torch.bool: 0, torch.uint8: 0, torch.float32: 1}
 BODIES = ("register", "shared")   # N <= 16, N > 16
 PLAN_KEYS = ("body", "threads", "smem_bytes", "blocks", "tiles",
              "blocks_per_sm", "receivers_per_warp", "slabs")
-# Launches by variant (without / with a transmit mask), and by batch size
-# B, counted where `launch` starts one.
+# Launches by variant (without / with a transmit mask), by batch size B,
+# and by shape (B, N, L, K), counted where `launch` starts one.
 VARIANT_LAUNCHES = {"plain": 0, "tx": 0}
 BATCH_LAUNCHES: dict[int, int] = {}
+SHAPE_LAUNCHES: dict[tuple[int, int, int, int], int] = {}
 
 
 def broadcast_batch(w_seg, p, e, tx=None, *, mode):
@@ -150,6 +151,7 @@ def launch(lib: ctypes.CDLL, w4: torch.Tensor, p2: torch.Tensor,
                            f"launch: e.g. N too large for shared memory)")
     count_launch(VARIANT_LAUNCHES, "plain" if tx3 is None else "tx")
     count_launch(BATCH_LAUNCHES, b)
+    count_launch(SHAPE_LAUNCHES, (b, n, l, k))
     return out
 
 

@@ -575,7 +575,8 @@ class ScenarioRouter:
         in-process stand-in for N server processes.  ``device`` (default:
         the CUDA card) and ``devices`` are passed to every replica, so all
         of them run on that one device; ``devices`` over more than one
-        device is ROADMAP Queue 1 item 8 and raises NotImplementedError.
+        device is ROADMAP Queue 1 item 10 (serving over ranks) and raises
+        NotImplementedError.
         """
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")

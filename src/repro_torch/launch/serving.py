@@ -68,9 +68,10 @@ Telemetry flows through the pluggable `launch.tracker` API — pure
 host-side bookkeeping, no device syncs on the hot path; results come back
 as numpy arrays, whose copy to the host is a dispatch's one device sync.
 
-Multi-device serving (the reference's ``devices=`` over a mesh) is ROADMAP
-Queue 1 item 8: ``devices=`` naming more than one device raises
-NotImplementedError (`GridRunner`).
+Serving over several ranks (the reference's ``devices=`` over a mesh) is
+ROADMAP Queue 1 item 10: its requests would have to be fanned out from one
+rank to the others, which is a design of its own.  ``devices=`` naming
+more than one device raises NotImplementedError.
 
 CLI demo (synthetic open-loop arrival process):
 
@@ -95,6 +96,9 @@ import torch
 from ..data.synthetic import FederatedDataset
 from ..fl import scenarios, simulator
 from . import tracker as launch_tracker
+
+MULTI_RANK = ("serving over more than one device (devices= naming several "
+              "ranks) is not ported yet: ROADMAP Queue 1 item 10")
 
 # Queue sentinel: tells the batcher / dispatcher threads to exit.
 _SHUTDOWN = object()
@@ -393,8 +397,8 @@ class ScenarioServer:
         ``self.tracker`` (pass `NullTracker()` to disable).
       device: where every dispatch runs (default: the CUDA card; raises
         without one).  Pass ``"cpu"`` for the plain path.
-      devices: only None or one device (`GridRunner`); more is ROADMAP
-        Queue 1 item 8 and raises NotImplementedError.
+      devices: only None or one device; more is ROADMAP Queue 1 item 10
+        (serving over ranks) and raises NotImplementedError.
 
     Lifecycle: `start()` spawns the batcher + dispatcher + deadline-reaper
     threads; `stop(drain=True)` serves everything already accepted and
@@ -416,6 +420,8 @@ class ScenarioServer:
         device: str | torch.device | None = None,
         devices=None,
     ):
+        if not scenarios.names_one_device(devices):
+            raise NotImplementedError(MULTI_RANK)
         self.cfg = serve
         self.tracker = (launch_tracker.StatsTracker()
                         if tracker is None else tracker)
@@ -984,7 +990,7 @@ def main(argv=None) -> None:
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--devices", type=int, default=0,
                     help="devices to shard dispatches over (0 or 1: one; "
-                         "more is not ported yet and raises)")
+                         "more is ROADMAP Queue 1 item 10 and raises)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the plain path")
     ap.add_argument("--seed", type=int, default=0)

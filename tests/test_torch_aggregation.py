@@ -223,3 +223,62 @@ def test_apply_mode_substrates_match_reference(impl, mode):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     with pytest.raises(ValueError, match="agg_impl"):
         aggregation.apply_mode(mid, *_t(w, p, e), impl="pallas")
+
+
+@pytest.mark.parametrize("name", ["ra_normalized", "substitution", "ideal"])
+def test_aggregators_table_matches_reference(name):
+    """`AGGREGATORS` has the reference's names, each the same rule; with an
+    error-free mask every mechanism is the ideal aggregate."""
+    assert sorted(aggregation.AGGREGATORS) == sorted(jagg.AGGREGATORS)
+    w, p, e, _part, _ = _agg_inputs(5)
+    ef = e.astype(np.float32)
+    got = aggregation.AGGREGATORS[name](*_t(w, p, ef))
+    want = jagg.AGGREGATORS[name](*_j(w, p, ef))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    ones = np.ones_like(ef)
+    np.testing.assert_allclose(
+        aggregation.AGGREGATORS[name](*_t(w, p, ones)).numpy(),
+        aggregation.ideal(*_t(w, p)).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("value,impl", [(None, "auto"), ("auto", "auto"),
+                                        ("jnp", "torch"),
+                                        ("pallas", "kernel"),
+                                        ("torch", "torch"),
+                                        ("kernel", "kernel")])
+def test_default_impl_reads_repro_agg_impl(monkeypatch, value, impl):
+    """``REPRO_AGG_IMPL`` (the reference's names mapped onto the port's)
+    sets what ``impl=None`` means; ``auto`` resolves by device."""
+    if value is None:
+        monkeypatch.delenv("REPRO_AGG_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_AGG_IMPL", value)
+    assert aggregation.default_impl() == impl
+    assert aggregation.resolve_impl(None) == impl
+    assert aggregation.resolve_impl("torch") == "torch"   # explicit wins
+    concrete = {"auto": "torch"}.get(impl, impl)
+    assert aggregation.resolve_impl(None, torch.device("cpu")) == concrete
+    if impl == "auto":
+        assert aggregation.resolve_impl(None, "cuda") == "kernel"
+    # impl=None takes the variable's substrate: the kernel's plain twin
+    # under "pallas", einsum otherwise (same values, 1e-5).
+    w, p, e, _, _ = _agg_inputs(6)
+    calls = []
+    real = ops.ra_aggregate
+    monkeypatch.setattr(ops, "ra_aggregate",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = aggregation.apply_mode(0, *_t(w, p, e), impl=None)
+    assert bool(calls) == (impl == "kernel")
+    want = jagg.apply_mode(jnp.asarray(0, jnp.int32), *_j(w, p, e),
+                           impl="jnp")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_unknown_repro_agg_impl_raises(monkeypatch):
+    monkeypatch.setenv("REPRO_AGG_IMPL", "cuda")
+    with pytest.raises(ValueError, match="REPRO_AGG_IMPL='cuda'"):
+        aggregation.default_impl()
+    with pytest.raises(ValueError, match="REPRO_AGG_IMPL"):
+        aggregation.resolve_impl(None)
+    with pytest.raises(ValueError, match="agg_impl must be one of"):
+        aggregation.resolve_impl("jnp")     # arguments take the port's names

@@ -1294,3 +1294,106 @@ def test_modal_smoke_prefill_on_the_card_matches_impl_torch_and_the_cpu(
                       tokens=batch["tokens"], modal=batch["modal_embeds"])
     assert res.decode_launches["flash_attention"] == 0
     assert torch.equal(res.tokens, cpu.tokens)
+
+
+# ---------------------------------------------------------------------------
+# The multi-rank path: 4 ranks sharing the card over gloo (NCCL needs a
+# card per rank), spawned by `launch.mesh.spawn`; phase 24 of
+# chip_smoke.py at a smaller size.
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_multi_rank_exchange_on_the_card(cuda_device):
+    """`ra_exchange` on 4 CUDA ranks, each comm without and with a
+    participation mask, against the single-process `ra_round_seg` (K1) on
+    the card with the same draws (1e-5); sampled-out ranks keep their own
+    parameters bit for bit."""
+    import _torch_ranks
+    from repro_torch.core import protocols
+    from repro_torch.launch import mesh
+
+    n, seg_len = 4, 6
+    rng = np.random.default_rng(0)
+    inp = dict(w=rng.normal(size=(n, 4, 6)).astype(np.float32),
+               b=rng.normal(size=(n, 6)).astype(np.float32),
+               p=rng.dirichlet(np.ones(n)).astype(np.float32),
+               rho=rng.uniform(0.3, 0.95, (n, n)).astype(np.float32),
+               u=rng.uniform(size=(n, n, 5)).astype(np.float32),
+               mask=np.array([1, 0, 1, 1], np.float32), seg_len=seg_len)
+    ranks = mesh.spawn(_torch_ranks.dfl_exchange_rank, n,
+                       args=(inp, "cuda"), device="cuda", timeout=240)
+    stacked = {k: torch.from_numpy(inp[k]).to(cuda_device)
+               for k in ("b", "w")}
+    w_seg, spec, m_params = protocols._to_segments(stacked, seg_len)
+    before = ops.LAUNCHES["ra_aggregate"]
+    for mname, part in (("none", None), ("mask", inp["mask"])):
+        out, _e = protocols.ra_round_seg(
+            w_seg, *(torch.from_numpy(inp[k]).to(cuda_device)
+                     for k in ("p", "rho")), 0,
+            None if part is None else torch.from_numpy(part).to(cuda_device),
+            u=torch.from_numpy(inp["u"]).to(cuda_device), agg_impl="kernel")
+        want = protocols._from_segments(out, spec, m_params)
+        for comm in ("all_to_all", "reduce_scatter", "psum"):
+            for r in range(n):
+                got = ranks[r][f"exchange/{comm}/{mname}"]
+                for k in ("w", "b"):
+                    np.testing.assert_allclose(
+                        got[k], want[k][r].cpu().numpy(), atol=1e-5, rtol=0)
+                    if part is not None and part[r] == 0:
+                        np.testing.assert_array_equal(got[k], inp[k][r])
+    assert ops.LAUNCHES["ra_aggregate"] - before == 2
+
+
+@pytest.mark.cuda
+def test_multi_rank_grid_on_the_card(cuda_device):
+    """A 6-scenario grid over (2, 2), (2, 1) and 1-D meshes of 4 CUDA ranks
+    against the single-process `run_grid` on the card (loss 1e-4,
+    accuracy within one test sample): every rank of a mesh launches K1
+    once a round of its R&A and its AaYG group (C-FL launches none), each
+    model shard on its window; the closed-loop `policy_grid_of` over the
+    (2, 2) mesh selects as the single process does, with K1 once a round
+    for each of its two groups;
+    `run_resumable` on a (1, 2) mesh resumes as it ran unbroken."""
+    import tempfile
+    import warnings
+
+    import _torch_ranks
+    from repro_torch.fl import scenarios, simulator
+    from repro_torch.launch import mesh
+    from repro_torch.models import smallnets
+
+    data, net, init_fn = _torch_ranks.toy()
+    cfg = simulator.SimConfig(agg_impl="kernel", **_torch_ranks.STATICS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = scenarios.run_grid(init_fn, smallnets.apply_mlp_clf, data,
+                                  _torch_ranks.grid_of(net), cfg,
+                                  device=cuda_device)
+        policy = scenarios.run_grid(init_fn, smallnets.apply_mlp_clf, data,
+                                    _torch_ranks.policy_grid_of(net), cfg,
+                                    device=cuda_device)
+    with tempfile.TemporaryDirectory() as d:
+        ranks = mesh.spawn(_torch_ranks.grid_and_resume_rank, 4,
+                           args=(d, "cuda"), device="cuda", timeout=300)
+    rounds = _torch_ranks.STATICS["n_rounds"]
+    for r, out in enumerate(ranks):
+        for spec in ("(None, 2)", "sharding", "(2, 1)", "[0, 1, 2, 3]"):
+            if spec == "(2, 1)" and r >= 2:
+                assert out[spec] is None and out["k1"][spec] == 0
+                continue
+            labels, acc, loss, _bias = out[spec]
+            assert labels == want.labels
+            np.testing.assert_allclose(loss, want.loss, atol=1e-4, rtol=0)
+            assert np.abs(acc - want.acc).max() <= 1 / len(data.test_y) + 1e-6
+            # On the 1-D mesh of 4 a group of 2 shrinks it to ranks 0-1.
+            idle = spec == "[0, 1, 2, 3]" and r >= 2
+            assert out["k1"][spec] == (0 if idle else 2 * rounds)
+        labels, acc, loss, _bias, selected = out["policy"]
+        assert labels == policy.labels
+        np.testing.assert_array_equal(selected, policy.selected)
+        np.testing.assert_allclose(loss, policy.loss, atol=1e-4, rtol=0)
+        assert np.abs(acc - policy.acc).max() <= 1 / len(data.test_y) + 1e-6
+        assert out["k1"]["policy"] == 2 * rounds
+    for r in (0, 1):
+        for key, v in ranks[r]["unbroken"].items():
+            np.testing.assert_allclose(ranks[r]["resumed"][key], v,
+                                       atol=1e-4, rtol=0, equal_nan=True)

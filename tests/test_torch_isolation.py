@@ -58,7 +58,8 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.configs.dbrx_132b",
                 "repro_torch.configs.hymba_1_5b",
                 "repro_torch.configs.whisper_base",
-                "repro_torch.configs.llama3_2_vision_90b"):
+                "repro_torch.configs.llama3_2_vision_90b",
+                "repro_torch.core.dfl_step", "repro_torch.launch.mesh"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
 

@@ -7,6 +7,8 @@ own, and count launches without losing an increment.  The build and the
 binder are replaced by counting fakes here (there is no nvcc on the CPU);
 tests/test_torch_cuda.py has the same first use on the card.
 """
+import fcntl
+import os
 import sys
 import threading
 import time
@@ -66,8 +68,9 @@ def test_load_library_builds_and_binds_once_from_many_threads(monkeypatch):
 
 
 def test_concurrent_builds_stage_in_files_of_their_own(monkeypatch, tmp_path):
-    """Two threads building the same kernel at once: each nvcc writes its
-    own temporary file, so both renames into place succeed."""
+    """Two threads building the same kernel at once: the kernel's file lock
+    lets one nvcc run, into a temporary file of its own process and
+    thread; the other thread waits for it and finds the library built."""
     outputs = []
 
     class FakeNvcc:
@@ -86,10 +89,34 @@ def test_concurrent_builds_stage_in_files_of_their_own(monkeypatch, tmp_path):
     monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(ops.subprocess, "Popen", FakeNvcc)
     _together(lambda i: ops.build_all(["ra_aggregate"]), n=2)
-    assert len(outputs) == 2 and len(set(outputs)) == 2
+    assert len(outputs) == 1
+    assert outputs[0].endswith(".tmp") and str(os.getpid()) in outputs[0]
     assert ops.lib_path("ra_aggregate").read_text() == "built"
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
-        ops.lib_path("ra_aggregate").name]
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted([
+        ops.lib_path("ra_aggregate").name, "ra_aggregate.lock"])
+
+
+def test_build_waits_for_another_holder_of_the_file_lock(monkeypatch,
+                                                         tmp_path):
+    """A build holds ``build/<name>.lock`` (an flock, which another process
+    holds the same way): while someone else holds it, `build_all` waits;
+    when the holder has built the library and lets go, it compiles
+    nothing."""
+    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
+    started = []
+    monkeypatch.setattr(ops.subprocess, "Popen",
+                        lambda *a, **k: started.append(a))
+    done = threading.Event()
+    with open(tmp_path / "ra_aggregate.lock", "w") as held:
+        fcntl.flock(held, fcntl.LOCK_EX)
+        worker = threading.Thread(
+            target=lambda: (ops.build_all(["ra_aggregate"]), done.set()))
+        worker.start()
+        assert not done.wait(0.3)            # blocked on the lock
+        ops.lib_path("ra_aggregate").write_text("built by the holder")
+    worker.join(timeout=10)
+    assert done.is_set() and started == []
 
 
 def test_launch_counters_lose_no_increment_under_threads():

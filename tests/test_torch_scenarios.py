@@ -485,9 +485,14 @@ def test_run_grid_matches_own_run_sequential_and_runner_api():
     assert snap["cache/miss"] >= 3 and snap["cache/evict"] >= 1
     assert runner.programs.stats["programs"] <= 2
     assert 0 < snap["grid/batch_fill_mean"] < 1
-    for bad in (dict(devices=2), dict(devices=["cpu", "cpu"]),
-                dict(sharding="mesh")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # More than one rank needs a process group of that size (none here);
+    # a multi-rank grid names ranks, not devices; sharding= takes a mesh.
+    for bad, err, match in (
+            (dict(devices=2), ValueError, "launch.mesh.spawn"),
+            (dict(devices=(4, 2)), ValueError, "init_process_group"),
+            (dict(devices=["cpu", "cpu"]), ValueError, "names ranks"),
+            (dict(sharding="mesh"), TypeError, "launch.mesh.Mesh")):
+        with pytest.raises(err, match=match):
             runner.run(grid.take([0]), **bad)
     runner.run(grid.take([0]), devices=["cpu"])
     with pytest.raises(scenarios.AdmissionError, match="duplicate"):

@@ -179,10 +179,10 @@ def test_grid_runner_validate_raises_out_of_range_lr(toy):
 def test_multi_device_serving_raises_queue1_item8(toy):
     data, nets, init, apply_fn = toy
     for devices in (2, ["cpu", "cpu"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             serving.ScenarioServer(init, apply_fn, data, _cfg(),
                                    device="cpu", devices=devices)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         serving.main(["--device", "cpu", "--devices", "2"])
 
 
