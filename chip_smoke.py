@@ -286,8 +286,25 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  seconds and peak memory a rank; (d) `run_resumable` on a
                  (1, 2) mesh of ranks 0-1, stopped after one chunk and
                  resumed against the unbroken run, and its one-chunk
-                 checkpoint finished here in one process.  Phase 3 holds
-                 K1 at both window shapes.  REPRO_AGG_IMPL must be unset.
+                 checkpoint finished here in one process; (e) phase 17's
+                 traffic (grid12's 12 scenarios as 12 requests, 2 tenants,
+                 a quarter at priority 1, max_batch 4, one bucket of 4)
+                 through `ScenarioServer(devices=[0, 1, 2, 3])` on a
+                 4-rank ('grid',) mesh, rank 0 leading, ranks 1-3
+                 following; (f) the same through
+                 `ScenarioRouter.in_process(n_replicas=2, devices=([0, 1,
+                 2, 3], 2))` on the (2, 2) mesh, the owner of grid12's
+                 first family held in a dispatch and killed after the first
+                 delivery: 12 of 12 delivered once, at least one retry, and
+                 the killed replica's followers leave their loop before
+                 the survivor's.  Ranks 4-9 build both and idle.  Rows of
+                 (e) and (f) held to phase 16's `run_sequential` (loss
+                 1e-4, accuracy one test sample); each rank's K1 launches
+                 by (B, N, L, K) equal what the leader's dispatch log gives
+                 (one a round per dispatched group, J for AaYG, at B = the
+                 padded group / the grid rows it spans).  Phase 3 holds K1
+                 at every shape phase 24 launches.  REPRO_AGG_IMPL must be
+                 unset.
 
 It then prints the card line, one JSON line describing every ported kernel
 (K2's with its launches by path and by mask and its time at each prefill
@@ -3869,7 +3886,9 @@ MULTI_RANK_REPEATS = 10                 # timed exchanges per comm
 MULTI_RANK_SEED = 24                    # the exchanges' shared uniforms
 MULTI_RANK_TOL = 1e-5                   # (a) vs protocols.ra_round_seg
 MULTI_RANK_DFL_TOL = 1e-4               # (b) vs the single-process replay
-MULTI_RANK_TIMEOUT_S = 300.0
+MULTI_RANK_SERVE = [0, 1, 2, 3]         # (e): a 4-rank ('grid',) mesh
+MULTI_RANK_ROUTER = ([0, 1, 2, 3], 2)   # (f): 2 replicas on the (2, 2) mesh
+MULTI_RANK_TIMEOUT_S = 480.0
 
 
 def _mr_sync(dev):
@@ -4117,10 +4136,217 @@ def _mr_resumable(dev, data, init, net, base, ckpt_dir) -> dict | None:
             "l_local": sim.local_segments}
 
 
+# The discrete ids that split a dispatch into groups of one program each
+# (grid12's scenarios differ only in the protocol and the mode).
+_MR_GROUP_IDS = ("protocol_id", "mode_id", "aggregator", "codec_id",
+                 "policy_id")
+
+
+def _mr_expected_k1(runner, ran, mesh, base, segments) -> dict:
+    """Each rank of ``mesh``'s K1 launches by (B, N, L, K) for the
+    dispatches ``ran`` ((grid, pad_to) each), by this script's own rule:
+    a dispatch splits into one group per distinct `_MR_GROUP_IDS`, a
+    group of g scenarios pads to the smallest bucket >= g, and a group
+    padded to G rows spans d = min(G, grid rows) grid rows of G / d
+    scenarios each, whose every model shard launches once a round (J for
+    AaYG) on its window.  The group count is checked against the
+    runner's own partition."""
+    from repro_torch.core import protocols
+
+    rows, dm = mesh.ranks.shape if mesh.ranks.ndim == 2 else (
+        mesh.ranks.size, 1)
+    l_local = -(-segments // dm)
+    n = runner.sim.n_clients
+    out = {int(r): {} for r in mesh.ranks.flat}
+    for grid, pad in ran:
+        groups = {}
+        for i in range(len(grid)):
+            sc = grid.scenario(i)
+            groups.setdefault(tuple(getattr(sc, f) for f in _MR_GROUP_IDS),
+                              []).append(sc.protocol_id)
+        check(len(groups) == len(runner._index_groups(grid)),
+              f"[multi-rank] a dispatch of {grid.labels} forms "
+              f"{len(groups)} groups by its ids, the runner "
+              f"{len(runner._index_groups(grid))}")
+        buckets = sorted((pad,) if isinstance(pad, int) else pad)
+        for members in groups.values():
+            fits = [b for b in buckets if b >= len(members)]
+            check(bool(fits), f"[multi-rank] a group of {len(members)} "
+                  f"fits no bucket of {buckets}")
+            g = fits[0]
+            per_round = {protocols.PROTOCOL_IDS["ra"]: 1,
+                         protocols.PROTOCOL_IDS["aayg"]: base.aayg_mixes}.get(
+                             members[0], 0)
+            d = min(g, rows)
+            key = (-(-g // d), n, l_local, base.seg_len)
+            for r in mesh.ranks.reshape(rows, dm)[:d].flat:
+                counts = out[int(r)]
+                counts[key] = counts.get(key, 0) + per_round * base.n_rounds
+    return out
+
+
+def _mr_serve_setup(dev):
+    """(e) and (f)'s serving config and requests; puts tests/ on the path
+    for their fault helpers (`tests/_torch_serving_faults.py`)."""
+    import warnings
+
+    from repro_torch.fl import simulator
+    from repro_torch.launch import serving
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    warnings.filterwarnings("ignore",
+                            category=simulator.PacketLengthMismatchWarning)
+    serve_cfg = serving.ServeConfig(max_batch=SERVE_TIER_BATCH,
+                                    batch_buckets=(SERVE_TIER_BATCH,),
+                                    max_delay_s=SERVE_TIER_DELAY_S,
+                                    strict_packet_check=False)
+    grid12 = grid12_grid()
+    return serve_cfg, [grid12.take([i]) for i in range(len(grid12))]
+
+
+def _mr_submit_all(target, requests):
+    return [target.submit(r, priority=int(i % 4 == 0), tenant=f"tenant{i % 2}")
+            for i, r in enumerate(requests)]
+
+
+def _mr_serve(dev, data, init, base, segments) -> dict:
+    """Phase 24 (e) on one rank: phase 17's traffic through a server over
+    the 4-rank ('grid',) mesh `MULTI_RANK_SERVE` (every rank builds it;
+    rank 0 leads, ranks 1-3 follow, the others idle)."""
+    serve_cfg, requests = _mr_serve_setup(dev)
+    from _torch_serving_faults import install
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+    from repro_torch.launch import serving
+    from repro_torch.models import smallnets
+
+    server = serving.ScenarioServer(init, smallnets.apply_cnn, data, base,
+                                    serve=serve_cfg, device=dev,
+                                    devices=MULTI_RANK_SERVE)
+    _reset_k1_counts()
+    _reset_peak(dev)
+    _mr_sync(dev)
+    built = server.warmup(grid12_grid(), *requests)
+    probe = install(server) if server.is_leader else None
+    out = {"role": server.role}
+    t0 = time.perf_counter()
+    server.start()
+    if server.is_leader:
+        futures = _mr_submit_all(server, requests)
+        out["results"] = [f.result(timeout=SERVE_TIER_WAIT_S)
+                          for f in futures]
+        out["secs"] = time.perf_counter() - t0
+    server.stop()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out.update(k1=ops.LAUNCHES["ra_aggregate"],
+               k1_by_shape=dict(_ra.SHAPE_LAUNCHES), peak_gib=_peak_gib(dev),
+               released_at=server.released_at)
+    if server.is_leader:
+        snap = server.tracker.snapshot()
+        out.update(
+            built=built, dispatches=[len(g) for g, _ in probe.ran],
+            expected=_mr_expected_k1(server.runner, probe.ran, server.mesh,
+                                     base, segments),
+            stats={k: snap[k] for k in (
+                "serve/latency_s_p50", "serve/latency_s_p99",
+                "serve/coalesced_scenarios_mean", "grid/batch_fill_mean")})
+    return out
+
+
+def _mr_router(dev, data, init, base, segments) -> dict:
+    """Phase 24 (f) on one rank: phase 17 (b)'s router, its two replicas
+    over the (2, 2) mesh `MULTI_RANK_ROUTER`; on the leader the owner of
+    grid12's first family holds a dispatch and is killed after the first
+    delivery."""
+    import threading
+
+    serve_cfg, requests = _mr_serve_setup(dev)
+    from _torch_serving_faults import install, kill_replica
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ra_aggregate as _ra
+    from repro_torch.launch import router
+    from repro_torch.models import smallnets
+
+    rt = router.ScenarioRouter.in_process(
+        init, smallnets.apply_cnn, data, base, n_replicas=2,
+        serve=serve_cfg, device=dev, devices=MULTI_RANK_ROUTER,
+        route=router.RouterConfig(max_attempts=4, backoff_base_s=0.01,
+                                  breaker_cooldown_s=0.3, heartbeat_s=0.05,
+                                  attempt_timeout_s=SERVE_TIER_WAIT_S))
+    out = {"kind": type(rt).__name__}
+    leader = isinstance(rt, router.ScenarioRouter)
+    if leader:
+        victim = rt._ring.preference(router.grid_signature(requests[0]))[0]
+        owned = sum(rt._ring.preference(router.grid_signature(r))[0]
+                    == victim for r in requests)
+        # More than one batch of the victim's requests: hold its second
+        # dispatch; else its first, and the other replica delivers first.
+        hold_at = 1 if owned > SERVE_TIER_BATCH else 0
+        release = threading.Event()
+        probes = {name: install(rep.server, **({} if name != victim else dict(
+            stall_on={hold_at: release},
+            raise_on={hold_at: RuntimeError(f"{name} killed")})))
+            for name, rep in rt.replicas.items()}
+    built = rt.warmup(requests, fanout=2)
+    _reset_k1_counts()
+    _reset_peak(dev)
+    _mr_sync(dev)
+    t0 = time.perf_counter()
+    if not leader:
+        with rt:
+            pass                      # until the leader releases both
+    else:
+        delivered = threading.Event()
+        try:
+            rt.start()
+            futures = _mr_submit_all(rt, requests)
+            for f in futures:
+                f.add_done_callback(lambda _f: delivered.set())
+            check(delivered.wait(SERVE_TIER_WAIT_S)
+                  and probes[victim].stalled.wait(SERVE_TIER_WAIT_S),
+                  "[multi-rank] (f) no first delivery, or the victim never "
+                  "held its dispatch")
+            first_done = sum(f.done() for f in futures)
+            kill_replica(rt.replicas[victim], release)
+            out["results"] = [f.result(timeout=SERVE_TIER_WAIT_S)
+                              for f in futures]
+            out["secs"] = time.perf_counter() - t0
+            out["stopping_at"] = time.time()
+        finally:
+            release.set()
+            rt.stop(drain=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out.update(k1=ops.LAUNCHES["ra_aggregate"],
+               k1_by_shape=dict(_ra.SHAPE_LAUNCHES), peak_gib=_peak_gib(dev),
+               released_at={n: r.server.released_at
+                            for n, r in rt.replicas.items()})
+    if leader:
+        snap = rt.tracker.snapshot()
+        ran = [x for p in probes.values() for x in p.ran]
+        out.update(
+            built=built, victim=victim, owned=owned, hold_at=hold_at,
+            first_done=first_done,
+            dispatches={n: [len(g) for g, _ in p.ran]
+                        for n, p in probes.items()},
+            expected=_mr_expected_k1(rt.replicas[victim].server.runner, ran,
+                                     rt.replicas[victim].server.mesh, base,
+                                     segments),
+            served=sum(snap.get(f"router/replica/{n}/served", 0)
+                       for n in probes),
+            counters={k.removeprefix("router/"): snap[k] for k in sorted(snap)
+                      if k.startswith("router/") and not k.startswith(
+                          "router/latency") and "/healthy" not in k},
+            stats={k: snap[k] for k in ("router/latency_s_p50",
+                                        "router/latency_s_p99")})
+    return out
+
+
 def multi_rank_rank(rank: int, ckpt_dir: str, samples_per_client=600,
                     hw=(28, 28), cnn_kwargs=None) -> dict:
     """Phase 24's body in each of the `MULTI_RANK_WORLD` ranks (spawned by
-    `launch.mesh.spawn`): the collectives' probe, then (a)-(d)."""
+    `launch.mesh.spawn`): the collectives' probe, then (a)-(f)."""
     from repro_torch.core import routing
     from repro_torch.launch import mesh
 
@@ -4153,6 +4379,14 @@ def multi_rank_rank(rank: int, ckpt_dir: str, samples_per_client=600,
         torch.cuda.empty_cache()
     out["resumable"] = _mr_resumable(dev, data, init, net, base, ckpt_dir)
     marks.append(("d", time.perf_counter()))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["serve"] = _mr_serve(dev, data, init, base, l)
+    marks.append(("e", time.perf_counter()))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["router"] = _mr_router(dev, data, init, base, l)
+    marks.append(("f", time.perf_counter()))
     out["part_secs"] = {name: round(t - marks[i][1], 3)
                         for i, (name, t) in enumerate(marks[1:])}
     return out
@@ -4283,10 +4517,79 @@ def multi_rank_phase(dev, seq12, *, world=MULTI_RANK_WORLD,
           f"checkpoint finished in one process: loss gap {loss_gap:.3e}, "
           f"acc gap {acc_gap:.4f}; K1 "
           f"{[{str(k): v for k, v in x['k1_by_shape'].items()} for x in rs]}")
+    # (e) and (f)
+    for part, tag in (("serve", "multi-rank:serve"),
+                      ("router", "multi-rank:router")):
+        k1_paths[tag] = _mr_serving_checks(dev, ranks, part, seq12, test_n)
     print(f"[multi-rank] phase 24 took {time.perf_counter() - t_phase:.2f} s")
-    shapes = {k for r in ranks for part in ("grid", "resumable")
+    shapes = {k for r in ranks for part in ("grid", "resumable", "serve",
+                                            "router")
               if r[part] for k in r[part]["k1_by_shape"]}
     return k1_paths, shapes
+
+
+def _mr_serving_checks(dev, ranks, part, seq12, test_n) -> int:
+    """Phase 24 (e) / (f) in the parent: the leader's rows against phase
+    16's ``seq12``, every rank's K1 launches against the leader's dispatch
+    log, the router's deliveries and its followers' release; prints the
+    `[multi-rank-serve]` line.  Returns the ranks' K1 launches."""
+    lead = ranks[0][part]
+    labels = [r.labels[0] for r in lead["results"]]
+    loss_gap, acc_gap = _hold_to_sequential(f"[multi-rank] ({part})", labels,
+                                            lead["results"], seq12, test_n)
+    for r, out in enumerate(ranks):
+        want = {str(k): v for k, v in lead["expected"].get(r, {}).items()}
+        got = {str(k): v for k, v in out[part]["k1_by_shape"].items()}
+        if dev.type == "cuda":
+            check(got == want,
+                  f"[multi-rank] ({part}) rank {r}: K1 launches by (B, N, L, "
+                  f"K) {got}, the leader's dispatch log gives {want}")
+    mesh_ranks = sorted(lead["expected"])
+    if part == "serve":
+        followers = [ranks[r][part]["released_at"] for r in mesh_ranks[1:]]
+        check(all(t is not None for t in followers),
+              "[multi-rank] (serve) a follower never received the stop")
+        extra = (f"dispatches {lead['dispatches']}; mean coalesced "
+                 f"{lead['stats']['serve/coalesced_scenarios_mean']:.3f}, "
+                 f"batch fill {lead['stats']['grid/batch_fill_mean']:.3f}; "
+                 f"latency p50 {lead['stats']['serve/latency_s_p50']:.4f} s "
+                 f"p99 {lead['stats']['serve/latency_s_p99']:.4f} s")
+    else:
+        c = lead["counters"]
+        check(c.get("requests") == 12 and lead["served"] == 12
+              and c.get("retries", 0) >= 1,
+              f"[multi-rank] (router) requests {c.get('requests')}, served "
+              f"{lead['served']}, retries {c.get('retries', 0)}")
+        victim = lead["victim"]
+        survivor = next(n for n in lead["released_at"] if n != victim)
+        for r in mesh_ranks[1:]:
+            rel = ranks[r][part]["released_at"]
+            check(rel[victim] is not None and rel[survivor] is not None
+                  and rel[victim] < min(rel[survivor], lead["stopping_at"]),
+                  f"[multi-rank] (router) rank {r}: the killed {victim}'s "
+                  f"followers left their loop at {rel[victim]}, the "
+                  f"survivor's at {rel[survivor]}, the router's stop began "
+                  f"at {lead['stopping_at']}")
+        extra = (f"killed {victim} (owner of {lead['owned']} of 12, held its "
+                 f"dispatch {lead['hold_at']}) after {lead['first_done']} "
+                 f"deliveries, its followers left their loop before the "
+                 f"router's stop; dispatches {lead['dispatches']}; attempts "
+                 f"{c.get('attempts', 0)}, retries {c.get('retries', 0)}, "
+                 f"breaker opens {c.get('breaker_opens', 0)}; latency p50 "
+                 f"{lead['stats']['router/latency_s_p50']:.4f} s p99 "
+                 f"{lead['stats']['router/latency_s_p99']:.4f} s")
+    launches = sum(out[part]["k1"] for out in ranks)
+    peaks = [round(ranks[r][part]["peak_gib"], 3) for r in mesh_ranks]
+    print(f"[multi-rank-serve] ({'e' if part == 'serve' else 'f'}) {part}: "
+          f"{len(labels)} requests, {lead['built']} program(s) built by the "
+          f"leader's warmup; {lead['secs']:.4f} s, "
+          f"{len(labels) / lead['secs']:.3f} req/s; {extra}; peak device "
+          f"memory a rank {peaks} GiB; K1 {launches} launches on ranks "
+          f"{mesh_ranks}, each rank's by (B, N, L, K) "
+          f"{ {str(k): v for k, v in ranks[0][part]['k1_by_shape'].items()} }"
+          f" as the dispatch log gives; max |loss gap| {loss_gap:.3e}, max "
+          f"acc gap {acc_gap:.4f} vs run_sequential")
+    return launches
 
 def main() -> int:
     if not torch.cuda.is_available():

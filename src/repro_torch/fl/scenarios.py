@@ -889,8 +889,8 @@ def names_one_device(devices) -> bool:
             and len(devices) == 1)
 
 
-def _resolve_grid_mesh(devices, sharding, device: torch.device
-                       ) -> launch_mesh.Mesh | None:
+def _resolve_grid_mesh(devices, sharding, device: torch.device, *,
+                       private: bool = False) -> launch_mesh.Mesh | None:
     """Normalize the ``devices=`` / ``sharding=`` knobs into a mesh.
 
     ``sharding`` wins over ``devices``; it is a `launch.mesh.Mesh`, 1-D or
@@ -898,7 +898,8 @@ def _resolve_grid_mesh(devices, sharding, device: torch.device
     anything `launch.mesh.grid_mesh` takes (an int count, a list of ranks,
     None), or a ``(spec, model_shards)`` tuple building a 2-D
     `launch.mesh.grid_model_mesh`; a value naming one device gives None
-    (the single-device engine).
+    (the single-device engine).  ``private`` builds the mesh from
+    ``devices`` with groups of its own (`launch.mesh.grid_mesh`).
     """
     if sharding is not None:
         if not isinstance(sharding, launch_mesh.Mesh):
@@ -931,7 +932,7 @@ def _resolve_grid_mesh(devices, sharding, device: torch.device
         if model_shards == 1 and names_one_device(spec):
             return None
         return launch_mesh.grid_model_mesh(spec, model_shards=model_shards,
-                                           device=device)
+                                           device=device, private=private)
     if names_one_device(devices):
         return None
     if not isinstance(devices, int) and any(
@@ -939,7 +940,7 @@ def _resolve_grid_mesh(devices, sharding, device: torch.device
         raise ValueError(
             f"devices={devices!r}: a multi-rank grid names ranks (one "
             "process each, launch.mesh.spawn), not devices")
-    return launch_mesh.grid_mesh(devices, device=device)
+    return launch_mesh.grid_mesh(devices, device=device, private=private)
 
 
 def _take_rows(batch: simulator.Scenario, axes: simulator.Scenario,
@@ -1080,7 +1081,9 @@ class GridRunner:
         over a mesh of ranks (module docstring): every rank of the mesh
         calls `run` with the same grid and gets the whole result; a rank
         of the default group outside the mesh builds it with the others
-        and returns None.
+        and returns None.  When a rank's share raises, every rank of the
+        mesh raises `launch.mesh.RankFailed` naming that rank, and the
+        mesh stays usable.
         """
         mesh = self._mesh(devices, sharding)
         for bits in getattr(grid, "packet_len_bits", ()):
@@ -1146,9 +1149,12 @@ class GridRunner:
         of each kept); grid row r runs rows ``[r * per, (r + 1) * per)``
         with its sim (`_sim_for`: model-sharded on a 2-D mesh), and every
         rank of the mesh gets every row's metrics (model shard 0 of each
-        grid row hands them in; the shards' metrics are the same).  The
-        program is cached per hoist signature, shrunk mesh and shapes;
-        every rank of the mesh must call it.
+        grid row hands them in; the shards' metrics are the same), or
+        every rank raises `launch.mesh.RankFailed` when a rank's share
+        raised (`launch.mesh.gather_or_raise`, its model group's
+        collectives guarded).  The program is cached per
+        hoist signature, shrunk mesh and shapes; every rank of the mesh
+        must call it.
         """
         sim = self._sim_for(mesh)
         g = sub.link_eps.shape[0]
@@ -1158,6 +1164,12 @@ class GridRunner:
         axes, args = _hoist_uniform(sub)
         sig = ("shard", tuple(axes._asdict().items()),
                launch_mesh.mesh_fingerprint(shrunk), _aval_sig(args))
+        # The model group a share's collectives run on, guarded so that a
+        # shard failing alone releases its peers (`gather_or_raise`).
+        peers = (shrunk.axis_group(launch_mesh.MODEL_AXIS)[0]
+                 if shrunk.coords is not None
+                 and shrunk.shape.get(launch_mesh.MODEL_AXIS, 1) > 1
+                 else None)
 
         def build():
             if sim.device.type == "cuda":
@@ -1165,17 +1177,21 @@ class GridRunner:
 
             def program(batch):
                 per = len(batch.seed) // d        # the seed is mapped
-                mine = None
-                if shrunk.coords is not None:
+
+                def share():
+                    if shrunk.coords is None:
+                        return None
                     r = shrunk.coords[launch_mesh.GRID_AXIS]
                     out = sim.run_scenario_batch(sim.prepare_batch(
                         _take_rows(batch, axes, slice(r * per,
                                                       (r + 1) * per)),
                         axes))
-                    if shrunk.coords.get(launch_mesh.MODEL_AXIS, 0) == 0:
-                        mine = (r, {k: v.numpy() for k, v in out.items()})
-                parts = dict(p for p in launch_mesh.all_gather_objects(
-                    mine, mesh.group) if p is not None)
+                    if shrunk.coords.get(launch_mesh.MODEL_AXIS, 0) != 0:
+                        return None
+                    return (r, {k: v.numpy() for k, v in out.items()})
+
+                parts = dict(p for p in launch_mesh.gather_or_raise(
+                    share, mesh.group, peers=peers) if p is not None)
                 return {k: torch.cat([torch.from_numpy(parts[r][k])
                                       for r in range(d)])
                         for k in parts[0]}

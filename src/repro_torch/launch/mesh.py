@@ -24,6 +24,26 @@ same arguments, in the same order (ranks outside the mesh get a `Mesh`
 whose ``coords`` is None).  Meshes are cached by (axes, ranks), so
 building the same mesh again creates nothing.
 
+A private mesh (``private=True``) is built anew each time, with groups of
+its own and a command group (`broadcast_command`) that its first rank,
+the leader, sends on.  A `launch.serving.ScenarioServer` over ranks takes
+one, so two servers over the same ranks (a router's replicas, which
+dispatch from two threads at once) never share a group: collectives on
+one group must come in the same order on every rank, which two threads
+of one process cannot promise, while two groups run side by side.  (One
+channel that serialized every dispatch of the process would also keep the
+order, but it would serialize the replicas too.)
+
+`gather_or_raise` is the mesh's fault containment: each rank hands in its
+share's result or its error, so every rank finishes the collective, and
+then every rank raises the same `RankFailed`, naming the rank it came
+from, instead of the others waiting out the group's timeout.  Given the
+share's ``peers`` (a grid row's model group), it also guards the
+collectives the share runs on that group: each is preceded by a one-int
+status all-reduce, which a rank whose share raised joins once with its
+failure, so a model shard that fails alone releases the peer that waits
+for it (`PeerFailed`) instead of leaving it in their all-gather.
+
 Collectives: `all_to_all`, `reduce_scatter`, `all_reduce`, `all_gather`
 and `gather_along` wrap `torch.distributed` and count the bytes each rank
 hands to them (`WIRE_BYTES`).  The backend is the caller's: NCCL needs one
@@ -128,11 +148,14 @@ class Mesh:
       rank: this process's global rank.
       coords: ``{axis: index}`` of this rank, or None outside the mesh.
       group: a process group over every rank of the mesh (None outside).
+      leader: the mesh's first rank (grid row 0, model shard 0).
+      control: a private mesh's command group (None outside it, and on a
+        shared mesh).
     """
 
     def __init__(self, ranks: np.ndarray, axis_names: tuple[str, ...],
                  device: torch.device, *, groups: dict, group,
-                 world) -> None:
+                 world, control=None) -> None:
         self.ranks = ranks
         self.axis_names = axis_names
         self.shape = {nm: int(s) for nm, s in zip(axis_names, ranks.shape)}
@@ -142,6 +165,8 @@ class Mesh:
         self.coords = (None if len(where) == 0 else
                        {nm: int(i) for nm, i in zip(axis_names, where[0])})
         self.group = group
+        self.leader = int(ranks.flat[0])
+        self.control = control
         self._groups = groups     # axis -> (group, fiber ranks) through me
         self._world = world
 
@@ -176,24 +201,31 @@ class Mesh:
 
 _MESHES: dict[tuple, Mesh] = {}
 
+# A command group's timeout: a follower waits on it between requests, for
+# as long as its server is idle.  A leader that exits closes its
+# connections, which fails the wait at once.
+COMMAND_TIMEOUT = datetime.timedelta(days=7)
 
-def _new_group(ranks: list[int]):
+
+def _new_group(ranks: list[int], *, fresh: bool = False, timeout=None):
     """A process group over ``ranks`` (collective over the default group;
-    the whole world reuses the default group)."""
-    if sorted(ranks) == list(range(dist.get_world_size())):
+    the whole world reuses the default group unless ``fresh``)."""
+    if not fresh and sorted(ranks) == list(range(dist.get_world_size())):
         return dist.group.WORLD
-    return dist.new_group(sorted(ranks))
+    return dist.new_group(sorted(ranks), timeout=timeout)
 
 
 def _build(ranks: np.ndarray, axis_names: tuple[str, ...],
-           device: str | torch.device | None) -> Mesh:
+           device: str | torch.device | None, private: bool = False
+           ) -> Mesh:
     dev = resolve_device(device if device is not None else _RANK_DEVICE)
     key = (axis_names, ranks.shape, tuple(ranks.flat), str(dev))
-    mesh = _MESHES.get(key)
+    mesh = None if private else _MESHES.get(key)
     if mesh is not None and mesh._world is dist.group.WORLD:
         return mesh
     me = dist.get_rank()
-    whole = _new_group(ranks.reshape(-1).tolist())
+    flat = ranks.reshape(-1).tolist()
+    whole = _new_group(flat, fresh=private)
     groups = {}
     for ax, name in enumerate(axis_names):
         if name == GRID_AXIS:        # scenarios: no collective along it
@@ -202,18 +234,23 @@ def _build(ranks: np.ndarray, axis_names: tuple[str, ...],
         for fiber in moved:          # every rank creates every fiber's group
             fiber = fiber.tolist()
             g = (whole if len(fiber) == ranks.size else
-                 _new_group(fiber))
+                 _new_group(fiber, fresh=private))
             if me in fiber:
                 groups[name] = (g, fiber)
+    control = (_new_group(flat, fresh=True, timeout=COMMAND_TIMEOUT)
+               if private else None)
     mesh = Mesh(ranks, axis_names, dev, groups=groups,
                 group=whole if me in ranks else None,
-                world=dist.group.WORLD)
-    _MESHES[key] = mesh
+                world=dist.group.WORLD,
+                control=control if me in ranks else None)
+    if not private:
+        _MESHES[key] = mesh
     return mesh
 
 
 def grid_mesh(devices: Sequence[int] | int | None = None, *,
-              device: str | torch.device | None = None) -> Mesh:
+              device: str | torch.device | None = None,
+              private: bool = False) -> Mesh:
     """1-D ``('grid',)`` mesh for sharding a scenario batch over ranks.
 
     Args:
@@ -221,23 +258,28 @@ def grid_mesh(devices: Sequence[int] | int | None = None, *,
         k), or None for every rank of the default group.
       device: this rank's device; default the one `spawn` gave it, else
         the card (raises without one).
+      private: build fresh groups and a command group (module docstring)
+        instead of the cached mesh's.
 
     Scenarios are independent, so the grid axis needs no collective in
     the round loop.
     """
     ranks = _resolve_ranks(devices, what="grid_mesh")
-    return _build(np.asarray(ranks, np.int64), (GRID_AXIS,), device)
+    return _build(np.asarray(ranks, np.int64), (GRID_AXIS,), device,
+                  private)
 
 
 def grid_model_mesh(devices: Sequence[int] | int | None = None, *,
                     model_shards: int = 1,
-                    device: str | torch.device | None = None) -> Mesh:
+                    device: str | torch.device | None = None,
+                    private: bool = False) -> Mesh:
     """2-D ``(GRID_AXIS, MODEL_AXIS)`` mesh: scenario-parallel x
     model-shard.
 
     Every group of ``model_shards`` consecutive ranks forms one
     model-sharding group (a grid row) whose collectives stay inside it.
-    ``model_shards=1`` is a degenerate (g, 1) mesh.
+    ``model_shards=1`` is a degenerate (g, 1) mesh.  ``private`` as
+    `grid_mesh` takes it.
 
     Returns:
       A mesh of shape ``(len(ranks) // model_shards, model_shards)``.
@@ -251,7 +293,7 @@ def grid_model_mesh(devices: Sequence[int] | int | None = None, *,
             f"model_shards={model_shards} groups"
         )
     arr = np.asarray(ranks, np.int64).reshape(-1, model_shards)
-    return _build(arr, (GRID_AXIS, MODEL_AXIS), device)
+    return _build(arr, (GRID_AXIS, MODEL_AXIS), device, private)
 
 
 def mesh_fingerprint(mesh: Mesh) -> tuple:
@@ -270,7 +312,16 @@ def _run(name: str, group, out: torch.Tensor, inp: torch.Tensor,
     """``call(out, inp)`` over ``group``, counting ``inp``'s bytes."""
     with _COUNT_LOCK:
         WIRE_BYTES[name] += inp.numel() * inp.element_size()
-    call(out, inp)
+    guard = getattr(_GUARDS, "active", None)
+    if guard is None or group is not guard.group:
+        call(out, inp)
+        return out
+    guard.exchange(failed=False)
+    try:
+        call(out, inp)
+    except Exception:
+        guard.broken = True
+        raise
     return out
 
 
@@ -331,6 +382,118 @@ def all_gather_objects(obj: Any, group=None) -> list:
     out = [None] * dist.get_world_size(group)
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+class RankFailed(RuntimeError):
+    """A rank's share of a collective step raised (`gather_or_raise`).
+
+    Every rank of the group raises it with the same message, which names
+    the failing rank (the lowest, if several failed; a rank whose own
+    share raised before one that a failed peer released), the error's
+    type and its text; ``remote_traceback`` holds that rank's
+    traceback."""
+
+    def __init__(self, rank: int, kind: str, message: str,
+                 remote_traceback: str = ""):
+        super().__init__(f"rank {rank} failed: {kind}: {message}")
+        self.rank = rank
+        self.remote_traceback = remote_traceback
+
+
+class PeerFailed(RuntimeError):
+    """A guarded share's peer failed (`gather_or_raise` with ``peers``):
+    raised on the ranks that were waiting for it, in place of their
+    collective."""
+
+
+# The guard of the share this thread runs, if any (`gather_or_raise`).
+_GUARDS = threading.local()
+
+
+class _Guard:
+    """The status exchange of a share's ``peers`` group: before every
+    collective the share runs on that group (`_run`), and once at its
+    end, the peers all-reduce one int, 1 when a peer's share failed.  A
+    rank whose share raised outside a collective owes its peers one
+    exchange, which meets the one they wait in, so every peer runs the
+    same number of collectives on the group and it stays usable."""
+
+    def __init__(self, group):
+        self.group = group
+        self.broken = False          # a collective itself failed here
+        self.device = (torch.device("cpu")
+                       if dist.get_backend(group) == "gloo" else
+                       torch.device("cuda", torch.cuda.current_device()))
+
+    def exchange(self, *, failed: bool) -> None:
+        flag = torch.tensor([int(failed)], dtype=torch.int32,
+                            device=self.device)
+        try:
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        except Exception:
+            self.broken = True
+            raise
+        if not failed and int(flag.item()):
+            raise PeerFailed("a peer's share failed")
+
+    def settle(self, error: Exception) -> None:
+        """After ``error`` left the share: the one exchange this rank owes
+        its peers (none when a peer failed first or a collective broke)."""
+        if isinstance(error, PeerFailed) or self.broken:
+            return
+        try:
+            self.exchange(failed=True)
+        except Exception:
+            pass
+
+
+def gather_or_raise(share: Callable[[], Any], group, *, peers=None) -> list:
+    """Every group rank's ``share()``, in group-rank order, or `RankFailed`
+    on every rank when any rank's ``share()`` raised.
+
+    A rank whose share raises hands in its error in place of its result,
+    so every rank reaches the gather: none waits for a peer that left.
+    ``peers``: the group (of more than one rank) whose ranks run
+    collectives together inside their shares; those collectives are
+    guarded (`_Guard`), so a peer whose share raises between them
+    releases the others.  A collective that fails on one rank while its
+    peers are inside it is not contained."""
+    guard = (None if peers is None or dist.get_world_size(peers) < 2
+             else _Guard(peers))
+    outer = getattr(_GUARDS, "active", None)
+    _GUARDS.active = guard
+    try:
+        result = share()
+        if guard is not None:
+            guard.exchange(failed=False)
+        mine = ("ok", result)
+    except Exception as e:
+        if guard is not None:
+            guard.settle(e)
+        mine = ("error", dist.get_rank(), type(e).__name__, str(e),
+                traceback.format_exc(), not isinstance(e, PeerFailed))
+        error = e
+    finally:
+        _GUARDS.active = outer
+    parts = all_gather_objects(mine, group)
+    failed = [p for p in parts if p[0] == "error"]
+    if failed:
+        first = [p for p in failed if p[5]] or failed
+        _, rank, kind, message, tb, _own = min(first, key=lambda p: p[1])
+        exc = RankFailed(rank, kind, message, tb)
+        if rank == dist.get_rank():
+            raise exc from error
+        raise exc
+    return [p[1] for p in parts]
+
+
+def broadcast_command(mesh: Mesh, command: Any = None) -> Any:
+    """The leader's ``command`` on every rank of a private ``mesh``: the
+    leader passes it, the others receive it (one `broadcast_object_list`
+    on the mesh's command group)."""
+    box = [command]
+    dist.broadcast_object_list(box, src=mesh.leader, group=mesh.control)
+    return box[0]
 
 
 # ---------------------------------------------------------------------------

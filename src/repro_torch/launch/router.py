@@ -11,6 +11,14 @@ transport protocol (in-process replicas today; a multi-process transport
 slots in behind the same protocol later).  `ScenarioRouter.in_process`
 builds N servers on the one card: each has its own queue, threads and
 program cache, and their dispatches share the card's default stream.
+With ``devices=`` naming several ranks every replica serves over the same
+ranks (`launch.serving`: each server a private mesh of them): every rank
+of the default group calls `in_process` with the same arguments, the
+mesh's leader gets the router (its ring, breakers and heartbeats live
+there only), and every other rank gets a `FollowerRouter` over the
+replicas' follower servers, built in the same order.  Replicas over
+disjoint rank sets are not built (nor in the reference, which leaves
+them to a multi-process transport).
 
   * **Consistent hashing keeps caches warm** — requests route by the
     grid's hoist/group signature (`grid_signature`: the dispatch
@@ -143,6 +151,56 @@ class Replica(Protocol):
     def stop(self, *, drain: bool = True) -> None: ...
 
 
+class FollowerRouter:
+    """`ScenarioRouter.in_process(devices=)` on a rank that is not the
+    replicas' leader: their follower servers (or, outside the mesh, their
+    idle servers).
+
+    `start` starts every replica's command loop; `stop` and
+    `drain_replica` return once the leader has released that replica's
+    followers (its router's `stop` / `drain_replica`, or the replica's own
+    stop); `warmup` builds here what the leader's router builds there (the
+    same ring); `submit` / `serve` raise `serving.NotLeader`."""
+
+    def __init__(self, replicas: Sequence["InProcessReplica"],
+                 route: "RouterConfig"):
+        self._replicas = {r.name: r for r in replicas}
+        self._ring = _HashRing(list(self._replicas), vnodes=route.vnodes)
+
+    @property
+    def replicas(self) -> Mapping[str, "InProcessReplica"]:
+        return dict(self._replicas)
+
+    def start(self) -> "FollowerRouter":
+        for r in self._replicas.values():
+            r.start()
+        return self
+
+    def stop(self, *, drain: bool = True) -> None:
+        for r in self._replicas.values():
+            r.stop(drain=drain)
+
+    def drain_replica(self, name: str, *, timeout: float | None = None
+                      ) -> None:
+        self._replicas[name].stop()
+
+    def warmup(self, grids: Sequence[scenarios.ScenarioGrid], *,
+               fanout: int = 2) -> int:
+        return _warm(self._ring, self._replicas, grids, fanout)
+
+    def submit(self, grid: scenarios.ScenarioGrid, **_kw) -> Future:
+        return next(iter(self._replicas.values())).submit(grid)
+
+    def serve(self, grids: Sequence[scenarios.ScenarioGrid]) -> list:
+        return [self.submit(g) for g in grids]
+
+    def __enter__(self) -> "FollowerRouter":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
 class InProcessReplica:
     """A `Replica` wrapping one in-process `ScenarioServer`.
 
@@ -257,6 +315,17 @@ class _HashRing:
                 seen.add(name)
                 order.append(name)
         return order
+
+
+def _warm(ring: _HashRing, replicas: Mapping[str, Replica],
+          grids: Sequence[scenarios.ScenarioGrid], fanout: int) -> int:
+    """`ScenarioRouter.warmup`: each grid on its first ``fanout`` replicas
+    in ring order; the programs built."""
+    built = 0
+    for g in grids:
+        for name in ring.preference(grid_signature(g))[:max(1, fanout)]:
+            built += replicas[name].warmup(g)
+    return built
 
 
 # ----------------------------------------------------------------------
@@ -567,16 +636,16 @@ class ScenarioRouter:
         tracker: launch_tracker.Tracker | None = None,
         device: str | torch.device | None = None,
         devices=None,
-    ) -> "ScenarioRouter":
+    ) -> "ScenarioRouter | FollowerRouter":
         """A router over ``n_replicas`` in-process `ScenarioServer`s.
 
         Every replica gets its own server (own queue, own threads, own
         `ProgramCache`) bound to the same model/data/config — the
         in-process stand-in for N server processes.  ``device`` (default:
         the CUDA card) and ``devices`` are passed to every replica, so all
-        of them run on that one device; ``devices`` over more than one
-        device is ROADMAP Queue 1 item 10 (serving over ranks) and raises
-        NotImplementedError.
+        of them run on that one device, or over the same ranks (module
+        docstring): then the leader rank gets the router and every other
+        rank a `FollowerRouter`.
         """
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
@@ -590,6 +659,8 @@ class ScenarioRouter:
             )
             for i in range(n_replicas)
         ]
+        if not replicas[0].server.is_leader:
+            return FollowerRouter(replicas, route)
         return ScenarioRouter(replicas, route=route, tracker=tracker)
 
     @property
@@ -716,12 +787,7 @@ class ScenarioRouter:
         built.  Call before `start()` for in-process replicas (their
         program caches are not synchronized with their dispatch
         threads)."""
-        built = 0
-        for g in grids:
-            order = self._ring.preference(grid_signature(g))
-            for name in order[:max(1, fanout)]:
-                built += self._replicas[name].warmup(g)
-        return built
+        return _warm(self._ring, self._replicas, grids, fanout)
 
     def submit(self, grid: scenarios.ScenarioGrid, *,
                priority: int = 0,

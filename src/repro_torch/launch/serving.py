@@ -1,6 +1,6 @@
-"""Streaming scenario-serving engine: SLA-aware continuous batching on one card.
+"""Streaming scenario-serving engine: SLA-aware continuous batching.
 
-Port of the reference package's `launch/serving.py` (one device).  A
+Port of the reference package's `launch/serving.py`.  A
 `ScenarioServer` accepts scenario-grid requests on a queue and returns
 futures; behind the queue, a batcher thread coalesces compatible requests
 into one grid (via `ScenarioGrid.concat`), and a dispatch thread runs the
@@ -68,15 +68,47 @@ Telemetry flows through the pluggable `launch.tracker` API — pure
 host-side bookkeeping, no device syncs on the hot path; results come back
 as numpy arrays, whose copy to the host is a dispatch's one device sync.
 
-Serving over several ranks (the reference's ``devices=`` over a mesh) is
-ROADMAP Queue 1 item 10: its requests would have to be fanned out from one
-rank to the others, which is a design of its own.  ``devices=`` naming
-more than one device raises NotImplementedError.
+Serving over ranks.  ``devices=`` naming several ranks (what
+`fl.scenarios.GridRunner` takes: a count, a list of ranks, or ``(spec,
+model_shards)`` for the ``('grid', 'model')`` mesh) spreads every
+dispatch over a mesh of `torch.distributed` ranks, one process each
+(`launch.mesh.spawn`).  The reference drives its mesh from one
+controller; here every rank of the default group constructs the server,
+in the same order, since building its process groups is collective:
+
+  * the mesh's first rank (grid row 0, model shard 0) is the **leader**:
+    it alone runs the fair queue, the batcher, the dispatcher and the
+    reaper, and takes `submit` / `serve`;
+  * every other rank of the mesh is a **follower**: `start` runs one
+    thread that carries out the leader's commands in the leader's order
+    (run this grid at this ``pad_to``, stop), and `submit` raises
+    `NotLeader`, naming the leader;
+  * a rank outside the mesh builds the server with the others; its
+    `start` / `stop` do nothing.
+
+The fan-out sits inside the runner call the dispatcher makes: the
+leader's runner (`_FanOutRunner`) sends each ``run`` to the followers as
+one broadcast on the mesh's command group and then makes it, so every
+rank runs its share of the same padded groups (`GridRunner.run` over the
+mesh) and gets the whole result; a per-request retry fans out too.
+`warmup` runs no collective: every rank calls it with the same grids, as
+it constructs the server, and builds its own programs.  Each server takes
+a private mesh (groups of its own, `launch.mesh.grid_mesh(private=True)`),
+so a router's replicas over the same ranks dispatch side by side.  When
+the dispatcher exits (its stop, either drain mode), it sends the stop: a
+follower's `stop` returns once that arrives, after everything accepted
+was served (``drain=True``) or after the dispatch in flight, if any,
+finished its collectives (``drain=False``).  A rank whose share raises,
+a model shard alone included, fails that dispatch on every rank with
+`launch.mesh.RankFailed` (`launch.mesh.gather_or_raise`), so only that
+batch's futures fail.  Served rows over ranks are the bits of
+`GridRunner.run` of the dispatched grid over the same mesh.
 
 CLI demo (synthetic open-loop arrival process):
 
   PYTHONPATH=src python -m repro_torch.launch.serving --requests 16 --rate 50
   PYTHONPATH=src python -m repro_torch.launch.serving --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serving --device cpu --devices 2
 """
 from __future__ import annotations
 
@@ -93,12 +125,11 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..data.synthetic import FederatedDataset
 from ..fl import scenarios, simulator
+from . import mesh as launch_mesh
 from . import tracker as launch_tracker
-
-MULTI_RANK = ("serving over more than one device (devices= naming several "
-              "ranks) is not ported yet: ROADMAP Queue 1 item 10")
 
 # Queue sentinel: tells the batcher / dispatcher threads to exit.
 _SHUTDOWN = object()
@@ -130,6 +161,12 @@ class InvalidRequest(ValueError):
     fail with a named error instead of producing undefined scheduler
     behavior (a NaN priority poisons every queue-ordering comparison; a
     zero deadline is expired before it is ever registered)."""
+
+
+class NotLeader(RuntimeError):
+    """`submit` / `serve` on a rank that is not its server's leader (a
+    follower, or a rank outside the server's mesh): requests go to the
+    leader rank, which the message names."""
 
 
 class UnknownTenant(InvalidRequest):
@@ -383,6 +420,38 @@ def _slice_result(res: scenarios.GridResult, a: int, b: int,
     )
 
 
+class _FanOutRunner(scenarios.GridRunner):
+    """The leader's runner over ranks: `run` first sends the same call to
+    the server's followers, then makes it here; `release` sends the stop,
+    once.  After the release, or the server's hard stop, a run raises
+    `ServerStopped` instead of fanning out."""
+
+    def __init__(self, *args, aborted: Callable[[], bool], **kwargs):
+        super().__init__(*args, **kwargs)
+        self._aborted = aborted
+        self._lock = threading.Lock()
+        self._released = False
+
+    def release(self) -> None:
+        """Send the followers the stop (once)."""
+        with self._lock:
+            if self._released:
+                return
+            self._released = True
+            launch_mesh.broadcast_command(self.sharding, ("stop",))
+
+    def run(self, grid: scenarios.ScenarioGrid, *, pad_to=None,
+            validate: bool = True) -> scenarios.GridResult:
+        with self._lock:
+            if self._aborted():
+                raise ServerStopped("server stopped")
+            if self._released:
+                raise ServerStopped("the server's followers were released")
+            launch_mesh.broadcast_command(
+                self.sharding, ("run", grid, pad_to, validate))
+        return super().run(grid, pad_to=pad_to, validate=validate)
+
+
 class ScenarioServer:
     """Continuously batching scenario-serving engine over a warm GridRunner.
 
@@ -395,17 +464,22 @@ class ScenarioServer:
       serve: `ServeConfig` engine knobs.
       tracker: metrics sink; defaults to a fresh `StatsTracker` exposed as
         ``self.tracker`` (pass `NullTracker()` to disable).
-      device: where every dispatch runs (default: the CUDA card; raises
+      device: where every dispatch runs (default: the CUDA card, or over
+        ranks the device `launch.mesh.spawn` gave this rank; raises
         without one).  Pass ``"cpu"`` for the plain path.
-      devices: only None or one device; more is ROADMAP Queue 1 item 10
-        (serving over ranks) and raises NotImplementedError.
+      devices: None or one device, or the ranks to serve over (module
+        docstring; every rank of the default group constructs the server,
+        in the same order).  Without a process group several ranks raise
+        the mesh's ValueError, as `fl.scenarios.run_grid` does.
 
     Lifecycle: `start()` spawns the batcher + dispatcher + deadline-reaper
     threads; `stop(drain=True)` serves everything already accepted and
     joins them, `stop(drain=False)` fails pending futures with
     `ServerStopped` (also available as a context manager, which drains).
     `submit` is thread-safe and non-blocking apart from admission
-    validation.
+    validation.  Over ranks, ``role`` is ``"leader"``, ``"follower"`` or
+    ``"outside"`` (``"single"`` on one device), and a follower's
+    ``released_at`` is the `time.time` its loop received the stop.
     """
 
     def __init__(
@@ -420,20 +494,34 @@ class ScenarioServer:
         device: str | torch.device | None = None,
         devices=None,
     ):
-        if not scenarios.names_one_device(devices):
-            raise NotImplementedError(MULTI_RANK)
         self.cfg = serve
         self.tracker = (launch_tracker.StatsTracker()
                         if tracker is None else tracker)
+        self.mesh = None
+        place = dict(device=device, devices=devices)
+        self.role = "single"
+        if not scenarios.names_one_device(devices):
+            dev = resolve_device(device if device is not None
+                                 else launch_mesh.rank_device())
+            self.mesh = scenarios._resolve_grid_mesh(devices, None, dev,
+                                                     private=True)
+            place = dict(device=dev, sharding=self.mesh)
+            self.role = ("outside" if self.mesh.coords is None else
+                         "leader" if self.mesh.rank == self.mesh.leader
+                         else "follower")
+        if self.role == "leader":
+            place["aborted"] = lambda: self._abort
         # Fail actionably NOW on static-config errors (eval_every etc.) —
         # GridRunner construction builds the sim and validates them.
-        self.runner = scenarios.GridRunner(
+        self.runner = (_FanOutRunner if self.role == "leader"
+                       else scenarios.GridRunner)(
             init_fn, apply_fn, data, cfg,
-            device=device,
-            devices=devices,
             tracker=self.tracker,
             max_cached_programs=serve.max_cached_programs,
+            **place,
         )
+        self._follower: threading.Thread | None = None
+        self.released_at: float | None = None
         self._pending = _FairQueue(serve.tenant_weights)
         # The double buffer: at most pipeline_depth batches in flight
         # (pipeline_depth - 1 queue slots + the one the dispatcher is
@@ -464,10 +552,24 @@ class ScenarioServer:
 
     # -- lifecycle ----------------------------------------------------
 
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank takes the server's requests (always, on one
+        device)."""
+        return self.role in ("single", "leader")
+
     def start(self) -> "ScenarioServer":
         if self._started:
             raise RuntimeError("server already started")
         self._started = True
+        if self.role == "follower":
+            self._follower = threading.Thread(
+                target=self._follow, name="scenario-server-follower",
+                daemon=True,
+            )
+            self._follower.start()
+        if not self.is_leader:
+            return self
         self._batcher = threading.Thread(
             target=self._batch_loop, name="scenario-server-batcher",
             daemon=True,
@@ -506,6 +608,11 @@ class ScenarioServer:
         completed its enqueue — and is drained or failed like any other
         pending request — or observes the stopped flag and raises
         `ServerStopped`.  Calling `stop` again is a no-op.
+
+        Over ranks the leader's stop decides (``drain`` is the leader's);
+        a follower's returns once the leader's stop has reached it (a
+        follower never started carries out the leader's commands here
+        until then), and a rank outside the mesh returns at once.
         """
         with self._stop_lock:           # serialize concurrent stops
             if self._stop_complete:
@@ -513,7 +620,16 @@ class ScenarioServer:
             with self._lifecycle:
                 already = self._stopped
                 self._stopped = True
+            if self.role == "follower":
+                if self._follower is None:
+                    self._follow()
+                else:
+                    self._follower.join()
+            if not self.is_leader:
+                self._stop_complete = True
+                return
             if not self._started:
+                self._release_followers()
                 self._stop_complete = True
                 return
             if already:
@@ -575,7 +691,8 @@ class ScenarioServer:
         a coalesced batch maps fields (protocol, topology) that a
         single-request grid hoists, which is a different program.  Call
         before `start()` (the program cache is not synchronized with the
-        dispatch thread)."""
+        dispatch thread).  Over ranks every rank calls it with the same
+        grids and builds its own programs (none outside the mesh)."""
         if self._started:
             raise RuntimeError("warmup() must run before start()")
         return sum(
@@ -614,8 +731,14 @@ class ScenarioServer:
         instead of producing undefined scheduler behavior.  A stopped (or
         never-started) server raises `ServerStopped`; the stopped-check
         is atomic with the enqueue, so an accepted future ALWAYS
-        terminates.
+        terminates.  On a rank that is not the leader it raises
+        `NotLeader`.
         """
+        if not self.is_leader:
+            raise NotLeader(
+                f"rank {self.mesh.rank} does not take requests: submit to "
+                f"rank {self.mesh.leader}, the leader of this server's "
+                f"mesh {self.mesh.ranks.tolist()}")
         if len(grid) == 0:
             raise scenarios.AdmissionError("grid rejected: empty request")
         self.runner.validate(
@@ -839,10 +962,44 @@ class ScenarioServer:
 
     # -- dispatch thread: re-slice -> pad -> dispatch -> unpad --------
 
+    def _release_followers(self) -> None:
+        """Over ranks: send the followers the stop (once)."""
+        if self.role != "leader":
+            return
+        try:
+            self.runner.release()
+        except Exception:            # a follower or the group is gone
+            self.tracker.count("serve/fanout_errors")
+
     # Grad mode is per thread and on in a new one: the dispatches build no
     # autograd graph, as they would not on the main thread.
     @torch.no_grad()
+    def _follow(self) -> None:
+        """A follower's loop: the leader's commands, in its order, until
+        its stop (or until the command group fails: the leader is gone)."""
+        while True:
+            try:
+                command = launch_mesh.broadcast_command(self.mesh)
+            except Exception:
+                self.tracker.count("serve/leader_lost")
+                return
+            if command[0] == "stop":
+                self.released_at = time.time()
+                return
+            _, grid, pad_to, validate = command
+            try:
+                self.runner.run(grid, pad_to=pad_to, validate=validate)
+            except Exception:        # every rank of the mesh raised it
+                self.tracker.count("serve/dispatch_errors")
+
+    @torch.no_grad()
     def _dispatch_loop(self) -> None:
+        try:
+            self._dispatch_until_shutdown()
+        finally:
+            self._release_followers()
+
+    def _dispatch_until_shutdown(self) -> None:
         while True:
             d = self._dispatches.get()
             if d is _SHUTDOWN:
@@ -980,22 +1137,10 @@ def _demo_setup(n_clients: int, samples: int, seed: int):
     return data, nets, init, smallnets.apply_mlp_clf
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--rate", type=float, default=50.0,
-                    help="mean arrival rate (requests/sec, Poisson)")
-    ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--clients", type=int, default=5)
-    ap.add_argument("--max-batch", type=int, default=8)
-    ap.add_argument("--devices", type=int, default=0,
-                    help="devices to shard dispatches over (0 or 1: one; "
-                         "more is ROADMAP Queue 1 item 10 and raises)")
-    ap.add_argument("--device", default=None,
-                    help="default: the CUDA card; 'cpu' for the plain path")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-
+def _demo(args: argparse.Namespace, devices, say: Callable[[str], None]
+          ) -> None:
+    """The demo on one device (``devices`` None) or on this rank of a
+    spawned mesh; the leader reports through ``say``."""
     data, nets, init, apply_fn = _demo_setup(args.clients, 20, args.seed)
     cfg = simulator.SimConfig(n_rounds=args.rounds, local_epochs=2,
                               seg_len=64)
@@ -1011,17 +1156,22 @@ def main(argv=None) -> None:
         init, apply_fn, data, cfg,
         serve=ServeConfig(max_batch=args.max_batch),
         device=args.device,
-        devices=args.devices or None,
+        devices=devices,
     )
     # Warm both the single-request shapes and a representative coalesced
     # mix (coalescing maps fields a lone request hoists).
     built = server.warmup(*pool, scenarios.ScenarioGrid.concat(*pool))
-    print(f"warmup: {built} program(s) built on "
-          f"{server.runner.sim.device}", flush=True)
+    where = (f"{server.runner.sim.device}" if server.mesh is None else
+             f"{server.runner.sim.device} x {server.mesh.shape} ranks "
+             f"(rank {server.mesh.leader} leads)")
+    if server.is_leader:
+        say(f"warmup: {built} program(s) built on {where}")
 
     rng = np.random.default_rng(args.seed)
     t0 = time.monotonic()
     with server:
+        if not server.is_leader:        # followers: serve until the stop
+            return
         futures = []
         for i in range(args.requests):
             time.sleep(rng.exponential(1.0 / args.rate))
@@ -1034,14 +1184,49 @@ def main(argv=None) -> None:
     dt = time.monotonic() - t0
 
     snap = server.tracker.snapshot()
-    print(f"served {len(results)} requests in {dt:.2f}s "
-          f"({len(results) / dt:.1f} req/s)")
+    say(f"served {len(results)} requests in {dt:.2f}s "
+        f"({len(results) / dt:.1f} req/s)")
     for k in ("serve/latency_s_p50", "serve/latency_s_p99",
               "serve/coalesced_scenarios_mean", "grid/batch_fill_mean",
               "tenant/tenant0/latency_s_p50", "tenant/tenant1/latency_s_p50",
               "cache/hit", "cache/miss", "cache/evict"):
         if k in snap:
-            print(f"  {k} = {snap[k]:.4g}")
+            say(f"  {k} = {snap[k]:.4g}")
+
+
+def _demo_rank(rank: int, args: argparse.Namespace) -> list[str]:
+    """One spawned rank of ``--devices k``: the leader's report lines."""
+    lines: list[str] = []
+    _demo(args, args.devices, lines.append)
+    return lines
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="mean arrival rate (requests/sec, Poisson)")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--clients", type=int, default=5)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks to spread dispatches over (0 or 1: one "
+                         "process; k > 1 spawns k ranks over gloo, the "
+                         "first of which leads)")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' for the plain path")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.devices <= 1:
+        _demo(args, None, lambda line: print(line, flush=True))
+        return
+    # By module name, so the spawned ranks find it when this runs as
+    # __main__.
+    from . import serving
+    ranks = launch_mesh.spawn(serving._demo_rank, args.devices,
+                              device=args.device, args=(args,))
+    for line in ranks[0]:
+        print(line)
 
 
 if __name__ == "__main__":

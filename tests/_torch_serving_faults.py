@@ -1,5 +1,5 @@
 """Fault injection for the port's serving tier (tests/test_torch_serving*.py,
-tests/test_torch_router.py, chip_smoke.py phase 17).
+tests/test_torch_router.py, chip_smoke.py phases 17 and 24).
 
 The port's copy of tests/_serving_faults.py, on `repro_torch`.
 `install(server, ...)` wraps the server's `GridRunner.run` so the Nth
@@ -27,6 +27,8 @@ at), from which a caller reconstructs the kernel launches they made.
 
 Install BEFORE `server.start()`: the wrapper swaps an instance attribute
 on the runner, which is not synchronized with the dispatcher thread.
+Over ranks, install on the leader: its runner fans each run out to the
+followers, so a planted raise or stall comes before anything is sent.
 """
 from __future__ import annotations
 

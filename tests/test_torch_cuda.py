@@ -1397,3 +1397,46 @@ def test_multi_rank_grid_on_the_card(cuda_device):
         for key, v in ranks[r]["unbroken"].items():
             np.testing.assert_allclose(ranks[r]["resumed"][key], v,
                                        atol=1e-4, rtol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_multi_rank_server_on_the_card(cuda_device):
+    """`ScenarioServer(devices=[0, 1])` on 2 ranks sharing the card: the
+    reference's three requests coalesced into one dispatch padded to 4
+    rows, each grid row of the mesh running 2; the served rows against a
+    single-process server on the card (loss 1e-4, accuracy within one
+    test sample), and each rank's K1 launches by (B, N, L, K) equal to
+    what the leader's dispatch log gives (as chip_smoke.py's phase 24
+    (e) checks)."""
+    import types
+
+    import _torch_ranks
+    from repro_torch.fl import scenarios
+    from repro_torch.launch import mesh, serving
+    from repro_torch.models import smallnets
+
+    ranks = mesh.spawn(_torch_ranks.serving_card_rank, 2, device="cuda",
+                       timeout=240)
+    data, nets, init_fn, cfg = _torch_ranks.serving_toy()
+    requests = _torch_ranks.serving_requests(nets)
+    server = serving.ScenarioServer(
+        init_fn, smallnets.apply_mlp_clf, data, cfg, device=cuda_device,
+        serve=serving.ServeConfig(max_batch=3, batch_buckets=(4,),
+                                  max_delay_s=30.0))
+    with server:
+        want = server.serve(requests)
+    lead = ranks[0]
+    assert lead["device"].startswith("cuda")
+    for got, w in zip(lead["rows"], want):
+        labels, acc, loss, _bias = got
+        assert labels == w.labels
+        np.testing.assert_allclose(loss, w.loss, atol=1e-4, rtol=0)
+        assert np.abs(acc - w.acc).max() <= 1 / len(data.test_y) + 1e-6
+    runner = scenarios.GridRunner(init_fn, smallnets.apply_mlp_clf, data,
+                                  cfg, device=cuda_device)
+    expected = chip_smoke._mr_expected_k1(
+        runner, lead["ran"], types.SimpleNamespace(ranks=np.arange(2)), cfg,
+        runner.sim.n_segments)
+    assert [len(g) for g, _pad in lead["ran"]] == [3]
+    for r, out in enumerate(ranks):
+        assert out["k1_by_shape"] == expected[r] != {}, r

@@ -13,7 +13,10 @@
   (tests/test_mesh2d.py), coordinates, fingerprints that tell meshes
   apart, the shrunk mesh, `gather_along`'s order; a call naming several
   ranks in a process with no process group raises naming
-  `launch.mesh.spawn`; `spawn` raises the first failing rank's exception.
+  `launch.mesh.spawn`; `spawn` raises the first failing rank's exception;
+  a grid run whose share raises on one rank (rank 1 of the 1-D mesh, or
+  one model shard alone, mid-run, on the (2, 2) mesh) raises `RankFailed`
+  naming it on every rank, and the next run is served.
 """
 import functools
 
@@ -202,6 +205,28 @@ def test_mesh_coordinates_shrink_and_gather_order():
         assert out["fiber"] == fiber
         # Gathered in model-coordinate order: each rank's chunk is its id.
         assert out["gathered"] == [float(x) for x in fiber]
+
+
+@pytest.mark.parametrize("case, rank, what", [
+    ("grid", 1, "rank 1's share raised"),
+    ("grid_model", 3, "rank 3 failed mid-run")])
+def test_a_share_that_raises_fails_the_grid_on_every_rank(case, rank, what):
+    """`GridRunner.run` over 4 ranks with one rank's share raising: on the
+    1-D mesh rank 1's first share; on the (2, 2) mesh rank 3 alone, at its
+    second all-gather of the model group, while its peer, rank 2, waits
+    for it there.  Every rank raises `RankFailed` naming the failed rank
+    instead of waiting, and the mesh serves the next run, the same on
+    every rank."""
+    ranks = _builders()
+    again = ranks[0]["contained"][case]["again"]
+    for r, out in enumerate(ranks):
+        kind, msg, failed = out["contained"][case]["error"]
+        assert (kind, failed) == ("RankFailed", rank)
+        assert msg == f"rank {rank} failed: RuntimeError: {what}"
+        labels, acc, loss = out["contained"][case]["again"]
+        assert labels == again[0] and len(labels) == 6
+        np.testing.assert_array_equal(loss, again[2], err_msg=f"rank {r}")
+        np.testing.assert_array_equal(acc, again[1], err_msg=f"rank {r}")
 
 
 def test_multi_rank_calls_need_a_process_group():

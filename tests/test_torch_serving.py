@@ -177,13 +177,26 @@ def test_grid_runner_validate_raises_out_of_range_lr(toy):
 
 
 def test_multi_device_serving_raises_queue1_item8(toy):
+    """Serving over ranks (tests/test_torch_serving_ranks.py) needs a
+    process group: without one ``devices=2`` raises the mesh's own error,
+    as `run_grid` does, and devices name ranks, not devices."""
     data, nets, init, apply_fn = toy
-    for devices in (2, ["cpu", "cpu"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            serving.ScenarioServer(init, apply_fn, data, _cfg(),
-                                   device="cpu", devices=devices)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        serving.main(["--device", "cpu", "--devices", "2"])
+    with pytest.raises(ValueError, match="launch.mesh.spawn"):
+        serving.ScenarioServer(init, apply_fn, data, _cfg(), device="cpu",
+                               devices=2)
+    with pytest.raises(ValueError, match="names ranks"):
+        serving.ScenarioServer(init, apply_fn, data, _cfg(), device="cpu",
+                               devices=["cpu", "cpu"])
+
+
+def test_cli_devices_spawns_ranks_and_serves_the_demo(capsys):
+    """The CLI's ``--devices 2`` spawns two ranks and serves its demo over
+    them, rank 0 leading."""
+    serving.main(["--device", "cpu", "--devices", "2", "--requests", "4",
+                  "--rounds", "1", "--clients", "3"])
+    out = capsys.readouterr().out
+    assert "x {'grid': 2} ranks (rank 0 leads)" in out
+    assert "served 4 requests" in out
 
 
 # ---------------------------------------------------------------------
