@@ -305,6 +305,19 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  padded group / the grid rows it spans).  Phase 3 holds K1
                  at every shape phase 24 launches.  REPRO_AGG_IMPL must be
                  unset.
+ 25. dryrun    — (a) the card against `launch.mesh`'s roofline constants:
+                 its name, power limit and SM count must be the H100 SXM
+                 80GB's (132 SMs, HBM3) whose published figures they are;
+                 (b) `python -m repro_torch.launch.dryrun --arch qwen2.5-3b
+                 --shape prefill_32k` on this machine's CPU and torch, in
+                 a subprocess started after the build and run beside the
+                 card phases (at most DRYRUN_TIMEOUT_S): exit 0 and ok, its
+                 terms printed as dry-run estimates; (c) the first
+                 whole-step readings, as `mfu` lines that gate nothing:
+                 `dryrun.model_flops` of phase 13's qwen2.5-3b prefill
+                 (SERVE_SHAPE, inference) and of phase 19's qwen2.5-3b
+                 steps (training, the median s/step after step 0) over
+                 their seconds times `mesh.PEAK_FLOPS_BF16`.
 
 It then prints the card line, one JSON line describing every ported kernel
 (K2's with its launches by path and by mask and its time at each prefill
@@ -314,6 +327,7 @@ the repository beside it, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -324,6 +338,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -641,6 +656,14 @@ MODAL_SERVE = ("whisper-base", "llama-3.2-vision-90b")
 WHISPER_SHAPE = dict(batch=8, prompt_len=416, gen=32)
 VLM_LAYERS = 10
 GATE_SEED = 23
+# Phase 25 (the dry run): the one combination run on the CPU beside the
+# card phases, its time limit, the SM count of the H100 SXM the roofline
+# constants describe (the PCIe card has 114), and the whole-step readings
+# phases 13 and 19 leave for it: name -> (config, tokens, seconds).
+DRYRUN_ARGS = ("--arch", "qwen2.5-3b", "--shape", "prefill_32k")
+DRYRUN_TIMEOUT_S = 900
+H100_SXM_SMS = 132
+WHOLE_STEP: dict = {}
 CODEC_SCHEDULE = (np.random.default_rng(0).random((3, 10)) < 0.7).astype(
     np.float32)
 CODEC_EPOCHS = np.array([1, 2] * 5, np.int32)
@@ -3443,6 +3466,8 @@ def train_phase(dev):
           f"within {TRAIN_START_TOL} of {start:.4f}, the last below it)")
     moved = _moved_share(dev, out["cfg"], out["params"])
     steady = step_s[1:]
+    WHOLE_STEP["train"] = (out["cfg"], out["tokens_per_step"],
+                           statistics.median(steady))
     tok_s = [out["tokens_per_step"] / s for s in steady]
     print(f"[train] (a) qwen2.5-3b full config, {out['n_params']} parameters"
           f" (bf16, AdamW float32 moments, remat): losses "
@@ -3564,29 +3589,30 @@ def wrapped_cache_check(dev) -> None:
 
 def long_context_step(dev) -> None:
     """Phase 21 (c): one decode step of llama3-8b (bf16, full width) at
-    long_500k's shape: batch 1, `LONG_CONTEXT_WINDOW` wrapped slots full
-    of keys, abs_pos 524,287, full_cache, as the reference's
-    `dryrun.decode_plan` decodes it."""
+    long_500k's shape: batch 1 at abs_pos 524,287, with the cache length,
+    window and full_cache that `launch.dryrun.decode_plan` gives it
+    (`LONG_CONTEXT_WINDOW` wrapped slots, full of keys)."""
     from repro_torch.configs import base
+    from repro_torch.launch import dryrun
     from repro_torch.models import registry
 
     shape = base.INPUT_SHAPES["long_500k"]
-    w, b, abs_pos = base.LONG_CONTEXT_WINDOW, shape.global_batch, \
-        shape.seq_len - 1
     cfg = base.get("llama3-8b")
+    cache_len, w, full_cache = dryrun.decode_plan(cfg, shape)
+    b, abs_pos = shape.global_batch, shape.seq_len - 1
     bundle = registry.build(cfg)
     params = bundle.init(torch.Generator(dev).manual_seed(0), device=dev)
     gen = torch.Generator(dev).manual_seed(2)
-    cache = bundle.init_cache(b, shape.seq_len, window=w, device=dev)
+    cache = bundle.init_cache(b, cache_len, window=w, device=dev)
     for t in cache.values():
         t.copy_(torch.randn(t.shape, generator=gen, device=dev))
     tok = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev)
     _reset_peak(dev)
 
     def step():
-        return bundle.serve_step(params, cache, tok, abs_pos % w, window=w,
-                                 abs_pos=abs_pos, full_cache=True,
-                                 device=dev)[0]
+        return bundle.serve_step(params, cache, tok, abs_pos % cache_len,
+                                 window=w, abs_pos=abs_pos,
+                                 full_cache=full_cache, device=dev)[0]
 
     step()                       # warm-up: the same slot, the same value
     torch.cuda.synchronize()
@@ -3599,7 +3625,8 @@ def long_context_step(dev) -> None:
           f"long_500k step: logits {tuple(logits.shape)}")
     print(f"[window] (c) long_500k decode step, llama3-8b bf16: batch {b}, "
           f"{w} wrapped slots ({sum(t.numel() * t.element_size() for t in cache.values()) / 2**30:.3f}"
-          f" GiB of K/V), abs_pos {abs_pos}, full_cache: {step_s:.4f} s a "
+          f" GiB of K/V), abs_pos {abs_pos}, full_cache {full_cache}: "
+          f"{step_s:.4f} s a "
           f"step; peak {_peak_gib(dev):.3f} GiB")
     del params, cache
     torch.cuda.empty_cache()
@@ -4591,6 +4618,93 @@ def _mr_serving_checks(dev, ranks, part, seq12, test_n) -> int:
           f"acc gap {acc_gap:.4f} vs run_sequential")
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 25: the dry run (slice 13)
+# ---------------------------------------------------------------------------
+def start_dryrun(out_dir: str) -> subprocess.Popen:
+    """Phase 25 (b), started: the CPU dry run of `DRYRUN_ARGS` in a
+    subprocess (one thread), which runs beside the card phases."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", out_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def card_constants_check(dev) -> None:
+    """Phase 25 (a): the card is the H100 SXM 80GB (HBM3) whose published
+    figures `launch.mesh`'s roofline constants are."""
+    from repro_torch.launch import mesh
+
+    name, limit, max_limit = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,power.max_limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].split(", ")
+    props = torch.cuda.get_device_properties(dev)
+    gib = props.total_memory / 2**30
+    check("H100" in name and "HBM3" in name
+          and props.multi_processor_count == H100_SXM_SMS and gib > 75,
+          f"the card {name} ({props.multi_processor_count} SMs, {gib:.1f} "
+          f"GiB) is not the H100 SXM 80GB the roofline constants describe")
+    print(f"[dryrun] (a) {name}, power limit {limit} (max {max_limit}), "
+          f"{props.multi_processor_count} SMs, {gib:.1f} GiB: the H100 SXM "
+          f"80GB of launch.mesh's constants (NVIDIA's published figures, "
+          f"not measured): PEAK_FLOPS_BF16 {mesh.PEAK_FLOPS_BF16:.4g} "
+          f"FLOP/s, HBM_BW {mesh.HBM_BW:.4g} B/s, LINK_BW {mesh.LINK_BW:.4g} "
+          f"B/s, NVLINK_BW {mesh.NVLINK_BW:.4g} B/s")
+
+
+def dryrun_phase(dev, proc: subprocess.Popen, out_dir: str,
+                 started: float) -> None:
+    """Phase 25: (a) `card_constants_check`; (b) the dry run's subprocess
+    must exit 0 with its combination ok; its roofline terms are printed as
+    the estimates they are; (c) the whole-step MFU readings of phases 13
+    and 19 (`WHOLE_STEP`), which gate nothing."""
+    from repro_torch.launch import dryrun, mesh
+
+    card_constants_check(dev)
+    waiting = time.perf_counter()
+    try:
+        log, _ = proc.communicate(timeout=max(
+            1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"[dryrun] {' '.join(DRYRUN_ARGS)} did not finish in "
+              f"{DRYRUN_TIMEOUT_S} s")
+    ran, waited = (time.perf_counter() - started,
+                   time.perf_counter() - waiting)
+    tail = "\n".join(line for line in log.splitlines()
+                     if "W1018" not in line and "Warning" not in line)[-2000:]
+    check(proc.returncode == 0 and "done: 1/1 ok" in log,
+          f"[dryrun] {' '.join(DRYRUN_ARGS)} exited {proc.returncode}:\n"
+          f"{tail}")
+    (path,) = Path(out_dir).glob("*.json")
+    res = json.loads(path.read_text())
+    check(res["ok"] and res["useful_flops_ratio"] > 0,
+          f"[dryrun] {path.name}: {res}")
+    print(f"[dryrun] (b) {path.stem} on this machine's CPU (torch "
+          f"{torch.__version__}), started {ran:.1f} s before, waited for "
+          f"{waited:.1f} s: trace {res['compile_s']} s, extrapolation "
+          f"{res['cost_extrapolation_s']} s; dry-run estimates per device "
+          f"with the H100 SXM constants, not measurements: compute "
+          f"{1e3 * res['compute_term_s']:.3f} ms, memory "
+          f"{1e3 * res['memory_term_s']:.3f} ms, collective "
+          f"{1e3 * res['collective_term_s']:.3f} ms (dominant "
+          f"{res['dominant']}), useful FLOPs ratio "
+          f"{res['useful_flops_ratio']:.4f}, collectives "
+          f"{ {k: f'{v:.4g}' for k, v in res['collectives'].items()} } B, "
+          f"replicated ops {res['replicated_ops']}")
+    for what, train in (("prefill", False), ("train", True)):
+        cfg, tokens, secs = WHOLE_STEP[what]
+        flops = dryrun.model_flops(cfg, tokens, train=train)
+        print(f"[dryrun] (c) mfu {cfg.name} {what}: model_flops "
+              f"{flops:.4g} over {tokens} tokens in {secs:.4f} s = "
+              f"{flops / secs / 1e12:.2f} TFLOP/s, "
+              f"{100 * flops / (secs * mesh.PEAK_FLOPS_BF16):.2f} % of "
+              f"PEAK_FLOPS_BF16 (a reading; it gates nothing)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -4639,6 +4753,10 @@ def main() -> int:
     k2_build_report(logs.get("flash_attention"),
                     ops.lib_path("flash_attention"))
     k3_build_report(logs.get("rwkv6_scan"), ops.lib_path("rwkv6_scan"))
+    dry_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    dry_proc, dry_started = start_dryrun(dry_dir), time.perf_counter()
+    atexit.register(lambda: (dry_proc.poll() is None and dry_proc.kill(),
+                             shutil.rmtree(dry_dir, ignore_errors=True)))
 
     # 3. kernels
     timer = cuda_timer(dev)
@@ -4691,6 +4809,8 @@ def main() -> int:
 
     # 13. dense-serve (the third main path)
     dense_cfg, res, k2_launches = serve_full(dev, "dense-serve")
+    WHOLE_STEP["prefill"] = (dense_cfg, SERVE_SHAPE["batch"]
+                             * SERVE_SHAPE["prompt_len"], res.prefill_s)
 
     # 14. dense-serve-reference
     serve_reference(dev, "dense-serve")
@@ -4770,6 +4890,9 @@ def main() -> int:
     unchecked = sorted(str(x) for x in mr_shapes if x not in checked)
     check(not unchecked, f"phase 24 launched K1 at {unchecked}, which "
           f"phase 3 does not hold to the plain version (K1_SHAPES)")
+
+    # 25. dryrun (the card vs the roofline constants, the CPU dry run, MFU)
+    dryrun_phase(dev, dry_proc, dry_dir, dry_started)
 
     main_row = next(r for r in rows if r["shape"] == "slice"
                     and r["dtype"] == "float32"

@@ -1083,9 +1083,13 @@ class GridRunner:
         of the default group outside the mesh builds it with the others
         and returns None.  When a rank's share raises, every rank of the
         mesh raises `launch.mesh.RankFailed` naming that rank, and the
-        mesh stays usable.
+        mesh stays usable, unless a collective of a model group failed
+        there: then the mesh is broken and later runs on it raise
+        `launch.mesh.MeshBroken`.
         """
         mesh = self._mesh(devices, sharding)
+        if mesh is not None:
+            mesh.check()
         for bits in getattr(grid, "packet_len_bits", ()):
             simulator.check_packet_len(
                 bits, self._seg_len, bits_per_value=self.sim.bits_per_value
@@ -1191,7 +1195,8 @@ class GridRunner:
                     return (r, {k: v.numpy() for k, v in out.items()})
 
                 parts = dict(p for p in launch_mesh.gather_or_raise(
-                    share, mesh.group, peers=peers) if p is not None)
+                    share, mesh.group, peers=peers, mesh=mesh)
+                    if p is not None)
                 return {k: torch.cat([torch.from_numpy(parts[r][k])
                                       for r in range(d)])
                         for k in parts[0]}

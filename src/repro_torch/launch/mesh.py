@@ -1,8 +1,11 @@
 """Meshes of `torch.distributed` ranks: the scenario grid's ('grid',) and
-('grid', 'model') meshes, the collectives the multi-rank path runs, and
-`spawn`, which starts one process per rank.
+('grid', 'model') meshes, the collectives the multi-rank path runs,
+`spawn`, which starts one process per rank, and the production mesh of
+the dry run with the card's roofline constants.
 
-Port of the grid half of the reference package's `launch/mesh.py`.  JAX
+Port of the reference package's `launch/mesh.py`.  `make_production_mesh`
+builds the (16, 16) / (2, 16, 16) mesh as a `DeviceMesh` over a fake
+process group (`launch.dryrun`); the rest is the grid half.  JAX
 drives a mesh from one controller; `torch.distributed` runs one process
 per rank, so the port is SPMD: every rank calls the same entry point
 (`fl.scenarios.run_grid`, `checkpoint.run_resumable`,
@@ -42,7 +45,12 @@ share's ``peers`` (a grid row's model group), it also guards the
 collectives the share runs on that group: each is preceded by a one-int
 status all-reduce, which a rank whose share raised joins once with its
 failure, so a model shard that fails alone releases the peer that waits
-for it (`PeerFailed`) instead of leaving it in their all-gather.
+for it (`PeerFailed`) instead of leaving it in their all-gather.  A
+collective that fails on one rank while its peers are inside it holds
+them until the group's timeout, which a private mesh bounds for its model
+groups (`MODEL_GROUP_TIMEOUT`); then every rank raises `RankFailed` naming
+the rank that failed, and the mesh, whose broken group is never used
+again, refuses later steps (`Mesh.check`, `MeshBroken`).
 
 Collectives: `all_to_all`, `reduce_scatter`, `all_reduce`, `all_gather`
 and `gather_along` wrap `torch.distributed` and count the bytes each rank
@@ -70,6 +78,70 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+
+# Roofline constants of the card, per GPU: NVIDIA's published figures for
+# the H100 SXM 80GB (HBM3, 700 W), the card of every chip run so far; not
+# measured here.  Named as the reference's TPU constants are, for
+# `launch.dryrun`'s roofline terms.
+PEAK_FLOPS_BF16 = 989e12       # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12               # bytes/s, HBM3
+# The link rate (the reference's ICI_BW): the production mesh's 16- and
+# 32-wide groups span more than one 8-GPU NVLink node, so their bound is
+# the inter-node rate, one 400 Gb/s NDR InfiniBand NIC a GPU.
+LINK_BW = 50e9                 # bytes/s per GPU, between nodes
+# Within one node: NVLink 4, 900 GB/s a GPU both ways together.
+NVLINK_BW = 450e9              # bytes/s per GPU, each direction
+
+# The production meshes' shapes and axes (the reference's, on host devices).
+_PRODUCTION = {False: ((16, 16), ("data", "model")),
+               True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The multi-pod dry-run mesh as a `torch.distributed` `DeviceMesh`:
+    (16, 16) = 256 ranks with axes ('data', 'model'), or (2, 16, 16) = 512
+    ranks with axes ('pod', 'data', 'model').
+
+    No 256 cards exist here, so the mesh runs over a fake process group
+    (backend ``"fake"``, torch's testing `FakeStore`) in which this process
+    is rank 0: collectives return at once and move nothing, and DTensor
+    sharding propagation over it plays the part of GSPMD
+    (`launch.dryrun`).  The fake default group is process-global state,
+    created here on the first call, never on import; a call for the other
+    mesh size replaces it.  A real default group that is already set up is
+    never replaced: that raises.  So does a torch without the private
+    ``fake_pg`` module (no fallback).
+    """
+    shape, axes = _PRODUCTION[bool(multi_pod)]
+    world = int(np.prod(shape))
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            f"make_production_mesh needs torch's fake process group "
+            f"(torch.testing._internal.distributed.fake_pg), which torch "
+            f"{torch.__version__} does not have") from e
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"make_production_mesh: a real {dist.get_backend()!r} default "
+                f"process group of {dist.get_world_size()} ranks is set up; "
+                f"the production mesh runs over a fake one of {world} ranks "
+                f"and will not replace it")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    return DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def data_axes(*, multi_pod: bool = False):
+    return ("pod", "data") if multi_pod else ("data",)
+
 
 GRID_AXIS = "grid"
 # Axis name for model-axis (segment) sharding inside each scenario: the
@@ -167,8 +239,19 @@ class Mesh:
         self.group = group
         self.leader = int(ranks.flat[0])
         self.control = control
+        self.broken: str | None = None   # why its model groups broke
         self._groups = groups     # axis -> (group, fiber ranks) through me
         self._world = world
+
+    def check(self) -> None:
+        """Raise `MeshBroken` if a collective of one of the mesh's model
+        groups failed in an earlier step (`gather_or_raise`): that gloo
+        group's ranks no longer agree on its sequence of collectives, so
+        it is never used again."""
+        if self.broken is not None:
+            raise MeshBroken(
+                f"mesh {self.ranks.tolist()} is broken: {self.broken}; "
+                f"its model groups are not reused (build a new mesh)")
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
@@ -206,6 +289,15 @@ _MESHES: dict[tuple, Mesh] = {}
 # connections, which fails the wait at once.
 COMMAND_TIMEOUT = datetime.timedelta(days=7)
 
+# A private mesh's model-group timeout: the longest a rank waits inside a
+# collective (or the status exchange before one, `_Guard`) of its model
+# group before that collective fails.  A peer waits in the status exchange
+# while its own shard trains, so the bound sits far above the longest gap
+# between two guarded collectives seen on the card (27.03 s over a whole
+# router run, NVIDIA H100 80GB HBM3, 700 W).  `grid_model_mesh(
+# model_timeout=)` overrides it for one mesh.
+MODEL_GROUP_TIMEOUT = datetime.timedelta(minutes=5)
+
 
 def _new_group(ranks: list[int], *, fresh: bool = False, timeout=None):
     """A process group over ``ranks`` (collective over the default group;
@@ -216,12 +308,13 @@ def _new_group(ranks: list[int], *, fresh: bool = False, timeout=None):
 
 
 def _build(ranks: np.ndarray, axis_names: tuple[str, ...],
-           device: str | torch.device | None, private: bool = False
-           ) -> Mesh:
+           device: str | torch.device | None, private: bool = False,
+           model_timeout: datetime.timedelta | None = None) -> Mesh:
     dev = resolve_device(device if device is not None else _RANK_DEVICE)
     key = (axis_names, ranks.shape, tuple(ranks.flat), str(dev))
     mesh = None if private else _MESHES.get(key)
-    if mesh is not None and mesh._world is dist.group.WORLD:
+    if (mesh is not None and mesh._world is dist.group.WORLD
+            and mesh.broken is None):
         return mesh
     me = dist.get_rank()
     flat = ranks.reshape(-1).tolist()
@@ -233,8 +326,13 @@ def _build(ranks: np.ndarray, axis_names: tuple[str, ...],
         moved = np.moveaxis(ranks, ax, -1).reshape(-1, ranks.shape[ax])
         for fiber in moved:          # every rank creates every fiber's group
             fiber = fiber.tolist()
-            g = (whole if len(fiber) == ranks.size else
-                 _new_group(fiber, fresh=private))
+            if private:              # bounded: see MODEL_GROUP_TIMEOUT
+                g = _new_group(fiber, fresh=True, timeout=(
+                    model_timeout or MODEL_GROUP_TIMEOUT))
+            elif len(fiber) == ranks.size:
+                g = whole
+            else:
+                g = _new_group(fiber)
             if me in fiber:
                 groups[name] = (g, fiber)
     control = (_new_group(flat, fresh=True, timeout=COMMAND_TIMEOUT)
@@ -272,14 +370,17 @@ def grid_mesh(devices: Sequence[int] | int | None = None, *,
 def grid_model_mesh(devices: Sequence[int] | int | None = None, *,
                     model_shards: int = 1,
                     device: str | torch.device | None = None,
-                    private: bool = False) -> Mesh:
+                    private: bool = False,
+                    model_timeout: datetime.timedelta | None = None
+                    ) -> Mesh:
     """2-D ``(GRID_AXIS, MODEL_AXIS)`` mesh: scenario-parallel x
     model-shard.
 
     Every group of ``model_shards`` consecutive ranks forms one
     model-sharding group (a grid row) whose collectives stay inside it.
     ``model_shards=1`` is a degenerate (g, 1) mesh.  ``private`` as
-    `grid_mesh` takes it.
+    `grid_mesh` takes it; a private mesh's model groups time out after
+    ``model_timeout`` (default `MODEL_GROUP_TIMEOUT`).
 
     Returns:
       A mesh of shape ``(len(ranks) // model_shards, model_shards)``.
@@ -293,7 +394,8 @@ def grid_model_mesh(devices: Sequence[int] | int | None = None, *,
             f"model_shards={model_shards} groups"
         )
     arr = np.asarray(ranks, np.int64).reshape(-1, model_shards)
-    return _build(arr, (GRID_AXIS, MODEL_AXIS), device, private)
+    return _build(arr, (GRID_AXIS, MODEL_AXIS), device, private,
+                  model_timeout)
 
 
 def mesh_fingerprint(mesh: Mesh) -> tuple:
@@ -391,13 +493,19 @@ class RankFailed(RuntimeError):
     the failing rank (the lowest, if several failed; a rank whose own
     share raised before one that a failed peer released), the error's
     type and its text; ``remote_traceback`` holds that rank's
-    traceback."""
+    traceback; ``group_broken`` is True when a collective of a model
+    group failed, which breaks the mesh (`Mesh.check`)."""
 
     def __init__(self, rank: int, kind: str, message: str,
                  remote_traceback: str = ""):
         super().__init__(f"rank {rank} failed: {kind}: {message}")
         self.rank = rank
         self.remote_traceback = remote_traceback
+        self.group_broken = False
+
+
+class MeshBroken(RuntimeError):
+    """A step on a mesh whose model group broke earlier (`Mesh.check`)."""
 
 
 class PeerFailed(RuntimeError):
@@ -447,7 +555,8 @@ class _Guard:
             pass
 
 
-def gather_or_raise(share: Callable[[], Any], group, *, peers=None) -> list:
+def gather_or_raise(share: Callable[[], Any], group, *, peers=None,
+                    mesh: Mesh | None = None) -> list:
     """Every group rank's ``share()``, in group-rank order, or `RankFailed`
     on every rank when any rank's ``share()`` raised.
 
@@ -457,7 +566,12 @@ def gather_or_raise(share: Callable[[], Any], group, *, peers=None) -> list:
     collectives together inside their shares; those collectives are
     guarded (`_Guard`), so a peer whose share raises between them
     releases the others.  A collective that fails on one rank while its
-    peers are inside it is not contained."""
+    peers are inside it (its rank raised there, or left) holds them until
+    the group's timeout (a private mesh's `MODEL_GROUP_TIMEOUT`), after
+    which they fail too and every rank raises `RankFailed` naming the
+    first; such a group no longer agrees with itself, so ``mesh`` (the
+    mesh the share runs on) is marked broken on every rank and refuses
+    later steps (`Mesh.check`)."""
     guard = (None if peers is None or dist.get_world_size(peers) < 2
              else _Guard(peers))
     outer = getattr(_GUARDS, "active", None)
@@ -475,12 +589,19 @@ def gather_or_raise(share: Callable[[], Any], group, *, peers=None) -> list:
         error = e
     finally:
         _GUARDS.active = outer
-    parts = all_gather_objects(mine, group)
+    broke = guard is not None and guard.broken
+    parts = all_gather_objects((mine, broke), group)
+    broken = any(b for _, b in parts)
+    parts = [p for p, _ in parts]
     failed = [p for p in parts if p[0] == "error"]
     if failed:
         first = [p for p in failed if p[5]] or failed
         _, rank, kind, message, tb, _own = min(first, key=lambda p: p[1])
         exc = RankFailed(rank, kind, message, tb)
+        exc.group_broken = broken
+        if broken and mesh is not None:
+            mesh.broken = (f"a model group's collective failed when rank "
+                           f"{rank} failed ({kind}: {message})")
         if rank == dist.get_rank():
             raise exc from error
         raise exc

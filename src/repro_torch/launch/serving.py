@@ -101,8 +101,12 @@ was served (``drain=True``) or after the dispatch in flight, if any,
 finished its collectives (``drain=False``).  A rank whose share raises,
 a model shard alone included, fails that dispatch on every rank with
 `launch.mesh.RankFailed` (`launch.mesh.gather_or_raise`), so only that
-batch's futures fail.  Served rows over ranks are the bits of
-`GridRunner.run` of the dispatched grid over the same mesh.
+batch's futures fail; a model group whose collective failed (a peer left
+inside it, held until `launch.mesh.MODEL_GROUP_TIMEOUT`) breaks the mesh,
+and the leader refuses every later dispatch with
+`launch.mesh.MeshBroken`, fanning out nothing.  Served rows over ranks
+are the bits of `GridRunner.run` of the dispatched grid over the same
+mesh.
 
 CLI demo (synthetic open-loop arrival process):
 
@@ -447,6 +451,7 @@ class _FanOutRunner(scenarios.GridRunner):
                 raise ServerStopped("server stopped")
             if self._released:
                 raise ServerStopped("the server's followers were released")
+            self.sharding.check()     # a broken model group: refuse
             launch_mesh.broadcast_command(
                 self.sharding, ("run", grid, pad_to, validate))
         return super().run(grid, pad_to=pad_to, validate=validate)

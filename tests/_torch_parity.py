@@ -58,3 +58,21 @@ def bf16_ulps(got: np.ndarray, want: np.ndarray, atol: float = 0.0) -> float:
     tiny = np.finfo(np.float32).tiny
     ulp = np.exp2(np.floor(np.log2(np.maximum(mag, tiny))) - 7)
     return float(np.max((np.abs(got - want) - atol) / ulp))
+
+
+def reference_dryrun():
+    """The reference's `launch/dryrun.py`, imported without its import-time
+    XLA_FLAGS reaching this process's JAX (initialized first) or the
+    processes it starts (restored after)."""
+    import os
+
+    import jax
+
+    jax.devices()
+    before = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun
+    if before is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = before
+    return dryrun

@@ -771,6 +771,79 @@ def serving_rank(rank: int, weights: dict, draws: dict) -> dict:
     return out
 
 
+def _leave_all_gather(rank: int) -> None:
+    """On ``rank``: its next all-gather raises instead of entering the
+    collective (once), after the status exchange before it has passed, so
+    its model peer is left inside the all-gather."""
+    if dist.get_rank() != rank:
+        return
+    orig = dist.all_gather_into_tensor
+
+    def leave(*args, **kwargs):
+        dist.all_gather_into_tensor = orig
+        raise RuntimeError(f"rank {rank} left the all-gather")
+
+    dist.all_gather_into_tensor = leave
+
+
+def model_group_timeout_rank(rank: int, timeout_s: float) -> dict:
+    """A fault inside a model group's all-gather on the (2, 2) mesh: rank 2
+    leaves it while rank 3 is inside.  First a `GridRunner` over a private
+    mesh whose model groups time out after ``timeout_s`` (the per-mesh
+    override): each rank's error and seconds, then its next run; then a
+    `ScenarioServer` over the same ranks, its mesh built with the module's
+    `MODEL_GROUP_TIMEOUT` set to ``timeout_s``: two requests, one a
+    dispatch."""
+    import datetime
+
+    from repro_torch.launch import serving
+
+    bound = datetime.timedelta(seconds=timeout_s)
+    data, nets, init_fn, cfg = serving_toy()
+    grid = scenarios.ScenarioGrid.concat(*serving_requests(nets))
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        runner = scenarios.GridRunner(
+            init_fn, smallnets.apply_mlp_clf, data, cfg, device="cpu",
+            sharding=mesh.grid_model_mesh([0, 1, 2, 3], model_shards=2,
+                                          device="cpu", private=True,
+                                          model_timeout=bound))
+        _leave_all_gather(2)
+        began = time.monotonic()
+        try:
+            runner.run(grid)
+            out["fault"] = None
+        except mesh.RankFailed as e:
+            out["fault"] = (type(e).__name__, e.rank, e.group_broken)
+        out["fault_s"] = time.monotonic() - began
+        try:
+            runner.run(grid)
+            out["again"] = None
+        except mesh.MeshBroken as e:
+            out["again"] = str(e)
+
+        mesh.MODEL_GROUP_TIMEOUT = bound
+        server = serving.ScenarioServer(
+            init_fn, smallnets.apply_mlp_clf, data, cfg, device="cpu",
+            devices=SERVE_SPECS["grid_model"],
+            serve=serving.ServeConfig(max_batch=1, batch_buckets=(4,)))
+        _leave_all_gather(2)
+        with server:
+            if server.is_leader:
+                outcomes = []
+                for req in serving_requests(nets)[:2]:
+                    try:
+                        server.submit(req).result(timeout=SERVE_WAIT_S)
+                        outcomes.append(("ok", None))
+                    except Exception as e:
+                        outcomes.append((type(e).__name__, str(e)))
+                out["served"] = outcomes
+        out["dispatch_errors"] = server.tracker.snapshot().get(
+            "serve/dispatch_errors", 0)
+    return out
+
+
 def serving_card_rank(rank: int) -> dict:
     """A server over ranks 0 and 1 sharing the card (the rank's device,
     `spawn`'s): the reference's three requests coalesced into one

@@ -1440,3 +1440,11 @@ def test_multi_rank_server_on_the_card(cuda_device):
     assert [len(g) for g, _pad in lead["ran"]] == [3]
     for r, out in enumerate(ranks):
         assert out["k1_by_shape"] == expected[r] != {}, r
+
+
+@pytest.mark.cuda
+def test_card_is_the_h100_sxm_of_the_roofline_constants(cuda_device):
+    """`launch.mesh`'s PEAK_FLOPS_BF16 / HBM_BW / LINK_BW are the H100 SXM
+    80GB's published figures: the card must be that one (chip_smoke.py's
+    phase 25 (a))."""
+    chip_smoke.card_constants_check(cuda_device)

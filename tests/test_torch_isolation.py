@@ -59,9 +59,35 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.configs.hymba_1_5b",
                 "repro_torch.configs.whisper_base",
                 "repro_torch.configs.llama3_2_vision_90b",
-                "repro_torch.core.dfl_step", "repro_torch.launch.mesh"):
+                "repro_torch.core.dfl_step", "repro_torch.launch.mesh",
+                "repro_torch.launch.shardings", "repro_torch.launch.dryrun"):
         assert mod in report["imported"]
     assert report["forbidden"] == []
+
+
+_QUIET = r"""
+import json, os
+import torch.distributed as dist
+before = dict(os.environ)
+import repro_torch.launch.mesh, repro_torch.launch.shardings
+import repro_torch.launch.dryrun
+print(json.dumps({"group": dist.is_initialized(),
+                  "env": sorted(k for k in set(os.environ) | set(before)
+                                if os.environ.get(k) != before.get(k))}))
+"""
+
+
+def test_dry_run_modules_import_quietly():
+    """Importing the dry run and the production mesh starts no process
+    group (the fake one is made by `make_production_mesh`, when called)
+    and sets no environment variable (the reference's dry run sets
+    XLA_FLAGS on import)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _QUIET], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"group": False, "env": []}
 
 
 def test_sources_spell_no_jax_or_reference_import():

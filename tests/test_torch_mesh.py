@@ -17,6 +17,13 @@
   a grid run whose share raises on one rank (rank 1 of the 1-D mesh, or
   one model shard alone, mid-run, on the (2, 2) mesh) raises `RankFailed`
   naming it on every rank, and the next run is served.
+* A rank that leaves its model group's all-gather while its peer is inside
+  it (rank 2 of the (2, 2) mesh, after the status exchange): with the
+  private mesh's model groups bounded to a few seconds, every rank raises
+  `RankFailed` naming rank 2 once the bound has passed, the mesh is broken
+  and its next run raises `MeshBroken`; a server over the same ranks fails
+  that dispatch with `RankFailed` and refuses the next one with
+  `MeshBroken`, and the whole spawn returns within the bounds and 30 s.
 """
 import functools
 
@@ -259,3 +266,27 @@ def test_spawn_reraises_a_rank_failure():
     with pytest.raises(RuntimeError, match=r"(?s)rank 1 failed first.*"
                        r"rank 1 failed on purpose"):
         mesh.spawn(_torch_ranks.failing_rank, 2, device="cpu", timeout=60)
+
+
+MODEL_TIMEOUT_S = 3.0
+
+
+def test_model_group_fault_is_bounded():
+    import time
+
+    began = time.monotonic()
+    outs = mesh.spawn(_torch_ranks.model_group_timeout_rank, 4,
+                      device="cpu", args=(MODEL_TIMEOUT_S,), timeout=300.0)
+    elapsed = time.monotonic() - began
+    # two faults, each held for one bound, and 30 s for all the rest
+    assert elapsed < 2 * MODEL_TIMEOUT_S + 30.0, elapsed
+    for rank, out in enumerate(outs):
+        assert out["fault"] == ("RankFailed", 2, True), (rank, out)
+        assert "broken" in out["again"] and "rank 2 failed" in out["again"]
+    # rank 3 waited inside the all-gather until its bound
+    assert outs[3]["fault_s"] >= MODEL_TIMEOUT_S
+    (k1, m1), (k2, m2) = outs[0]["served"]
+    assert k1 == "RankFailed" and m1.startswith("rank 2 failed")
+    assert k2 == "MeshBroken" and "not reused" in m2
+    # the followers ran the first dispatch only; the second never fanned out
+    assert [o["dispatch_errors"] for o in outs[1:]] == [1, 1, 1]
