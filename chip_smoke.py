@@ -17,7 +17,9 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  or keep a stack frame; for K2 prints each instantiation's registers, shared memory
                  and spills (ptxas -v) and counts its HGMMA (wgmma), UTMALDG
                  and UTMASTG (TMA) instructions in `cuobjdump -sass`: the bf16
-                 D = 128 body must hold all three; for K3 the same per
+                 D = 64, 128 and 256 bodies must hold all three, the D = 256
+                 one spill nothing and take at most 227 KB of shared
+                 memory; for K3 the same per
                  instantiation, and the chunked body's HMMA (tensor cores)
                  and LDGSTS (cp.async) counts: both above 0, no spills.
   3. kernels   — K1 `ra_aggregate` in its four variants (two modes, with and
@@ -88,9 +90,10 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  D = 64 one with more work tiles than SMs, inputs whose
                  rows' maxima jump at later key tiles (the Hopper body's
                  lazy softmax must redo tiles there, and the count of such
-                 tiles replayed from the logits must be above 0), and a
-                 negative scale; then llama3-8b's, starcoder2-3b's
-                 and gemma-7b's prefills (gemma at D = 256), llama3-8b's
+                 tiles replayed from the logits must be above 0; at D = 64,
+                 128 and 256), and a negative scale; then llama3-8b's,
+                 starcoder2-3b's and gemma-7b's prefills (gemma at D =
+                 256), llama3-8b's
                  under a window of 512, D = 256 in float32 and bf16 at a
                  ragged S, and windows (40, 300, 512, S, past S; causal and
                  full) at D = 64, 128 and 256, a window of S or more
@@ -101,7 +104,8 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  used nowhere in the port; with the boolean window mask
                  under a window) with CUDA events, L2 cold and warm, beside
                  the bound (under a window the pairs it keeps), at each
-                 dense prefill shape, and prints the persistent grid.
+                 dense prefill shape, and prints the body and the
+                 persistent grid.
  13. dense-serve — the third main path: `launch.serve.serve` on qwen2.5-3b at
                  full width and depth (bfloat16, seed 0; 8 prompts of 2048
                  tokens, 32 generated per row); K2's launch count is set to
@@ -206,8 +210,8 @@ Phases, in order; any failure exits nonzero (no phase is skipped):
                  seed 0; 8 prompts of 2048 tokens, 32 generated per row):
                  K2's count set to 0 just before and read just after, 32,
                  30 and 28 (one a prefill layer; gemma's at D = 256 through
-                 the first body), none in decode; each prefill held to
-                 impl="torch" as in phase 13; prefill s, decode tok/s and
+                 the Hopper body's 80-key tiles), none in decode; each
+                 prefill held to impl="torch" as in phase 13; prefill s, decode tok/s and
                  ms a step (gemma's tied unembedding casts its 3.1 GB table
                  to float32 every step), peak memory, and one profiled
                  prefill and decode step (K2's share).
@@ -352,6 +356,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+SMEM_PER_BLOCK = 232448     # dynamic shared memory a block may take (227 KB)
 
 # K1 checks: the slice shape, a batched prime-L shape, N > 16 receivers
 # (the shared-memory body), and one round of examples/sweep_grid.py's
@@ -407,16 +412,17 @@ K3_TOL = 2e-5        # absolute and relative, float32 outputs and states
 # draws them, sliding window or None).  The serving shape is qwen2.5-3b's
 # prefill; the next ones are tests/test_kernels.py's; the `growth` and
 # `scale1` cases make the Hopper body's lazy softmax redo tiles exactly
-# (`k2_lazy_redos` counts them).  Then the other dense serving
+# (`k2_lazy_redos` counts them), at D = 64, 128 and 256 (80-key tiles, Q
+# read from shared memory by the redo).  Then the other dense serving
 # shapes (`K2_TIMED` times them): llama3-8b's, starcoder2-3b's and gemma-7b's
-# prefill (D = 256, the first body) and llama3-8b's under phase 21's window
+# prefill (D = 256, the Hopper body) and llama3-8b's under phase 21's window
 # of 512; phase 22's prefills, granite-moe-1b-a400m's (GQA 2) and
 # hymba-1.5b's (GQA 5, 25 heads); phase 23's, whisper-base's encoder
 # (bidirectional, S = 1,500 = 11 x 128 + 92: a ragged last tile) and
 # decoder prefills (GQA 1 at D = 64) and llama-3.2-vision-90b's (64 query
 # heads, GQA 8); D = 256 in float32 and bf16, causal and full, at a ragged S; and
-# windows at D = 64, 128 and 256 over S = 2048 (Hopper body at 64 / 128 in
-# bf16, the first body at 256 and in float32): below one tile (40), not a
+# windows at D = 64, 128 and 256 over S = 2048 (the Hopper body in bf16,
+# the first body in float32): below one tile (40), not a
 # multiple of 128 (300), phase 21's 512, and S or more, which must equal no
 # window bit for bit.
 K2_WINDOWS = (40, 300, 512, 2048, 5000)
@@ -442,6 +448,9 @@ K2_CASES = [
      None),
     ("scale1_1x700", (1, 700, 16, 2, 128), torch.bfloat16, True, "scale1",
      None),
+    *((f"{kind}_d256", (1, 700, 8, 2, 256), torch.bfloat16, causal, kind,
+       None)
+      for kind in ("growth", "scale1") for causal in (True, False)),
     ("negative_1x300", (1, 300, 16, 2, 128), torch.bfloat16, False,
      "negative", None),
     ("llama_serve", (8, 2048, 32, 8, 128), torch.bfloat16, True, "randn",
@@ -1500,7 +1509,9 @@ def k2_build_report(log: str | None, so_path) -> None:
     """Phase 2, K2: registers, shared memory and spills per instantiation
     (``-Xptxas -v``; ``log`` is None if the library was built before this
     run), dynamic shared memory per launch, and the wgmma and TMA
-    instructions in the built library's SASS."""
+    instructions in the built library's SASS.  Each Hopper instantiation
+    (bf16 at D = 64, 128, 256) must hold HGMMA, UTMALDG and UTMASTG and fit
+    a block's 227 KB; no D = 256 instantiation may spill."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -1514,14 +1525,24 @@ def k2_build_report(log: str | None, so_path) -> None:
               f"frame {frame} B")
     spilled = [row for row in report if row[0].endswith(", 256>") and row[3]]
     check(not spilled, f"K2's D = 256 instantiations spill: {spilled}")
+    check(log is None or any(r[0] == "hopper<bf16, 256>" for r in report),
+          "K2's hopper<bf16, 256> is missing from the ptxas report")
     lib = ops.load_library("flash_attention")
     print("[build] flash_attention dynamic shared memory per launch: " + ", ".join(
         f"{str(dt)[6:]} D={d} {fa.smem_bytes(lib, dt, d)} B"
         for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS))
+    smem256 = fa.smem_bytes(lib, torch.bfloat16, 256)
+    print(f"[build] flash_attention hopper<bf16, 256>: key tile "
+          f"{fa.key_tile(torch.bfloat16, 256)}, {smem256} B dynamic shared "
+          f"memory of {SMEM_PER_BLOCK} a block may take")
+    check(0 < smem256 <= SMEM_PER_BLOCK,
+          f"hopper<bf16, 256> takes {smem256} B of shared memory")
     print("[build] flash_attention first body, blocks an SM: " + ", ".join(
         f"{str(dt)[6:]} D={d} {fa.simt_blocks_per_sm(lib, dt, d)}"
         for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS
         if fa.body(dt, d) == "simt"))
+    check(fa.simt_blocks_per_sm(lib, torch.bfloat16, 256) == 0,
+          "the first body still serves bf16 at D = 256")
     counts = _sass_counts(so_path, _k2_instance,
                           ("HGMMA", "UTMALDG", "UTMASTG", "HMMA"))
     if counts is None:
@@ -1531,9 +1552,10 @@ def k2_build_report(log: str | None, so_path) -> None:
     for inst, c in counts.items():
         print(f"[build] flash_attention {inst} SASS: " + ", ".join(
             f"{op} {n}" for op, n in c.items()))
-    wg = counts.get("hopper<bf16, 128>", {})
-    check(all(wg.get(op, 0) > 0 for op in ("HGMMA", "UTMALDG", "UTMASTG")),
-          f"the bf16 D = 128 body lacks wgmma or TMA in its SASS: {wg}")
+    for d in (64, 128, 256):
+        wg = counts.get(f"hopper<bf16, {d}>", {})
+        check(all(wg.get(op, 0) > 0 for op in ("HGMMA", "UTMALDG", "UTMASTG")),
+              f"the bf16 D = {d} body lacks wgmma or TMA in its SASS: {wg}")
 
 
 def k3_build_report(log: str | None, so_path) -> None:
@@ -1622,27 +1644,33 @@ def k2_inputs(shape, dtype, dev, *, kind="randn", causal=True, seed=0,
 def k2_lazy_redos(q, k, scale, causal, margin=0.5, window=None):
     """How many (16-row warp, key tile) pairs the Hopper body's lazy softmax
     must redo exactly on these inputs, replaying its rule on the float32
-    logits: a work tile's first key tile (the first its ``window`` reaches,
-    0 without one) is exact; after it, a tile with no masked entry (not on
-    the diagonal, not ragged, not crossed by the window's left edge, and
-    not the tile where the last row's window starts) is redone by a warp
-    where some row's max, in the log2 domain, is above the running max by
-    more than 8; the running max takes the tile's max only on an exact
-    tile.  Counts the pairs where that excess is above 8 + ``margin``,
-    clear of summation-order differences.  Zero for a negative scale (no
-    lazy tile)."""
-    tile, warp, lazy_log2 = 128, 16, 8.0   # kBQ = kBK, rows a warp, kLazyLog2
-    if scale <= 0:
+    logits over its 128-row work tiles and its key tiles
+    (`flash_attention.key_tile`: 128 keys, 80 at D = 256): a work tile's
+    first key tile (the first its ``window`` reaches, 0 without one) is
+    exact; after it, a tile with no masked entry (no key past the work
+    tile's first row under the causal mask, not ragged, not crossed by the
+    window's left edge, and not the tile where the last row's window
+    starts) is redone by a warp where some row's max, in the log2 domain,
+    is above the running max by more than 8; the running max takes the
+    tile's max only on an exact tile.  Counts the pairs where that excess
+    is above 8 + ``margin``, clear of summation-order differences.  Zero
+    for a negative scale (no lazy tile) and where the first body serves
+    (no lazy softmax)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, d = q.shape
+    if scale <= 0 or fa.body(q.dtype, d) != "wgmma":
         return 0
+    qtile, ktile = fa.BLOCK["wgmma"][0], fa.key_tile(q.dtype, d)
+    warp, lazy_log2 = 16, 8.0        # rows a warp, kLazyLog2
     w = 2**31 - 1 if window is None else window
-    b, s, h, _ = q.shape
     kf = k.float().repeat_interleave(h // k.shape[2], dim=2)
     x = torch.einsum("bihd,bjhd->bhij", q.float(), kf)
     x = x * (scale * math.log2(math.e))
     idx = torch.arange(s, device=q.device)
-    qt = idx // tile
-    j0 = (qt * tile - w + 1).clamp_min(0) // tile
-    imax = (qt * tile + tile - 1).clamp_max(s - 1)
+    q0 = idx // qtile * qtile            # each row's work tile's first row
+    j0 = (q0 - w + 1).clamp_min(0) // ktile
+    imax = (q0 + qtile - 1).clamp_max(s - 1)
     if causal:
         x = x.masked_fill(idx[None, :] > idx[:, None], -math.inf)
     x = x.masked_fill(idx[:, None] - idx[None, :] >= w, -math.inf)
@@ -1653,12 +1681,12 @@ def k2_lazy_redos(q, k, scale, causal, margin=0.5, window=None):
 
     m = torch.full(x.shape[:-1], -math.inf, device=q.device)
     redos = 0
-    for j in range(-(-s // tile)):
-        tmax = x[..., tile * j:tile * (j + 1)].amax(-1)
-        seen = (j >= j0) & ((qt >= j) if causal else True)
-        reach = imax - tile * j
-        edge = ((causal & (qt == j)) | (tile * (j + 1) > s) | (reach >= w)
-                | ((reach == w - 1) & (j > j0)) | (j == j0))
+    for j in range(-(-s // ktile)):
+        tmax = x[..., ktile * j:ktile * (j + 1)].amax(-1)
+        seen = (j >= j0) & ((imax // ktile >= j) if causal else True)
+        reach = imax - ktile * j
+        edge = ((causal & (ktile * (j + 1) - 1 > q0)) | (ktile * (j + 1) > s)
+                | (reach >= w) | ((reach == w - 1) & (j > j0)) | (j == j0))
         excess = torch.where(seen & ~edge, tmax - m, -math.inf)
         redos += int(any_in_warp(excess > lazy_log2 + margin).sum())
         redo = any_in_warp(excess > lazy_log2).repeat_interleave(warp, -1)

@@ -26,32 +26,30 @@
 //
 // Two bodies, chosen at compile time by dtype x D (`pick_d`):
 //
-// * bf16 at D = 64 or 128: the Hopper body (`hopper::`).  A persistent grid
-//   of one block an SM (its 193 KB of shared memory admit no second) walks
-//   the work tiles, one per (128-row query tile, batch, head), heaviest
-//   causal tiles first, in a snake order that evens out each block's load.
-//   A block is two warpgroups of 64 query rows.  Q, K and V arrive by TMA
-//   (`cp.async.bulk.tensor`, 4-D tensor maps over (D, S, heads, B) with the
-//   tensors' own byte strides, 128-byte swizzle, rows past S zero-filled)
-//   into a 2-stage ring of 128-key K and V tiles that runs on across work
-//   tiles, each copy completing on its stage's "full" mbarrier.  No warp
-//   waits to refill a stage: each warp counts itself out of a K, V or Q tile
-//   once its products have read it, and the last of the eight issues the
-//   next copy (so the next work tile's Q and first K/V tiles load while this
-//   one finishes).  Per key tile a warpgroup issues QK^T as `wgmma
-//   m64n128k16` (Q from registers, read once per work tile with `ldmatrix`;
-//   K from shared memory, K-major) together with the previous tile's PV,
-//   runs the online softmax on the accumulator layout (rows 16 warp +
-//   lane / 4 and + 8, columns 2t, 2t + 1 of every 8-wide chunk) while PV is
-//   on the tensor cores, masking only on the diagonal or a ragged last tile.
-//   Where nothing is masked the softmax is lazy: P is taken against the
-//   running max as it stands, so the exponentials need not wait for the
+// * bf16 at D = 64, 128 or 256: the Hopper body (`hopper::`), three
+//   instantiations.  A persistent grid of one block an SM (193 KB of shared
+//   memory, 225 KB at D = 256, admit no second) walks the work tiles, one
+//   per (128-row query tile, batch, head), in an order that evens out each
+//   block's load (`Work`: heaviest causal tiles first, or by head at
+//   D = 256).  A block is two warpgroups of 64 query rows.  Q, K and V arrive by TMA (`cp.async.bulk.tensor`, 4-D tensor maps
+//   over (D, S, heads, B) with the tensors' own byte strides, 128-byte
+//   swizzle, rows past S zero-filled) into a 2-stage ring of K and V tiles
+//   that runs on across work tiles, each copy completing on its stage's
+//   "full" mbarrier.  No warp waits to refill a stage: each warp counts
+//   itself out of a K or V tile once its products have read it, and the
+//   last of the eight issues the next copy (so the next work tile's first
+//   K/V tiles load while this one finishes).  Per key tile a warpgroup
+//   issues QK^T together with the previous tile's PV, runs the online
+//   softmax on the accumulator layout (rows 16 warp + lane / 4 and + 8,
+//   columns 2t, 2t + 1 of every 8-wide chunk) while PV is on the tensor
+//   cores, masking only on the diagonal, a ragged last tile or a window's
+//   edge.  Where nothing is masked the softmax is lazy: P is taken against
+//   the running max as it stands, so the exponentials need not wait for the
 //   tile's max, which only says whether a row grew past it by more than
 //   2^8; a warp where one did recomputes its 16 rows of logits with
 //   `mma.sync` and takes the exact softmax (the result does not depend on
 //   the reference max).  P is rounded to bf16 in place into the A fragments
-//   of the next PV
-//   (`wgmma m64nDk16`, V read [key][d] as an MN-major B through the
+//   of the next PV (`wgmma`, V read [key][d] as an MN-major B through the
 //   instruction's transpose-B).  The row sums l are taken from the
 //   unrounded P.  The two warpgroups take turns to issue (named barriers),
 //   so that one's softmax runs while the other's products hold the tensor
@@ -64,17 +62,45 @@
 //   of them on one SM sub-partition, and ptxas (CUDA 12.9) then allocates the
 //   whole kernel within 168 registers whatever `setmaxnreg` asks; the
 //   consumers need over 200, and at 168 they spill and their `wgmma`s
-//   serialise.
-// * float32 (any D) and bf16 at D = 16, 32 or 256: the first body
-//   (`simt::`), no TMA, no wgmma.  One block of four warps per 64-row query
-//   tile; each warp owns 16 rows; K and V tiles of 64 rows are
-//   double-buffered with `cp.async` (rows padded by 16 bytes, rows past S
-//   zero-filled), single-buffered at D = 256 (see `Layout`); bf16 runs
-//   `mma.sync.m16n8k16` (K's and V's B fragments through `ldmatrix`), float32
-//   FFMA (no TF32) on the same C-fragment layout.  gemma-7b's prefill runs
-//   it at bf16 D = 256 (8 x 2048, 16 heads): 274.9 GFLOP, 278 us at the
-//   tensor cores' peak, of which this body reaches about a fifth (its time
-//   is in PERF.md); a Hopper body at D = 256 is later work.
+//   serialise.  By head dim (`Smem`):
+//   - D = 64, 128: 128-key tiles.  QK^T is `wgmma m64n128k16` with Q from
+//     registers (read once per work tile with `ldmatrix`; the Q tile is
+//     counted out like a K/V tile, so the next work tile's Q loads while
+//     this one finishes), PV `wgmma m64nDk16`.  Q 128 rows, the ring of two
+//     K and V stages, and a separate output staging tile.
+//   - D = 256 (gemma-7b): 80-key tiles.  With 128-key tiles Q (64 KB), two
+//     stages of K and V (256 KB) and the staging tile (64 KB) would take
+//     384 KB; 80-key tiles take Q and the ring to 224 KB (230,468 B with
+//     the barriers and the alignment, of the 232,448 a block may take),
+//     which leaves no room for a staging tile.  Registers a thread (255 at
+//     most, two warpgroups of 128): the output accumulator 64 x 256 float32
+//     is 128, the logits tile at 80 keys 40, P's A fragments 20; Q as A
+//     fragments would add 64, over the limit.  So QK^T reads Q from shared
+//     memory: `wgmma m64n80k16` in its SS form, a descriptor on the
+//     warpgroup's swizzled Q panels for A; PV stays RS, two `m64n128k16`
+//     over V's panel halves.  Each warpgroup loads its own 64 Q rows (its
+//     own box and full barrier) and stages its output in those panels,
+//     which its products no longer read after its last QK^T; once the TMA
+//     store has read them, its leader loads the next work tile's Q there.
+//     That Q load is not overlapped with the work tile's last PV and
+//     epilogue as at D <= 128, so each work tile starts by waiting for it;
+//     the K/V ring runs ahead meanwhile, and k2_ablate.py finds the wait
+//     too short to measure on the H100.  The lazy softmax's exact redo reads
+//     Q's A fragments per k16 slice with `ldmatrix` from those panels.  Per
+//     key tile and warpgroup the products are 2.6 MFLOP over 64 x 80
+//     softmax elements (D = 128: 2.1 MFLOP over 64 x 128).  The work is
+//     walked by head (see Work): ordered by query tile, gemma's K and V
+//     (268 MB) were read from device memory again by every work tile.  A
+//     causal work tile runs key tiles up to its last row's diagonal, so
+//     warpgroup 0's rows may see a key tile wholly masked (computed,
+//     contributing 0).
+// * float32 (any D) and bf16 at D = 16 or 32: the first body (`simt::`), no
+//   TMA, no wgmma.  One block of four warps per 64-row query tile; each
+//   warp owns 16 rows; K and V tiles of 64 rows are double-buffered with
+//   `cp.async` (rows padded by 16 bytes, rows past S zero-filled),
+//   single-buffered at float32 D = 256 (see `Layout`); bf16 runs
+//   `mma.sync.m16n8k16` (K's and V's B fragments through `ldmatrix`),
+//   float32 FFMA (no TF32) on the same C-fragment layout.
 //
 // Measured at the serving shape by chip_smoke.py (NVIDIA H100 80GB HBM3,
 // 700.00 W, L2 cold): the first body took 607.8-617.2 us (22.7 % of the
@@ -152,21 +178,18 @@ constexpr int kNT = kBK / 8;          // 8-key column tiles per logits tile
 constexpr int kPStride = kBK + 4;     // floats per row of P (float32 path)
 
 // Shared memory: K and V tiles twice (the next tile's copies run while
-// this tile is multiplied) and the Q tile; in bf16 at D <= 128 Q is read
-// into registers once, so its tile shares the second K buffer.  float32
-// keeps Q in shared memory, plus one P tile per warp.  At D = 256 Q stays in
-// shared memory in bf16 too (as fragments it would take 64 registers beside
-// the accumulator's 128), and K and V are staged once, not twice: two
-// float32 buffers (350 KB) would pass the 227 KB a block may take, and one
-// bf16 buffer (99 KB a block) lets two blocks share an SM, each copying
-// while the other multiplies.
+// this tile is multiplied) and the Q tile; in bf16 (D = 16 or 32 here) Q is
+// read into registers once, so its tile shares the second K buffer.
+// float32 keeps Q in shared memory, plus one P tile per warp; at D = 256 it
+// stages K and V once, not twice: two buffers (350 KB) would pass the
+// 227 KB a block may take.
 template <typename T, int D>
 struct Layout {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int kStride = D + kVec;  // elements per padded tile row
   static constexpr int kTile = kBK * kStride;
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr bool kQRegs = !kF32 && D <= 128;
+  static constexpr bool kQRegs = !kF32;
   static constexpr int kBufs = D > 128 ? 1 : 2;
   static constexpr int kTiles = (kQRegs ? 0 : 1) + 2 * kBufs;  // [Q] K0 V0 [K1 V1]
   static constexpr size_t kBytes =
@@ -230,12 +253,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// Blocks an SM should hold: bf16 is held to 168 registers a thread for three
-// at D <= 128, and to 255 for two at D = 256 (the accumulator alone is 128);
-// float32 (whose tiles fill most of shared memory at D = 128) is not held.
+// Blocks an SM should hold: bf16 is held to 168 registers a thread for
+// three; float32 (whose tiles fill most of shared memory at D = 128) is not
+// held.
 template <typename T, int D>
 constexpr int min_blocks() {
-  return std::is_same<T, float>::value ? 1 : (D > 128 ? 2 : 3);
+  return std::is_same<T, float>::value ? 1 : 3;
 }
 
 template <typename T, int D>
@@ -297,8 +320,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rloc0 = 16 * warp + g;
   const int row[2] = {q0 + rloc0, q0 + rloc0 + 8};
 
-  // bf16 at D <= 128: this warp's Q as m16n8k16 A fragments, kept for the
-  // whole block.  At D = 256 they are read from Q's tile per key tile.
+  // bf16: this warp's Q as m16n8k16 A fragments, kept for the whole block.
   uint32_t qf[L::kQRegs ? D / 16 : 1][4];
   if constexpr (L::kQRegs) {
     const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(qs);
@@ -348,30 +370,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
     }
     if constexpr (!L::kF32) {
-      // ldmatrix rows: matrix i = (key half i / 2, d half i % 2) of 16 keys;
-      // for Q's A fragments (D = 256), matrix i = (row half i % 2, d half
-      // i / 2) of the warp's 16 rows.
+      // ldmatrix rows: matrix i = (key half i / 2, d half i % 2) of 16 keys.
       const int mi = lane / 8;
       const __nv_bfloat16* krow = reinterpret_cast<const __nv_bfloat16*>(ks) +
                                   ((mi >> 1) * 8 + lane % 8) * kStride + (mi & 1) * 8;
-      const __nv_bfloat16* qrow = reinterpret_cast<const __nv_bfloat16*>(qs) +
-                                  (16 * warp + (mi & 1) * 8 + lane % 8) * kStride +
-                                  (mi >> 1) * 8;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4];
-        if constexpr (L::kQRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
-        } else {
-          ldmatrix_x4(qa, qrow + 16 * kk);
-        }
 #pragma unroll
         for (int np = 0; np < kNT / 2; ++np) {
           uint32_t bf[4];
           ldmatrix_x4(bf, krow + 16 * np * kStride + 16 * kk);
-          mma_bf16(s[2 * np], qa, bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
+          mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
         }
       }
     } else {
@@ -512,8 +522,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Lets the kernel take its dynamic shared memory (above 48 KB only when
-// asked), with the SM's carveout set to shared memory, so that D = 256's
-// two bf16 blocks fit beside each other.
+// asked), with the SM's carveout set to shared memory.
 template <typename T, int D>
 cudaError_t prepare() {
   auto kern = flash_attention_kernel<T, D>;
@@ -566,36 +575,55 @@ cudaError_t run(const Args& a) {
 // ---------------------------------------------------------------------------
 namespace hopper {
 
-constexpr int kBQ = 128;              // query rows per block
-constexpr int kBK = 128;              // keys per staged tile (== kBQ)
+constexpr int kBQ = 128;              // query rows per work tile
 constexpr int kStages = 2;            // K/V ring depth
-constexpr int kPanelBytes = 128 * 128;   // one TMA box: 128 rows x 64 bf16
+constexpr int kPanelBytes = 128 * 128;   // 128 rows x 64 bf16
+constexpr int kHalfPanel = 64 * 128;     // 64 rows x 64 bf16: one warpgroup's
 constexpr int kThreads = 256;         // two warpgroups of 64 query rows
 constexpr int kWarps = kThreads / 32;  // count themselves out of a stage
 constexpr unsigned long long kWaitLimitNs = 10000000000ull;   // 10 s
 
-// Shared memory, from a 1024-byte aligned base (the 128B swizzle's period):
-// Q, then per stage K and V, each tile D / 64 swizzled panels of 128 rows;
-// the output's staging tile (per warpgroup D / 64 panels of 64 rows); then
-// the mbarriers (Q full, and per stage K full and V full: the TMA copies
-// complete on them) and the release counts (per stage of K, per stage of V,
-// and of Q: each warp adds one once its products have read the tile).
+// Shared memory, from a 1024-byte aligned base (the 128B swizzle's period),
+// in swizzled panels of 64 columns (128 bytes a row):
+//   D = 64, 128: Q (128 rows a panel); per stage K and V (kBK = 128 rows a
+//     panel); the output's staging tile (per warpgroup D / 64 panels of 64
+//     rows).  Q is read into registers once per work tile.
+//   D = 256 (kQShared): Q as each warpgroup's own 4 panels of 64 rows (its
+//     own TMA box and "full" barrier); per stage K and V (kBK = 80 rows a
+//     panel).  Q stays in shared memory for the SS products, and each
+//     warpgroup stages its output in its own Q panels once its last QK^T
+//     has read them: 64 + 2 x (40 + 40) KB, with no room for a staging
+//     tile beside them.
+// Then the mbarriers (Q full, per warpgroup at D = 256; per stage K full
+// and V full: the TMA copies complete on them) and the release counts (per
+// stage of K, per stage of V, and of Q at D <= 128: each warp adds one once
+// its products have read the tile).
 template <int D>
 struct Smem {
+  static constexpr bool kQShared = D == 256;
+  static constexpr int kBK = kQShared ? 80 : 128;   // keys per staged tile
   static constexpr int kPanels = D / 64;
-  static constexpr int kTile = kPanels * kPanelBytes;
-  static constexpr int kK0 = kTile;                       // stage s: K at
-  static constexpr int kO = kTile * (1 + 2 * kStages);    // kK0 + 2 s kTile
-  static constexpr int kBar = kO + kTile;
-  static constexpr int kCount = kBar + 8 * (1 + 2 * kStages);
+  static constexpr int kKVPanel = kBK * 128;
+  static constexpr int kQTile = kPanels * kPanelBytes;   // 128 rows of Q
+  static constexpr int kKVTile = kPanels * kKVPanel;
+  static constexpr int kK0 = kQTile;                      // stage s: K at
+  static constexpr int kO = kK0 + 2 * kStages * kKVTile;  // kK0 + 2 s kKVTile
+  static constexpr int kOBytes = kQShared ? 0 : kPanels * kPanelBytes;
+  static constexpr int kQBars = kQShared ? 2 : 1;
+  static constexpr int kBar = kO + kOBytes;
+  static constexpr int kCount = kBar + 8 * (kQBars + 2 * kStages);
   static constexpr size_t kBytes = kCount + 4 * (2 * kStages + 1) + 1024;
 };
+static_assert(Smem<256>::kBytes <= 232448, "227 KB a block");
 
+template <int kQBars>
 struct Bars {
   uint32_t base;
-  __device__ uint32_t q_full() const { return base; }
-  __device__ uint32_t k_full(int s) const { return base + 8 * (1 + s); }
-  __device__ uint32_t v_full(int s) const { return base + 8 * (1 + kStages + s); }
+  __device__ uint32_t q_full(int c) const { return base + 8 * c; }
+  __device__ uint32_t k_full(int s) const { return base + 8 * (kQBars + s); }
+  __device__ uint32_t v_full(int s) const {
+    return base + 8 * (kQBars + kStages + s);
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -710,24 +738,28 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 // memory, K-major (QK^T: K) or, with transpose-B, MN-major (PV: V).
 
 #define D64 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define D80 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
 #define D128 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+// kOff: the first of the 64 accumulator registers (a 64 x 128 slice of a
+// wider accumulator: columns 2 kOff .. 2 kOff + 127).
+template <int kTransB, int kOff = 0, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N], const uint32_t (&a)[4],
     uint64_t db, int scale_d) {
+  static_assert(kOff + 64 <= N, "the accumulator slice lies inside d");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{" D128 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[kOff + 0]), "+f"(d[kOff + 1]), "+f"(d[kOff + 2]), "+f"(d[kOff + 3]), "+f"(d[kOff + 4]), "+f"(d[kOff + 5]), "+f"(d[kOff + 6]), "+f"(d[kOff + 7]),
+        "+f"(d[kOff + 8]), "+f"(d[kOff + 9]), "+f"(d[kOff + 10]), "+f"(d[kOff + 11]), "+f"(d[kOff + 12]), "+f"(d[kOff + 13]), "+f"(d[kOff + 14]), "+f"(d[kOff + 15]),
+        "+f"(d[kOff + 16]), "+f"(d[kOff + 17]), "+f"(d[kOff + 18]), "+f"(d[kOff + 19]), "+f"(d[kOff + 20]), "+f"(d[kOff + 21]), "+f"(d[kOff + 22]), "+f"(d[kOff + 23]),
+        "+f"(d[kOff + 24]), "+f"(d[kOff + 25]), "+f"(d[kOff + 26]), "+f"(d[kOff + 27]), "+f"(d[kOff + 28]), "+f"(d[kOff + 29]), "+f"(d[kOff + 30]), "+f"(d[kOff + 31]),
+        "+f"(d[kOff + 32]), "+f"(d[kOff + 33]), "+f"(d[kOff + 34]), "+f"(d[kOff + 35]), "+f"(d[kOff + 36]), "+f"(d[kOff + 37]), "+f"(d[kOff + 38]), "+f"(d[kOff + 39]),
+        "+f"(d[kOff + 40]), "+f"(d[kOff + 41]), "+f"(d[kOff + 42]), "+f"(d[kOff + 43]), "+f"(d[kOff + 44]), "+f"(d[kOff + 45]), "+f"(d[kOff + 46]), "+f"(d[kOff + 47]),
+        "+f"(d[kOff + 48]), "+f"(d[kOff + 49]), "+f"(d[kOff + 50]), "+f"(d[kOff + 51]), "+f"(d[kOff + 52]), "+f"(d[kOff + 53]), "+f"(d[kOff + 54]), "+f"(d[kOff + 55]),
+        "+f"(d[kOff + 56]), "+f"(d[kOff + 57]), "+f"(d[kOff + 58]), "+f"(d[kOff + 59]), "+f"(d[kOff + 60]), "+f"(d[kOff + 61]), "+f"(d[kOff + 62]), "+f"(d[kOff + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
@@ -743,6 +775,24 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a * b with A from shared memory too (K-major, descriptor da): the
+// QK^T of D = 256 over its 80-key tiles, whose Q would not fit in registers
+// beside the output.
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{" D80 "}, %40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // 2^x on the special function unit (inputs at or below -126 give 0).
@@ -763,7 +813,8 @@ __device__ __forceinline__ float ex2(float x) {
 // folded into one FFMA (the max commutes with it when scale2 > 0).  Each
 // row's max and sum run as four independent chains (chunks n % 4), so that
 // their latency does not serialise the tile.
-__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2],
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              float scale2, bool edge, int k0,
                                              const int (&row)[2], int t, int S,
@@ -775,14 +826,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2]
   for (int q = 0; q < 4; ++q) pm[0][q] = pm[1][q] = kLowest;
   if (fold) {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         pm[e >> 1][n & 3] = fmaxf(pm[e >> 1][n & 3], sc[4 * n + e]);
     }
   } else {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * n + e] * scale2;
@@ -807,7 +858,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2]
   float ps[2][4] = {};
   if (fold) {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], scale2, -m[e >> 1]));
@@ -816,7 +867,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2]
     }
   } else {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         sc[4 * n + e] = ex2(sc[4 * n + e] - m[e >> 1]);
@@ -839,7 +890,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2]
 // rounding differs, as between any two tilings.
 constexpr float kLazyLog2 = 8.0f;
 
-__device__ __forceinline__ bool softmax_lazy(float (&sc)[kBK / 2],
+template <int N>
+__device__ __forceinline__ bool softmax_lazy(float (&sc)[N],
                                              const float (&m)[2],
                                              float (&lsum)[2], float scale2) {
   constexpr float kLowest = -3.402823466e38f;   // below every logit
@@ -847,7 +899,7 @@ __device__ __forceinline__ bool softmax_lazy(float (&sc)[kBK / 2],
 #pragma unroll
   for (int q = 0; q < 4; ++q) pm[0][q] = pm[1][q] = kLowest;
 #pragma unroll
-  for (int n = 0; n < kBK / 8; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       pm[e >> 1][n & 3] = fmaxf(pm[e >> 1][n & 3], sc[4 * n + e]);
@@ -867,10 +919,11 @@ __device__ __forceinline__ bool softmax_lazy(float (&sc)[kBK / 2],
 
 // P (bf16) as PV's A fragments, 16 keys per k slice: chunks 2 kk and
 // 2 kk + 1, rows g and g + 8.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBK / 16][4],
-                                       const float (&sc)[kBK / 2]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4],
+                                       const float (&sc)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
+  for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
@@ -906,55 +959,88 @@ __device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[D / 16][4],
   }
 }
 
-// S = Q K^T for this warpgroup's 64 rows (issued, not waited on).
+// Q's operand of QK^T: at D <= 128 this warp's A fragments, read once per
+// work tile; at D = 256 the products read Q's panels in shared memory (its
+// fragments would take 64 registers beside the output's 128), and the
+// array is a placeholder.
 template <int D>
-__device__ __forceinline__ void qk_product(float (&sc)[kBK / 2],
-                                              const uint32_t (&qf)[D / 16][4],
-                                              uint32_t kaddr) {
+using QFrags = uint32_t[Smem<D>::kQShared ? 1 : D / 16][4];
+
+// S = Q K^T for this warpgroup's 64 rows (issued, not waited on): A from
+// registers (`qf`) or, at D = 256, from the warpgroup's Q panels at
+// `qaddr` (64 rows each, K-major like K).
+template <int D>
+__device__ __forceinline__ void qk_product(float (&sc)[Smem<D>::kBK / 2],
+                                           const QFrags<D>& qf, uint32_t qaddr,
+                                           uint32_t kaddr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    wgmma_rs_n128<0>(sc, qf[kk], desc_sw128(kaddr + off, 16), kk > 0);
+    const uint32_t off = (kk / 4) * Smem<D>::kKVPanel + (kk % 4) * 32;
+    if constexpr (Smem<D>::kQShared) {
+      const uint32_t qoff = (kk / 4) * kHalfPanel + (kk % 4) * 32;
+      wgmma_ss_n80(sc, desc_sw128(qaddr + qoff, 16),
+                   desc_sw128(kaddr + off, 16), kk > 0);
+    } else {
+      wgmma_rs_n128<0>(sc, qf[kk], desc_sw128(kaddr + off, 16), kk > 0);
+    }
   }
 }
 
 // S = Q K^T again for this warp's 16 rows alone, with `mma.sync` (the
 // lazy softmax's rare exact path; no warpgroup-wide instruction).  Q's A
-// fragments serve as they are; K's B fragments come by `ldmatrix` (matrix
-// i = keys 0-7 / 8-15 of 16 x columns 0-7 / 8-15 of a k16 slice).
+// fragments serve as they are, or at D = 256 come per k16 slice from Q's
+// panels by `ldmatrix` (as `load_q_fragments` reads them); K's B fragments
+// come by `ldmatrix` (matrix i = keys 0-7 / 8-15 of 16 x columns 0-7 /
+// 8-15 of a k16 slice).
 template <int D>
-__device__ __forceinline__ void qk_warp(float (&sc)[kBK / 2],
-                                        const uint32_t (&qf)[D / 16][4],
-                                        uint32_t kaddr, int lane) {
+__device__ __forceinline__ void qk_warp(float (&sc)[Smem<D>::kBK / 2],
+                                        const QFrags<D>& qf, uint32_t qaddr,
+                                        uint32_t kaddr, int warp, int lane) {
+  constexpr int kBK = Smem<D>::kBK;
   const int mi = lane / 8;
+  const int qr = 16 * warp + lane % 8 + 8 * (mi % 2);   // Q's row (D = 256)
 #pragma unroll
   for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.0f;
 #pragma unroll
-  for (int np = 0; np < kBK / 16; ++np) {
-    const int key = 16 * np + (mi >> 1) * 8 + lane % 8;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[4];
+    if constexpr (Smem<D>::kQShared) {
+      ldsm_x4(qa, swizzled(qaddr + (kk / 4) * kHalfPanel, qr,
+                           2 * (kk % 4) + lane / 16));
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+    }
+#pragma unroll
+    for (int np = 0; np < kBK / 16; ++np) {
+      const int key = 16 * np + (mi >> 1) * 8 + lane % 8;
       uint32_t bf[4];
-      ldsm_x4(bf, swizzled(kaddr + (kk / 4) * kPanelBytes, key,
+      ldsm_x4(bf, swizzled(kaddr + (kk / 4) * Smem<D>::kKVPanel, key,
                            2 * (kk % 4) + (mi & 1)));
-      mma_bf16(&sc[8 * np], qf[kk], bf[0], bf[1]);
-      mma_bf16(&sc[8 * np + 4], qf[kk], bf[2], bf[3]);
+      mma_bf16(&sc[8 * np], qa, bf[0], bf[1]);
+      mma_bf16(&sc[8 * np + 4], qa, bf[2], bf[3]);
     }
   }
 }
 
-// O += P V (issued, not waited on).
+// O += P V (issued, not waited on).  V's panels of 64 columns lie
+// kKVPanel apart; at D = 256 the output's two 128-column halves take one
+// product each.
 template <int D>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2],
-                                           const uint32_t (&pa)[kBK / 16][4],
+                                           const uint32_t (&pa)[Smem<D>::kBK / 16][4],
                                            uint32_t vaddr) {
+  constexpr int kKVPanel = Smem<D>::kKVPanel;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t db = desc_sw128(vaddr + kk * 16 * 128, kPanelBytes);
-    if constexpr (D == 128) {
-      wgmma_rs_n128<1>(o, pa[kk], db, 1);
+  for (int kk = 0; kk < Smem<D>::kBK / 16; ++kk) {
+    const uint32_t v = vaddr + kk * 16 * 128;
+    if constexpr (D == 256) {
+      wgmma_rs_n128<1, 0>(o, pa[kk], desc_sw128(v, kKVPanel), 1);
+      wgmma_rs_n128<1, 64>(o, pa[kk], desc_sw128(v + 2 * kKVPanel, kKVPanel), 1);
+    } else if constexpr (D == 128) {
+      wgmma_rs_n128<1>(o, pa[kk], desc_sw128(v, kKVPanel), 1);
     } else {
-      wgmma_rs_n64(o, pa[kk], db, 1);
+      wgmma_rs_n64(o, pa[kk], desc_sw128(v, kKVPanel), 1);
     }
   }
 }
@@ -995,32 +1081,69 @@ __device__ __forceinline__ void release(uint32_t* count, int lane,
   __syncwarp();
 }
 
-// The work: one tile per (128-row query tile, batch, head), heaviest causal
-// tiles first.  Block k of the G persistent blocks takes, in round r, tile
-// r G + k in even rounds and r G + G - 1 - k in odd ones (a snake, so that
-// each block's heavy and light causal tiles even out).  A work tile's key
-// tiles run from j0, the first its window reaches (0 without one), to the
-// diagonal: n of them.  Under a window n stops growing with qt at about
-// W / 128 + 1, so the order is still heaviest first, with many ties.
+// The work: one tile per (128-row query tile, batch, head), in one of two
+// orders.  A work tile's key tiles (of BK keys) run from j0, the first its
+// window reaches (0 without one), to the last that holds a key at or below
+// its last row's diagonal (every tile without a causal mask): n of them.
+// * By query tile (kByHead false; D = 64, 128): heaviest causal tiles
+//   first, every (batch, head) of the last query tile, then of the one
+//   before.  Block k of the G persistent blocks takes, in round r, tile
+//   r G + k in even rounds and r G + G - 1 - k in odd ones (a snake, so
+//   that each block's heavy and light causal tiles even out).  Under a
+//   window n stops growing with qt at about W / BK + 2, so the order is
+//   still heaviest first, with many ties.  The blocks then read every
+//   head's K and V at once: this suits K and V that fit in the 50 MB L2.
+// * By head (kByHead true; D = 256): the (batch, head) pairs one after
+//   another, each one's query tiles paired heaviest with lightest (qt =
+//   nqb - 1, 0, nqb - 2, 1, ...); block k takes pair m G + k in rounds 2m
+//   and 2m + 1, so every block's pair of causal tiles costs about the
+//   same and the blocks keep in step over about G / (nqb / 2) heads at a
+//   time.  gemma-7b's K and V (268 MB at 8 x 2048, 16 kv heads of 256)
+//   do not fit in L2: ordered by query tile, every work tile read its keys
+//   from device memory again (2.3 GB, about 0.7 ms at 3.35 TB/s); by head,
+//   the about 16 heads in flight (33 MB) stay in L2 and each key is read
+//   from device memory about once.
 struct Tile {
   int w, qt, j0, n, b, h, kvh;   // w >= the tile count: no tile
 };
 
+template <int BK, bool kByHead>
 struct Work {
-  int B, H, KV, nqb, tiles, causal, W;
+  int B, S, H, KV, nqb, tiles, causal, W;
   __device__ int index(int r) const {
     const int G = gridDim.x;
-    return r * G + ((r & 1) ? G - 1 - static_cast<int>(blockIdx.x)
-                            : static_cast<int>(blockIdx.x));
+    const int k = static_cast<int>(blockIdx.x);
+    if constexpr (kByHead) return 2 * ((r >> 1) * G + k) + (r & 1);
+    return r * G + ((r & 1) ? G - 1 - k : k);
   }
   __device__ Tile tile(int r) const {
     Tile t;
     t.w = index(r);
-    t.qt = nqb - 1 - t.w / (B * H);
-    t.j0 = max(0, t.qt * kBQ - W + 1) / kBK;
-    t.n = (causal ? t.qt + 1 : nqb) - t.j0;
-    t.b = t.w % (B * H) / H;
-    t.h = t.w % H;
+    int bh;
+    if constexpr (kByHead) {
+      const int i = t.w % nqb;
+      bh = t.w / nqb;
+      t.qt = (i & 1) ? i / 2 : nqb - 1 - i / 2;
+    } else {
+      bh = t.w % (B * H);
+      t.qt = nqb - 1 - t.w / (B * H);
+    }
+    t.j0 = max(0, t.qt * kBQ - W + 1) / BK;
+    // At BK = kBQ the same values in the form the D <= 128 body was tuned
+    // with: the general form costs it about 1 % (k2_ablate.py's shapes).
+    if constexpr (BK == kBQ) {
+      t.n = (causal ? t.qt + 1 : nqb) - t.j0;
+    } else {
+      t.n = (causal ? min(t.qt * kBQ + kBQ - 1, S - 1) / BK + 1
+                    : (S + BK - 1) / BK) - t.j0;
+    }
+    if constexpr (kByHead) {
+      t.b = bh / H;
+      t.h = bh % H;
+    } else {
+      t.b = t.w % (B * H) / H;
+      t.h = t.w % H;
+    }
     t.kvh = t.h / (H / KV);
     return t;
   }
@@ -1034,15 +1157,17 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap to, int B, int S,
                        int H, int KV, float scale, int causal, int W) {
   using L = Smem<D>;
+  constexpr int kBK = L::kBK;
   constexpr int kDT = D / 8;            // 8-wide chunks of the output
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const Bars bars{base + L::kBar};
+  const Bars<L::kQBars> bars{base + L::kBar};
   uint32_t* count = reinterpret_cast<uint32_t*>(
       smem_raw + (base - smem_addr(smem_raw)) + L::kCount);
   const int nqb = (S + kBQ - 1) / kBQ;
-  const Work wk{B, H, KV, nqb, nqb * B * H, causal, W};
+  constexpr bool kByHead = D == 256;   // the work's order (see Work, run_hopper)
+  const Work<kBK, kByHead> wk{B, S, H, KV, nqb, nqb * B * H, causal, W};
 
   // The block's key tiles form one sequence over its work tiles: tile g of
   // it goes to stage g % kStages and completes its full barrier's phase
@@ -1051,7 +1176,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   // two stages g - g0 is at most cur.n + 1, so g lies in `cur`, in `nxt`,
   // or (after a one-tile `nxt`) in the work tile after it; within its work
   // tile it is key tile j0 + (its place there).
-  auto k_addr = [&](int s) { return base + L::kK0 + 2 * s * L::kTile; };
+  auto k_addr = [&](int s) { return base + L::kK0 + 2 * s * L::kKVTile; };
   auto load_kv = [&](bool is_v, const Tile& cur, const Tile& nxt, int rnd,
                      int g0, int g) {
     int j = g - g0, j0 = cur.j0, b = cur.b, kvh = cur.kvh;
@@ -1073,23 +1198,35 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     }
     const int s = g % kStages;
     const uint32_t bar = is_v ? bars.v_full(s) : bars.k_full(s);
-    const uint32_t dst = k_addr(s) + (is_v ? L::kTile : 0);
-    mbar_expect_tx(bar, L::kTile);
+    const uint32_t dst = k_addr(s) + (is_v ? L::kKVTile : 0);
+    mbar_expect_tx(bar, L::kKVTile);
 #pragma unroll
     for (int p = 0; p < L::kPanels; ++p)
-      tma_load(dst + p * kPanelBytes, is_v ? &tv : &tk, bar, 64 * p,
+      tma_load(dst + p * L::kKVPanel, is_v ? &tv : &tk, bar, 64 * p,
                (j0 + j) * kBK, kvh, b);
   };
-  auto load_q = [&](const Tile& t) {
-    mbar_expect_tx(bars.q_full(), L::kTile);
+  // Q of work tile t: all 128 rows at once (D <= 128), or at D = 256 the
+  // 64 rows of warpgroup c, into its own panels.
+  auto load_q = [&](const Tile& t, int c) {
+    if constexpr (L::kQShared) {
+      const uint32_t dst = base + c * L::kPanels * kHalfPanel;
+      mbar_expect_tx(bars.q_full(c), L::kPanels * kHalfPanel);
 #pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
-      tma_load(base + p * kPanelBytes, &tq, bars.q_full(), 64 * p,
-               t.qt * kBQ, t.h, t.b);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load(dst + p * kHalfPanel, &tq, bars.q_full(c), 64 * p,
+                 t.qt * kBQ + 64 * c, t.h, t.b);
+    } else {
+      mbar_expect_tx(bars.q_full(0), L::kQTile);
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load(base + p * kPanelBytes, &tq, bars.q_full(0), 64 * p,
+                 t.qt * kBQ, t.h, t.b);
+    }
   };
 
   if (threadIdx.x == 0) {
-    mbar_init(bars.q_full(), 1);
+#pragma unroll
+    for (int c = 0; c < L::kQBars; ++c) mbar_init(bars.q_full(c), 1);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bars.k_full(s), 1);
@@ -1098,7 +1235,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 2 * kStages + 1; ++i) count[i] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     const Tile first = wk.tile(0), second = wk.tile(1);
-    load_q(first);
+#pragma unroll
+    for (int c = 0; c < L::kQBars; ++c) load_q(first, c);
     for (int g = 0; g < kStages; ++g) {
       load_kv(false, first, second, 0, 0, g);
       load_kv(true, first, second, 0, 0, g);
@@ -1114,10 +1252,15 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const int c = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   const int t = lane % 4;
-  const int rl = 16 * ((threadIdx.x / 32) % 4) + lane / 4;   // row of 64
+  const int warp = (threadIdx.x / 32) % 4;   // within the warpgroup
+  const int rl = 16 * warp + lane / 4;       // row of 64
   const bool leader = threadIdx.x % 128 == 0;
-  const uint32_t qaddr = base + c * 64 * 128;   // this warpgroup's Q rows
-  const uint32_t oaddr = base + L::kO + c * L::kPanels * 64 * 128;
+  // This warpgroup's Q rows: in each 128-row panel (D <= 128), or its own
+  // panels (D = 256), where its output is also staged.
+  const uint32_t qaddr = L::kQShared ? base + c * L::kPanels * kHalfPanel
+                                     : base + c * kHalfPanel;
+  const uint32_t oaddr =
+      L::kQShared ? qaddr : base + L::kO + c * L::kPanels * kHalfPanel;
   const float scale2 = scale * kLog2e;   // exp(x) = exp2(x log2 e)
   float o[D / 2];
   float sc[kBK / 2];
@@ -1139,13 +1282,16 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     const int imax = min(q0 + kBQ - 1, S - 1);
     const int row[2] = {min(q0 + 64 * c + rl, S - 1),
                         min(q0 + 64 * c + rl + 8, S - 1)};
-    // Key tile j takes the exact softmax where it holds masked entries (the
-    // diagonal, a ragged last tile, keys W or more rows behind imax), and
-    // where imax's window starts at its first key: there imax has seen no
-    // key yet (its max is still -1e30), which the lazy path cannot take.
+    // Key tile j takes the exact softmax where it holds masked entries (a
+    // key past the work tile's first row under the causal mask, a ragged
+    // last tile, keys W or more rows behind imax), and where imax's window
+    // starts at its first key: there imax has seen no key yet (its max is
+    // still -1e30), which the lazy path cannot take.
     auto edge = [&](int j) {
       const int reach = imax - j * kBK;
-      return (causal && j == qt) || (j + 1) * kBK > S || reach >= W ||
+      const bool diagonal =     // at kBK = kBQ: j == qt (see Work::tile)
+          kBK == kBQ ? j == qt : (j + 1) * kBK - 1 > q0;
+      return (causal && diagonal) || (j + 1) * kBK > S || reach >= W ||
              (reach == W - 1 && j > j0);
     };
     auto k_ready = [&](int g) {
@@ -1164,7 +1310,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     };
     auto release_q = [&] {
       release(&count[2 * kStages], lane, [&] {
-        if (nxt.w < wk.tiles) load_q(nxt);
+        if (nxt.w < wk.tiles) load_q(nxt, 0);
       });
     };
 
@@ -1174,15 +1320,19 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) o[k] = 0.0f;
 
-    mbar_wait(bars.q_full(), rnd & 1);
-    uint32_t qf[D / 16][4];
-    load_q_fragments<D>(qf, qaddr, (threadIdx.x / 32) % 4, lane);
-    release_q();
+    QFrags<D> qf;
+    if constexpr (L::kQShared) {
+      mbar_wait(bars.q_full(c), rnd & 1);
+    } else {
+      mbar_wait(bars.q_full(0), rnd & 1);
+      load_q_fragments<D>(qf, qaddr, warp, lane);
+      release_q();
+    }
     k_ready(g0);
     reg_fence(sc);
     turn_wait(c);
     wgmma_fence();
-    qk_product<D>(sc, qf, k_addr(g0 % kStages));
+    qk_product<D>(sc, qf, qaddr, k_addr(g0 % kStages));
     wgmma_commit();
     turn_pass(c);
     wgmma_wait<0>();
@@ -1201,9 +1351,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       reg_fence(o);
       turn_wait(c);
       wgmma_fence();
-      qk_product<D>(sc, qf, k_addr(g % kStages));
+      qk_product<D>(sc, qf, qaddr, k_addr(g % kStages));
       wgmma_commit();
-      pv_product<D>(o, pa, k_addr((g - 1) % kStages) + L::kTile);
+      pv_product<D>(o, pa, k_addr((g - 1) % kStages) + L::kKVTile);
       wgmma_commit();
       turn_pass(c);
       wgmma_wait<1>();                  // QK^T of key tile g is done
@@ -1224,7 +1374,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       reg_fence(o);
       release_v(g - 1);
       if (redo) {
-        qk_warp<D>(sc, qf, k_addr(g % kStages), lane);
+        qk_warp<D>(sc, qf, qaddr, k_addr(g % kStages), warp, lane);
         softmax_tile(sc, m, l, corr, scale2, false, j * kBK, row, t, S,
                      causal, W);
       }
@@ -1243,7 +1393,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     reg_fence(o);
     turn_wait(c);
     wgmma_fence();
-    pv_product<D>(o, pa, k_addr(gl % kStages) + L::kTile);
+    pv_product<D>(o, pa, k_addr(gl % kStages) + L::kKVTile);
     wgmma_commit();
     turn_pass(c);
     wgmma_wait<0>();
@@ -1254,22 +1404,27 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     // row group; a multiply by the float32 reciprocal, one rounding far
     // below bf16's), round to bf16 into the staging tile (128B-swizzled, as
     // the store's tensor map reads it) and store it with TMA, which skips
-    // rows past S.  The previous work tile's store must have read the
-    // staging tile first.
+    // rows past S.  D <= 128: the previous work tile's store must have read
+    // the staging tile first.  D = 256: the staging tile is this
+    // warpgroup's Q panels, which its products no longer read (each warp
+    // writes the rows its own redo read); once the store has read them the
+    // leader loads the next work tile's Q there.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = 1.0f / fmaxf(l[r], 1e-30f);
     }
-    if (leader) store_wait<true>();
-    group_sync(c);
+    if constexpr (!L::kQShared) {
+      if (leader) store_wait<true>();
+      group_sync(c);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rr = rl + 8 * r;
 #pragma unroll
       for (int n = 0; n < kDT; ++n) {
-        const uint32_t addr = oaddr + (n / 8) * 64 * 128 + rr * 128 +
+        const uint32_t addr = oaddr + (n / 8) * kHalfPanel + rr * 128 +
                               (((n % 8) ^ (rr % 8)) * 16) + 4 * t;
         st_shared(addr, pack_bf16(o[4 * n + 2 * r] * l[r],
                                   o[4 * n + 2 * r + 1] * l[r]));
@@ -1280,9 +1435,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     if (leader) {
 #pragma unroll
       for (int p = 0; p < L::kPanels; ++p)
-        tma_store(&to, oaddr + p * 64 * 128, 64 * p, q0 + 64 * c, cur.h,
+        tma_store(&to, oaddr + p * kHalfPanel, 64 * p, q0 + 64 * c, cur.h,
                   cur.b);
       store_commit();
+      if constexpr (L::kQShared) {
+        store_wait<true>();
+        if (nxt.w < wk.tiles) load_q(nxt, c);
+      }
     }
     g0 += n;
     cur = nxt;
@@ -1331,8 +1490,8 @@ EncodeTiled encode_tiled() {
 
 // The TMA map of one bf16 (B, S, heads, D) tensor: 4-D over (D, S, heads,
 // B) with the tensor's own byte strides (so head slices of a fused QKV
-// tensor work); a box is 64 columns x 128 rows of one head, 128B-swizzled,
-// and rows past S read as zero.
+// tensor work); a box is 64 columns x `box_rows` rows of one head,
+// 128B-swizzled, and rows past S read as zero.
 int encode_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
                int B, const Strides& st, int box_rows) {
   const EncodeTiled fn = encode_tiled();
@@ -1357,18 +1516,21 @@ int encode_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 
 template <int D>
 int run_hopper(const Args& a) {
-  // q, k and v are read in boxes of 128 rows; out is written in boxes of
-  // 64 rows (one warpgroup's), contiguous (B, S, H, D).
+  // q is read in boxes of 128 rows (64 at D = 256, one warpgroup's), k and
+  // v in boxes of kBK rows; out is written in boxes of 64 rows (one
+  // warpgroup's), contiguous (B, S, H, D).
+  using L = hopper::Smem<D>;
   const Strides so{static_cast<long long>(a.S) * a.H * D,
                    static_cast<long long>(a.H) * D, D};
   CUtensorMap tq, tk, tv, to;
-  int err = encode_map(&tq, a.q, D, a.S, a.H, a.B, a.sq, hopper::kBQ);
-  if (err == 0) err = encode_map(&tk, a.k, D, a.S, a.KV, a.B, a.sk, hopper::kBK);
-  if (err == 0) err = encode_map(&tv, a.v, D, a.S, a.KV, a.B, a.sv, hopper::kBK);
+  int err = encode_map(&tq, a.q, D, a.S, a.H, a.B, a.sq,
+                       L::kQShared ? 64 : hopper::kBQ);
+  if (err == 0) err = encode_map(&tk, a.k, D, a.S, a.KV, a.B, a.sk, L::kBK);
+  if (err == 0) err = encode_map(&tv, a.v, D, a.S, a.KV, a.B, a.sv, L::kBK);
   if (err == 0) err = encode_map(&to, a.out, D, a.S, a.H, a.B, so, 64);
   if (err != 0) return err;
   auto kern = hopper::flash_attention_kernel<D>;
-  constexpr size_t smem = hopper::Smem<D>::kBytes;
+  constexpr size_t smem = L::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   int dev = 0, sms = 0;
@@ -1380,18 +1542,20 @@ int run_hopper(const Args& a) {
     return e;
   }
   // A persistent grid: one block an SM (shared memory admits no more), each
-  // walking the work tiles.
+  // walking the work tiles; ordered by head (D = 256) a block takes them in
+  // pairs, so no more blocks than pairs.
   const long long tiles =
       static_cast<long long>((a.S + hopper::kBQ - 1) / hopper::kBQ) * a.B * a.H;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  const long long units = D == 256 ? (tiles + 1) / 2 : tiles;
+  const unsigned blocks = static_cast<unsigned>(units < sms ? units : sms);
   kern<<<blocks, hopper::kThreads, smem, a.stream>>>(
       tq, tk, tv, to, a.B, a.S, a.H, a.KV, a.scale, a.causal, a.W);
   return cudaGetLastError();
 }
 
-// The body by dtype x D: bf16 at D = 64 or 128 runs the Hopper body; every
-// other case the first body.
+// The body by dtype x D: bf16 at D = 64, 128 or 256 runs the Hopper body;
+// every other case the first body.
 template <typename T>
 int pick_d(const Args& a, int d) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -1400,7 +1564,7 @@ int pick_d(const Args& a, int d) {
       case 32: return simt::run<T, 32>(a);
       case 64: return run_hopper<64>(a);
       case 128: return run_hopper<128>(a);
-      case 256: return simt::run<T, 256>(a);
+      case 256: return run_hopper<256>(a);
     }
   } else {
     switch (d) {
@@ -1425,7 +1589,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
       case 32: return static_cast<int>(simt::Layout<__nv_bfloat16, 32>::kBytes);
       case 64: return static_cast<int>(hopper::Smem<64>::kBytes);
       case 128: return static_cast<int>(hopper::Smem<128>::kBytes);
-      case 256: return static_cast<int>(simt::Layout<__nv_bfloat16, 256>::kBytes);
+      case 256: return static_cast<int>(hopper::Smem<256>::kBytes);
     }
   } else {
     switch (D) {
@@ -1447,7 +1611,6 @@ extern "C" int flash_attention_simt_blocks_per_sm(int dtype, int D) {
     switch (D) {
       case 16: return simt::blocks_per_sm<__nv_bfloat16, 16>();
       case 32: return simt::blocks_per_sm<__nv_bfloat16, 32>();
-      case 256: return simt::blocks_per_sm<__nv_bfloat16, 256>();
     }
   } else {
     switch (D) {
@@ -1465,8 +1628,8 @@ extern "C" int flash_attention_simt_blocks_per_sm(int dtype, int D) {
 // 32, 64, 128 or 256 and H a multiple of KV; `window` >= 1 masks keys j with
 // i - j >= window, 0 means no window.  Strides are in elements, for the B,
 // S and head axes of q, k and v in that order (the D axis is contiguous,
-// each row 16-byte aligned; in bf16 at D = 64 or 128 the byte strides are
-// TMA's: multiples of 16 below 2^40).  Launches on `stream` and returns
+// each row 16-byte aligned; in bf16 at D = 64, 128 or 256 the byte strides
+// are TMA's: multiples of 16 below 2^40).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or kEncodeFailed + a CUresult if a
 // tensor map cannot be built; it neither allocates nor synchronises.
 extern "C" int flash_attention_launch(const void* q, const void* k,

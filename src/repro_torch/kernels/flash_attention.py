@@ -9,8 +9,9 @@ launch, in plain Python that the CPU tests reach:
     paths;
   * `body` names the kernel body that serves a dtype and head dim, as the
     source's `pick_d` chooses it: "wgmma" (TMA, `wgmma`, a persistent
-    grid; bf16 at D = 64 or 128) or "simt" (`mma.sync` in bf16, FFMA in
-    float32; every other case, gemma-7b's bf16 D = 256 included);
+    grid; bf16 at D = 64, 128 or 256, gemma-7b's D = 256 with Q read from
+    shared memory) or "simt" (`mma.sync` in bf16, FFMA in float32; every
+    other case); `key_tile` the keys a body stages per tile;
   * `grid` gives the launch's blocks and work tiles (the order in which
     the Hopper body's persistent blocks walk the work tiles is the kernel's
     own, `hopper::Work`);
@@ -72,7 +73,19 @@ def check_window(window: int | None) -> None:
 
 def body(dtype: torch.dtype, d: int) -> str:
     """The body that serves ``dtype`` at head dim ``d``."""
-    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    return ("wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256)
+            else "simt")
+
+
+def key_tile(dtype: torch.dtype, d: int) -> int:
+    """Keys a staged K / V tile of the body that serves ``dtype`` at head
+    dim ``d`` (the lazy softmax's unit of work in the Hopper body): 64 in
+    the first body; 128 in the Hopper body, 80 at D = 256 (`hopper::Smem`:
+    two stages of 128-key K and V tiles beside Q would not fit in shared
+    memory there; 80 keys fill it)."""
+    if body(dtype, d) == "simt":
+        return 64
+    return 80 if d == 256 else 128
 
 
 def grid(shape, dtype: torch.dtype, sms: int | None = None
@@ -81,12 +94,15 @@ def grid(shape, dtype: torch.dtype, sms: int | None = None
     of ``shape`` (B, S, H, D).  The first body runs one block per work
     tile; the Hopper body a persistent grid of min(work tiles, ``sms``)
     blocks, ``sms`` being the card's SM count (one block per work tile when
-    it is not given)."""
+    it is not given); at D = 256, where a block takes its work tiles in
+    pairs (`hopper::Work` by head), min(pairs, ``sms``)."""
     b, s, h, d = shape
     rows, threads = BLOCK[body(dtype, d)]
     tiles = -(-s // rows) * b * h
-    persistent = body(dtype, d) == "wgmma" and sms is not None
-    return (min(tiles, sms) if persistent else tiles), threads, tiles, rows
+    if body(dtype, d) != "wgmma" or sms is None:
+        return tiles, threads, tiles, rows
+    units = -(-tiles // 2) if d == 256 else tiles
+    return min(units, sms), threads, tiles, rows
 
 
 def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:

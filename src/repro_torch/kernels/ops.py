@@ -322,8 +322,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (float32 or bfloat16).  Query head h reads kv head h // (H // KV).
     Returns (B, S, H, D) in q's dtype.  On the card each tensor's last axis
     must be contiguous and its rows start on 16 bytes; in bfloat16 at
-    D = 64 or 128 (read by TMA) the byte strides of the B, S and head axes
-    must also be nonzero, so a broadcast (stride-0) k or v is refused.
+    D = 64, 128 or 256 (read by TMA) the byte strides of the B, S and head
+    axes must also be nonzero, so a broadcast (stride-0) k or v is refused.
 
     ``device`` (default: the CUDA card) is where the call runs; every input
     must already lie there.  On the card it raises where a gradient would

@@ -410,8 +410,10 @@ K2_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # D^-0.5 never make it), and a negative scale (no lazy tile at all); see
 # chip_smoke.k2_inputs.
 K2_REDO_CASES = [(shape, kind) for kind in ("growth", "scale1")
-                 for shape in ((1, 700, 16, 2, 128), (2, 520, 8, 2, 64))] + [
-    ((1, 300, 16, 2, 128), "negative"), ((2, 300, 8, 2, 64), "negative")]
+                 for shape in ((1, 700, 16, 2, 128), (2, 520, 8, 2, 64),
+                               (1, 700, 8, 2, 256))] + [
+    ((1, 300, 16, 2, 128), "negative"), ((2, 300, 8, 2, 64), "negative"),
+    ((1, 300, 8, 2, 256), "negative")]
 
 
 def _k2_close(got, want, dtype):
@@ -525,6 +527,25 @@ def test_k2_cuda_refuses_strides_tma_cannot_take(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k2_cuda_refuses_a_broadcast_kv_at_head_dim_256(cuda_device):
+    """The D = 256 Hopper body reads k and v by TMA too: a stride-0 kv head
+    is refused before the launch; float32 takes it through the first
+    body."""
+    q, k, v = _k2_inputs(cuda_device, (1, 64, 4, 1, 256), torch.bfloat16)
+    kb, vb = (t.expand(1, 64, 2, 256) for t in (k, v))
+    with pytest.raises(ValueError, match="TMA cannot take"):
+        ops.flash_attention(q, kb, vb.contiguous(), scale=0.0625)
+    with pytest.raises(ValueError, match="TMA cannot take"):
+        ops.flash_attention(q, kb.contiguous(), vb, scale=0.0625)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    got = ops.flash_attention(q32, k32.expand(1, 64, 2, 256),
+                              v32.expand(1, 64, 2, 256), scale=0.0625)
+    want = ref.flash_attention_ref(q32, k32, v32, scale=0.0625)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=K2_TOL["float32"], rtol=0)
+
+
+@pytest.mark.cuda
 def test_k2_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _k2_inputs(cuda_device, (1, 16, 4, 2, 32))
     with pytest.raises(ValueError, match="head dim 96"):
@@ -549,8 +570,8 @@ def test_k2_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     assert ops.flash_attention(q, k, v, scale=1.0).shape == q.shape
 
 
-# Head dim 256 (gemma-7b's; the first body in both dtypes): a ragged S,
-# grouped and multi-head.
+# Head dim 256 (gemma-7b's; the Hopper body's 80-key tiles in bf16, the
+# first body in float32): a ragged S, grouped and multi-head.
 K2_D256_SHAPES = [(2, 200, 4, 2, 256), (1, 333, 8, 8, 256), (1, 64, 2, 1, 256)]
 
 
@@ -568,12 +589,13 @@ def test_k2_cuda_head_dim_256_matches_plain(cuda_device, shape, dtype,
     got = ops.flash_attention(q, k, v, scale=0.0625, causal=causal)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == before + 1
-    assert flash_attention.body(q.dtype, 256) == "simt"
+    assert flash_attention.body(q.dtype, 256) == (
+        "wgmma" if dtype == "bfloat16" else "simt")
     _k2_close(got, want, dtype)
 
 
-# Windows at D = 64 and 128 (the Hopper body in bf16) and 256 (the first
-# body): one key, below one tile, not a multiple of 128, 512, and S or more.
+# Windows at D = 64, 128 and 256 (the Hopper body in bf16): one key, below
+# one tile, not a multiple of 128, 512, and S or more.
 K2_WINDOW_CASES = [(d, w) for d in (64, 128, 256)
                    for w in (1, 40, 300, 512, 700, 5000)]
 

@@ -249,7 +249,7 @@ def test_k2_plain_at_head_dim_256_matches_pallas(shape, dtype, causal):
     got = ops.flash_attention(q, k, v, scale=scale, causal=causal,
                               device="cpu")
     assert got.dtype == tdt and tuple(got.shape) == (b, s, h, d)
-    assert fa.body(tdt, d) == "simt"
+    assert fa.body(tdt, d) == ("wgmma" if tdt == torch.bfloat16 else "simt")
     for want in (want_pallas, want_ref):
         np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=0)
     assert torch.equal(got, ref.flash_attention_ref(q, k, v, scale=scale,

@@ -113,12 +113,13 @@ def test_k2_entry_point_device_rule_and_shapes(monkeypatch):
 # the body by dtype x D, the grid, and the TMA tensor maps.
 # ---------------------------------------------------------------------------
 SERVE = (8, 2048, 16, 128)   # qwen2.5-3b's prefill: B, S, H, D
+GEMMA = (8, 2048, 16, 256)   # gemma-7b's prefill
 
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k2_body_by_dtype_and_head_dim(dtype, d):
-    want = "wgmma" if dtype == "bfloat16" and d in (64, 128) else "simt"
+    want = "wgmma" if dtype == "bfloat16" and d in (64, 128, 256) else "simt"
     assert fa.body(getattr(torch, dtype), d) == want
 
 
@@ -127,6 +128,11 @@ def test_k2_grid_is_persistent_for_the_hopper_body():
     assert fa.grid(SERVE, torch.bfloat16, sms=132) == (132, 256, 2048, 128)
     assert fa.grid(SERVE, torch.bfloat16) == (2048, 256, 2048, 128)
     assert fa.grid((1, 200, 4, 64), torch.bfloat16, sms=132) == (8, 256, 8, 128)
+    # gemma-7b's prefill (bf16 D = 256): the same work tiles and grid; its
+    # blocks take work tiles in pairs, so a small launch has half as many.
+    assert fa.grid(GEMMA, torch.bfloat16, sms=132) == (132, 256, 2048, 128)
+    assert fa.grid((1, 333, 4, 256), torch.bfloat16, sms=132) == (6, 256, 12,
+                                                                   128)
     # The first body: a block of 128 threads per 64-row work tile.
     assert fa.grid(SERVE, torch.float32, sms=132) == (4096, 128, 4096, 64)
     assert fa.grid((2, 96, 6, 32), torch.bfloat16, sms=132) == (24, 128, 24, 64)
@@ -148,6 +154,36 @@ def test_k2_tma_map_of_contiguous_and_fused_qkv_tensors():
     one = torch.empty((1, 96, 1, 64), dtype=torch.bfloat16)[:, :, :1]
     assert fa.kernel_strides(one) == (64, 64, 64)
     assert fa.tma_map(one) == ((64, 96, 1, 1), (128, 128, 128))
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_key_tile_by_body(dtype, d):
+    """The first body stages 64 keys a tile; the Hopper body 128, and 80 at
+    D = 256, where two stages of 128-key K and V tiles beside Q would not
+    fit in shared memory."""
+    want = (64 if dtype == "float32" or d in (16, 32)
+            else 80 if d == 256 else 128)
+    assert fa.key_tile(getattr(torch, dtype), d) == want
+
+
+def test_k2_tma_map_at_head_dim_256():
+    """gemma-7b's D = 256 is read by TMA too: four 64-column panels a row,
+    through the tensors' own strides; a stride-0 kv head is refused."""
+    b, s, h, kv, d = 2, 200, 16, 16, 256
+    q = torch.empty((b, s, h, d), dtype=torch.bfloat16)
+    assert fa.tma_map(q) == ((d, s, h, b), (h * d * 2, d * 2, s * h * d * 2))
+    qkv = torch.empty((b, s, h + 2 * kv, d), dtype=torch.bfloat16)
+    row = (h + 2 * kv) * d * 2
+    fused = (row, d * 2, s * row)
+    assert fa.tma_map(qkv[:, :, :h]) == ((d, s, h, b), fused)
+    assert fa.tma_map(qkv[:, :, h:h + kv]) == ((d, s, kv, b), fused)
+    assert fa.tma_map(qkv[:, :, h + kv:]) == ((d, s, kv, b), fused)
+    k = torch.empty((1, 64, 1, d), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA cannot take"):
+        fa.tma_map(k.expand(2, 64, 4, d))
+    with pytest.raises(ValueError, match="TMA cannot take"):
+        fa.tma_map(k.expand(1, 64, 4, d))
 
 
 class _Strided:
@@ -182,7 +218,7 @@ def test_k2_tma_map_refuses_strides_tma_cannot_take():
 # and chip_smoke also draw inputs that make it, and count the tiles it
 # redoes by replaying its rule on the logits.
 # ---------------------------------------------------------------------------
-REDO_SHAPES = [(1, 700, 16, 2, 128), (2, 520, 8, 2, 64)]
+REDO_SHAPES = [(1, 700, 16, 2, 128), (2, 520, 8, 2, 64), (1, 700, 8, 2, 256)]
 KINDS = ("randn", "growth", "scale1", "negative")
 
 
