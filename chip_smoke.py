@@ -1034,13 +1034,14 @@ def run_slice(sim, scenarios, base, sync):
 def _profiled(fn, ranges=(), keep=False):
     """(wall ms, CUDA kernel events) of one call of ``fn`` under
     torch.profiler, ending in a device sync.  Kernel events only: CPU-side
-    aten ops also report the device time of the kernels they launched.
-    With ``ranges`` (names of `record_function` ranges opened inside
+    aten ops also report the device time of the kernels they launched, and
+    each `record_function` range (``ranges``, the program's ``dfl:``
+    spans) has a device-side copy that spans its kernels; both are left
+    out.  With ``ranges`` (names of `record_function` ranges opened inside
     ``fn``) it also returns {name: device us of the kernels launched in
-    that range}, the ranges' own events left out of the kernel list; a
-    name ending in ``*`` sums every CPU event whose name starts with the
-    rest (none of which may nest in another).  With ``keep`` the profiler
-    comes last."""
+    that range}; a name ending in ``*`` sums every CPU event whose name
+    starts with the rest (none of which may nest in another).  With
+    ``keep`` the profiler comes last."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1051,15 +1052,21 @@ def _profiled(fn, ranges=(), keep=False):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    kernels = [ev for ev in averages
-               if ev.device_type.name == "CUDA"
-               and ev.self_device_time_total > 0 and ev.key not in ranges]
-    if not ranges:
-        return wall_ms, kernels
+
     def matches(key, name):
         return (key.startswith(name[:-1]) if name.endswith("*")
                 else key == name)
 
+    def annotation(ev):
+        return (getattr(ev, "is_user_annotation", False)
+                or ev.key.startswith("dfl:")
+                or any(matches(ev.key, name) for name in ranges))
+
+    kernels = [ev for ev in averages
+               if ev.device_type.name == "CUDA"
+               and ev.self_device_time_total > 0 and not annotation(ev)]
+    if not ranges:
+        return wall_ms, kernels
     spans = {name: sum(ev.device_time_total for ev in averages
                        if matches(ev.key, name)
                        and ev.device_type.name == "CPU")
@@ -1093,33 +1100,6 @@ def _ranged_parts(parts):
     finally:
         for mod, fn_name, orig in reversed(saved):
             setattr(mod, fn_name, orig)
-
-
-@contextlib.contextmanager
-def _ranged_round(prefix: str):
-    """Inside: each gradient that `torch.func.grad` binds (a simulator
-    binds its gradient when it is built) runs its calls in a
-    ``<prefix>:local_train`` range, and each `protocols.dispatch_round_seg`
-    call (the exchange, K1 in it) in ``<prefix>:exchange``."""
-    from torch.profiler import record_function
-
-    orig_grad = torch.func.grad
-
-    def ranged_grad(fn, *args, **kwargs):
-        inner = orig_grad(fn, *args, **kwargs)
-
-        def call(*a, **k):
-            with record_function(f"{prefix}:local_train"):
-                return inner(*a, **k)
-        return call
-
-    torch.func.grad = ranged_grad
-    try:
-        with _ranged_parts((("repro_torch.core.protocols",
-                             "dispatch_round_seg", f"{prefix}:exchange"),)):
-            yield
-    finally:
-        torch.func.grad = orig_grad
 
 
 def profile_round(sim, scenario):
@@ -2644,40 +2624,33 @@ def grid_phase(dev, sync, **inputs):
         seqs["grid12"]
 
 
-def profile_grid_round(runner, grid, **inputs):
+def profile_grid_round(runner, grid):
     """Phase 16, last: one batched round of a grid12 group (R&A normalized,
-    G = 4) under torch.profiler (``inputs`` as `grid_phase` takes them).
-    Local training's forward passes run in a named range around each
-    `torch.func.grad` call; their backward passes run on the autograd
+    G = 4) of ``runner``'s sim under torch.profiler.  Local training's
+    forward passes run in the program's ``dfl:local_train`` spans around
+    each gradient evaluation; their backward passes run on the autograd
     engine's device thread, outside it, and are read from its
-    ``evaluate_function`` events; the exchange is a range around
-    `protocols.dispatch_round_seg`, K1 its kernel's events."""
-    from repro_torch.fl import scenarios, simulator
-    from repro_torch.models import smallnets
+    ``evaluate_function`` events; the exchange is the ``dfl:exchange``
+    span around `protocols.dispatch_round_seg`, K1 its kernel's events."""
+    from repro_torch.fl import scenarios
 
-    sim = runner.sim
-    with _ranged_round("grid"):      # the sim below binds the ranged grad
-        data, _net, init, base = slice_inputs(**inputs)
-        psim = simulator.build_sim(
-            init, smallnets.apply_cnn, data, seg_len=base.seg_len,
-            local_epochs=base.local_epochs, n_rounds=base.n_rounds,
-            device=sim.device)
-        idx = runner._index_groups(grid)[0]
-        axes, args = scenarios._hoist_uniform(grid.take(idx).scenarios)
-        sb = psim.prepare_batch(args, axes)
-        state = psim.init_scan_batch(sb)
-        psim.advance_chunk_batch(state, sb)          # warm-up
-        backward = "autograd::engine::evaluate_function*"
-        wall_ms, events, spans = _profiled(
-            lambda: psim.advance_chunk_batch(state, sb),
-            ranges=("grid:local_train", "grid:exchange", backward))
+    psim = runner.sim
+    idx = runner._index_groups(grid)[0]
+    axes, args = scenarios._hoist_uniform(grid.take(idx).scenarios)
+    sb = psim.prepare_batch(args, axes)
+    state = psim.init_scan_batch(sb)
+    psim.advance_chunk_batch(state, sb)          # warm-up
+    backward = "autograd::engine::evaluate_function*"
+    wall_ms, events, spans = _profiled(
+        lambda: psim.advance_chunk_batch(state, sb),
+        ranges=("dfl:local_train", "dfl:exchange", backward))
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
     k1_us = sum(ev.self_device_time_total for ev in k1)
-    fwd_ms = spans["grid:local_train"] / 1e3
+    fwd_ms = spans["dfl:local_train"] / 1e3
     bwd_ms = spans[backward] / 1e3
     train_ms = fwd_ms + bwd_ms
-    exch_ms = spans["grid:exchange"] / 1e3
+    exch_ms = spans["dfl:exchange"] / 1e3
     if dev_ms <= 0 or train_ms <= 0:
         print(f"[grid-profile] one batched round: wall {wall_ms:.2f} ms, "
               f"device split not measured (device kernels {dev_ms:.3f} ms, "
@@ -3051,20 +3024,19 @@ def profile_task_round(label, build, scenario):
     """One R&A round of a task under torch.profiler: local training's
     gradient passes (forward in the range, backward on the autograd
     engine's thread), the exchange with K1 in it, and the rest (metrics,
-    updates); the ranges are `_ranged_round`'s."""
-    with _ranged_round("task"):
-        psim = build()
-        state = psim.init_scan(scenario)
-        psim.advance_chunk(state, scenario)          # warm-up
-        backward = "autograd::engine::evaluate_function*"
-        wall_ms, events, spans = _profiled(
-            lambda: psim.advance_chunk(state, scenario),
-            ranges=("task:local_train", "task:exchange", backward))
+    updates); the ranges are the program's own phase spans."""
+    psim = build()
+    state = psim.init_scan(scenario)
+    psim.advance_chunk(state, scenario)          # warm-up
+    backward = "autograd::engine::evaluate_function*"
+    wall_ms, events, spans = _profiled(
+        lambda: psim.advance_chunk(state, scenario),
+        ranges=("dfl:local_train", "dfl:exchange", backward))
     dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
     k1 = [ev for ev in events if re.search(r"ra_(reg|smem)_kernel", ev.key)]
     k1_ms = sum(ev.self_device_time_total for ev in k1) / 1e3
-    train_ms = (spans["task:local_train"] + spans[backward]) / 1e3
-    exch_ms = spans["task:exchange"] / 1e3
+    train_ms = (spans["dfl:local_train"] + spans[backward]) / 1e3
+    exch_ms = spans["dfl:exchange"] / 1e3
     if dev_ms <= 0 or train_ms <= 0:
         print(f"[paper-tasks] {label} profiled R&A round: wall "
               f"{wall_ms:.2f} ms, device split not measured (device kernels "

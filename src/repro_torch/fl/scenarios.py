@@ -50,6 +50,10 @@ vmap folding into the kernel through its vmap rule
 (`kernels.ops._ra_vmap_rule`).  No random draw happens inside the vmap:
 each scenario draws its round's uniforms from its own generator, seeded
 with its seed, as `run_sequential` does (`simulator.ScenarioBatch`).
+Under a profiler `run` names its host phases (`launch.tracker.span`):
+``dfl:prepare`` around admission and around each group's batching and
+program lookup, ``dfl:fetch`` around the rows' reassembly; the round's
+own phases are `simulator`'s.
 
 Multi-rank grids.  ``devices=`` / ``sharding=`` spread a grid over the
 ranks of a `launch.mesh` mesh, one process per rank, every rank calling
@@ -98,6 +102,7 @@ from ..data.synthetic import FederatedDataset
 from ..kernels import ops
 from ..launch import mesh as launch_mesh
 from ..launch import tracker as launch_tracker
+from ..launch.tracker import span
 from . import simulator
 
 # `GridRunner.run(devices=...)` default: inherit the runner's spec.
@@ -1056,10 +1061,11 @@ class GridRunner:
     def _groups(self, grid: ScenarioGrid, pad_to):
         """(row indices, padded sub-batch) per dispatch group."""
         for idx in self._index_groups(grid):
-            sub = grid.take(idx).scenarios
-            target = _bucket_target(len(idx), pad_to)
-            if target != len(idx):
-                sub = _pad_scenario_batch(sub, target)
+            with span("dfl:prepare"):
+                sub = grid.take(idx).scenarios
+                target = _bucket_target(len(idx), pad_to)
+                if target != len(idx):
+                    sub = _pad_scenario_batch(sub, target)
             yield idx, sub
 
     def run(self, grid: ScenarioGrid, *,
@@ -1087,30 +1093,35 @@ class GridRunner:
         there: then the mesh is broken and later runs on it raise
         `launch.mesh.MeshBroken`.
         """
-        mesh = self._mesh(devices, sharding)
-        if mesh is not None:
-            mesh.check()
-        for bits in getattr(grid, "packet_len_bits", ()):
-            simulator.check_packet_len(
-                bits, self._seg_len, bits_per_value=self.sim.bits_per_value
-            )
-        if validate:
-            self.validate(grid)
+        with span("dfl:prepare"):
+            mesh = self._mesh(devices, sharding)
+            if mesh is not None:
+                mesh.check()
+            for bits in getattr(grid, "packet_len_bits", ()):
+                simulator.check_packet_len(
+                    bits, self._seg_len,
+                    bits_per_value=self.sim.bits_per_value)
+            if validate:
+                self.validate(grid)
         if mesh is not None and mesh.coords is None:
             return None
         rows: list[dict | None] = [None] * len(grid)
         for idx, sub in self._groups(grid, pad_to):
-            self.tracker.observe("grid/batch_fill",
-                                 len(idx) / sub.link_eps.shape[0])
-            if mesh is None:
-                program, args = self._program_vmap(sub)
-            else:
-                program, args = self._program_sharded(sub, mesh)
+            with span("dfl:prepare"):
+                self.tracker.observe("grid/batch_fill",
+                                     len(idx) / sub.link_eps.shape[0])
+                if mesh is None:
+                    program, args = self._program_vmap(sub)
+                else:
+                    program, args = self._program_sharded(sub, mesh)
             metrics = program(args)
-            for j, i in enumerate(idx):   # filler rows j >= len(idx) dropped
-                rows[i] = {k: v[j] for k, v in metrics.items()}
-        stacked = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-        return _metrics_to_grid_result(stacked, grid.labels)
+            with span("dfl:fetch"):
+                for j, i in enumerate(idx):   # filler rows dropped
+                    rows[i] = {k: v[j] for k, v in metrics.items()}
+        with span("dfl:fetch"):
+            stacked = {k: torch.stack([r[k] for r in rows])
+                       for k in rows[0]}
+            return _metrics_to_grid_result(stacked, grid.labels)
 
     def warmup(self, grid: ScenarioGrid, *,
                devices: Any = _INHERIT,

@@ -66,6 +66,14 @@ aggregates it, and on the card each shard launches K1 on its window.
 Metrics come from the gathered full rows, the same on every shard.  Every
 rank of the group runs the same calls (SPMD).
 
+Under a profiler the round's phases are named ranges
+(`launch.tracker.span`): ``dfl:prepare`` (`prepare_batch`), ``dfl:init``,
+``dfl:draws`` (a round's uniforms), ``dfl:local_train`` (each gradient
+evaluation; the update is outside), ``dfl:exchange`` (the
+`protocols.dispatch_round_seg` call), ``dfl:eval`` (test accuracy and
+train loss) and ``dfl:fetch`` (the copy of the metrics to the host).
+`SAMPLE_PASSES` counts local training's sample passes, padding included.
+
 Entry points `build_sim` and `run` run on the CUDA card unless the caller
 passes ``device="cpu"``.  On CUDA, TF32 is off for matmuls and cuDNN
 convolutions (`repro_torch.resolve_device`): the reference computes in
@@ -102,12 +110,21 @@ from .. import resolve_device
 from ..core import (aggregation, compression, errors, protocols, routing,
                     selection, topology)
 from ..data.synthetic import FederatedDataset
+from ..kernels import count_launch
 from ..launch import mesh as launch_mesh
+from ..launch.tracker import span, spanned
 from ..models.smallnets import accuracy, ce_loss
 from ..optim import optimizers
 
 # Default mesh axis name of model-axis (segment) sharding.
 MODEL_AXIS = launch_mesh.MODEL_AXIS
+
+# Local training's sample passes, counted on the host by the round loops
+# (`kernels.count_launch`'s lock): ``computed``, the rows every gradient
+# evaluation runs (each client's shard tiled to the largest,
+# `_pad_shards`), and ``own``, the clients' own samples among them.  The
+# rest is padding.
+SAMPLE_PASSES: dict[str, int] = {}
 
 
 class PacketLengthMismatchWarning(UserWarning):
@@ -590,6 +607,7 @@ def build_sim(
     xs_np, ys_np = _pad_shards(data)
     xs = torch.from_numpy(xs_np).to(dev)
     ys = torch.from_numpy(ys_np).to(dev)
+    own_samples = sum(len(x) for x in data.train_x)
     test_x = torch.from_numpy(np.asarray(data.test_x)).to(dev)
     test_y = torch.from_numpy(np.asarray(data.test_y)).to(dev)
 
@@ -644,7 +662,8 @@ def build_sim(
         opt = None if opt_factory is None else opt_factory(lr)
         state = None if opt is None else opt.init(rows)
         for i in range(local_epochs):
-            g = _batched_grad(rows, xs, ys)
+            with span("dfl:local_train"):
+                g = _batched_grad(rows, xs, ys)
             if opt is None:
                 new, new_state = rows - lr * g, None
             else:
@@ -681,6 +700,14 @@ def build_sim(
         stacked = {k: v.to(dev)[None].expand((n,) + tuple(v.shape))
                    for k, v in params0.items()}
         return protocols._to_segments(stacked, seg_len)[0].contiguous()
+
+    def _count_passes(scenarios: int) -> None:
+        """Count one round's local training of ``scenarios`` scenarios in
+        `SAMPLE_PASSES`."""
+        count_launch(SAMPLE_PASSES, "computed",
+                     scenarios * local_epochs * xs.shape[0] * xs.shape[1])
+        count_launch(SAMPLE_PASSES, "own",
+                     scenarios * local_epochs * own_samples)
 
     def _round_draws(scenario: Scenario, generator, u, u_codec):
         """The round's (u, u_codec), drawing the missing ones from
@@ -730,15 +757,17 @@ def build_sim(
                 generator=generator, n_real=s_total,
                 dtype_bits=bits_per_value)
             w_raw = local_window(trained)
-        new, _e, bias = protocols.dispatch_round_seg(
-            local_window(w_send), p, scenario.rho, scenario.link_eps,
-            scenario.protocol_id, scenario.mode_id, scenario.aggregator,
-            n_mixes=aayg_mixes, participation=part, tx_mask=tx_mask,
-            w_raw=w_raw, u=u, generator=generator, agg_impl=agg_impl,
-            track_bias=track_bias,
-            seg_total=None if model_shards == 1 else s_total,
-            seg_start=seg_start,
-        )
+        w_send = local_window(w_send)
+        with span("dfl:exchange"):
+            new, _e, bias = protocols.dispatch_round_seg(
+                w_send, p, scenario.rho, scenario.link_eps,
+                scenario.protocol_id, scenario.mode_id, scenario.aggregator,
+                n_mixes=aayg_mixes, participation=part, tx_mask=tx_mask,
+                w_raw=w_raw, u=u, generator=generator, agg_impl=agg_impl,
+                track_bias=track_bias,
+                seg_total=None if model_shards == 1 else s_total,
+                seg_start=seg_start,
+            )
         if scenario.codec_id is not None and part is not None:
             # dispatch restores sampled-out receivers to its input, the
             # encoded rows; a client that sat the round out keeps its
@@ -830,14 +859,19 @@ def build_sim(
         scenario = scenario.prepare().to(dev)
         stacked = {k: v.to(dev) for k, v in state["params"].items()}
         w_seg, spec, mp = protocols._to_segments(stacked, seg_len)
+        with span("dfl:draws"):
+            u, u_codec = _round_draws(scenario, generator, u, u_codec)
+        _count_passes(1)
         new, _trained, bias = _round_core(
             w_seg, scenario, _participation(scenario), u, u_codec, generator)
-        metrics = {**_metrics(new), "bias": bias}
+        with span("dfl:eval"):
+            metrics = {**_metrics(new), "bias": bias}
         return {"params": protocols._from_segments(new, spec, mp)}, metrics
 
     n_chunks = n_rounds // eval_every
 
     @torch.no_grad()
+    @spanned("dfl:init")
     def init_scan(scenario: Scenario) -> dict:
         """The segment-native state at round 0 (before training); a
         closed-loop scenario's state also carries its signals."""
@@ -865,21 +899,37 @@ def build_sim(
         biases, chosen = [], []
         for i in range(eval_every):
             sc_t = scenario.at_round(t + i)
+            with span("dfl:draws"):
+                u_i, uc_i = _round_draws(sc_t, state["gen"], us[i], ucs[i])
+            _count_passes(1)
             if closed:
                 w, sig, mask, bias = _advance_closed(
-                    w, sc_t, sig, us[i], ucs[i], state["gen"])
+                    w, sc_t, sig, u_i, uc_i, state["gen"])
                 chosen.append(mask)
             else:
                 w, _trained, bias = _round_core(
-                    full_rows(w), sc_t, _participation(sc_t), us[i], ucs[i],
+                    full_rows(w), sc_t, _participation(sc_t), u_i, uc_i,
                     state["gen"])
             biases.append(bias)
         new_state = {"w": w, "gen": state["gen"], "t": t + eval_every}
-        metrics = {**_metrics(full_rows(w)), "bias": torch.stack(biases)}
+        with span("dfl:eval"):
+            metrics = {**_metrics(full_rows(w)), "bias": torch.stack(biases)}
         if closed:
             new_state["sig"] = sig
             metrics["selected"] = torch.stack(chosen)
         return new_state, metrics
+
+    @spanned("dfl:fetch")
+    def _to_host(rows: list, dim: int, closed: bool) -> dict:
+        """The chunks' metrics ``rows`` joined along ``dim`` (the chunk
+        axis), as CPU tensors; ``selected`` too for a closed-loop run."""
+        out = {"acc": torch.stack([m["acc"] for m in rows], dim=dim).cpu(),
+               "loss": torch.stack([m["loss"] for m in rows], dim=dim).cpu(),
+               "bias": torch.cat([m["bias"] for m in rows], dim=dim).cpu()}
+        if closed:
+            out["selected"] = torch.cat([m["selected"] for m in rows],
+                                        dim=dim).cpu()
+        return out
 
     def run_scenario(scenario: Scenario) -> dict:
         """Run ``n_rounds`` rounds; metrics as CPU tensors: acc / loss
@@ -891,16 +941,12 @@ def build_sim(
         for _ in range(n_chunks):
             state, m = advance_chunk(state, scenario)
             rows.append(m)
-        out = {"acc": torch.stack([m["acc"] for m in rows]).cpu(),
-               "loss": torch.stack([m["loss"] for m in rows]).cpu(),
-               "bias": torch.cat([m["bias"] for m in rows]).cpu()}
-        if scenario.policy_id is not None:
-            out["selected"] = torch.cat([m["selected"] for m in rows]).cpu()
-        return out
+        return _to_host(rows, 0, scenario.policy_id is not None)
 
     # ------------------------------------------------------------------
     # The batched round: G scenarios under one torch.func.vmap.
     # ------------------------------------------------------------------
+    @spanned("dfl:prepare")
     def prepare_batch(batch: Scenario, axes: Scenario) -> ScenarioBatch:
         """Route, type and move a batch of G scenarios (see SimPrograms).
 
@@ -944,6 +990,7 @@ def build_sim(
         return ScenarioBatch(Scenario(**fields), tuple(mapped), seeds)
 
     @torch.no_grad()
+    @spanned("dfl:init")
     def init_scan_batch(sb: ScenarioBatch) -> dict:
         """`init_scan` for each scenario of the batch: (G, N, S, K) rows,
         one generator per scenario (each distinct seed's weights built
@@ -1007,18 +1054,22 @@ def build_sim(
         biases, chosen = [], []
         for i in range(eval_every):
             sc_t = sb.at_round(t + i)
-            draws = [_round_draws(sc_t, gens[j], us[j][i], ucs[j][i])
-                     for j in range(g)]
-            w, sig_new, mask, bias = _batch_round(
-                w, sc_t, sb.mapped, sig, _stack_draws([d[0] for d in draws]),
-                _stack_draws([d[1] for d in draws]))
+            with span("dfl:draws"):
+                draws = [_round_draws(sc_t, gens[j], us[j][i], ucs[j][i])
+                         for j in range(g)]
+                u_t = _stack_draws([d[0] for d in draws])
+                uc_t = _stack_draws([d[1] for d in draws])
+            _count_passes(g)
+            w, sig_new, mask, bias = _batch_round(w, sc_t, sb.mapped, sig,
+                                                  u_t, uc_t)
             if closed:
                 sig = sig_new
                 chosen.append(mask)
             biases.append(bias)
         new_state = {"w": w, "gens": gens, "t": t + eval_every}
-        metrics = {**torch.func.vmap(_metrics)(full_rows(w)),
-                   "bias": torch.stack(biases, dim=1)}
+        with span("dfl:eval"):
+            metrics = {**torch.func.vmap(_metrics)(full_rows(w)),
+                       "bias": torch.stack(biases, dim=1)}
         if closed:
             new_state["sig"] = sig
             metrics["selected"] = torch.stack(chosen, dim=1)
@@ -1033,13 +1084,7 @@ def build_sim(
         for _ in range(n_chunks):
             state, m = advance_chunk_batch(state, sb)
             rows.append(m)
-        out = {"acc": torch.stack([m["acc"] for m in rows], dim=1).cpu(),
-               "loss": torch.stack([m["loss"] for m in rows], dim=1).cpu(),
-               "bias": torch.cat([m["bias"] for m in rows], dim=1).cpu()}
-        if sb.scenario.policy_id is not None:
-            out["selected"] = torch.cat([m["selected"] for m in rows],
-                                        dim=1).cpu()
-        return out
+        return _to_host(rows, 1, sb.scenario.policy_id is not None)
 
     return SimPrograms(
         round_step=round_step,

@@ -6,9 +6,9 @@ import threading
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(counter: dict, key) -> None:
-    """Add one to ``counter[key]`` (0 when absent) under one lock: kernels
+def count_launch(counter: dict, key, n: int = 1) -> None:
+    """Add ``n`` to ``counter[key]`` (0 when absent) under one lock: kernels
     launch from several threads at once (a server's dispatcher, a router's
-    replicas), and ``+= 1`` on a dict entry is a read-modify-write."""
+    replicas), and ``+= n`` on a dict entry is a read-modify-write."""
     with _COUNT_LOCK:
-        counter[key] = counter.get(key, 0) + 1
+        counter[key] = counter.get(key, 0) + n

@@ -17,18 +17,53 @@ Public API
   NullTracker       no-op (the default for callers that don't measure)
   StatsTracker      thread-safe in-memory aggregation + snapshot()
   CompositeTracker  fan-out to several trackers
+  span              a named profiler range, opened only under a profiler
+  spanned           a decorator: the whole function in one `span`
 
 `Tracker.scoped(prefix)` returns a view that prepends ``prefix/`` to
 every metric name: one shared `StatsTracker` can hold several tenants'
 series side by side (``tenant/<name>/latency_s`` ...).
+
+Spans: `span(name)` opens a `torch.profiler.record_function` range while
+a profiler records and is a no-op otherwise (one flag check).  Kineto
+records the range on the clock of the device's kernels and copies, so a
+trace places every device operation, and every idle gap, in the span
+that launched or held it.  The round loop's phases open ``dfl:prepare``,
+``dfl:init``, ``dfl:draws``, ``dfl:local_train``, ``dfl:exchange``,
+``dfl:eval`` and ``dfl:fetch`` (`fl.simulator`, `fl.scenarios`).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 from collections import deque
 from typing import Iterable
 
 import numpy as np
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: a ``name`` range in the profiler's trace while
+    one records, else nothing."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """A decorator: each call of the function runs in `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 class Tracker:
