@@ -23,14 +23,25 @@ def grad_tracking(t: torch.Tensor) -> bool:
     """Whether ``t`` carries a `torch.func` gradient transform at some
     level (a vmap's batched wrapper is looked through).
 
-    This and `func_transform_active` are the package's only readers of
-    torch's private functorch API."""
+    This, `func_transform_active` and `vmap_size` are the package's only
+    readers of torch's private functorch API."""
     while True:
         if _functorch.is_gradtrackingtensor(t):
             return True
         if not _functorch.is_batchedtensor(t):
             return False
         t = _functorch.get_unwrapped(t)
+
+
+def vmap_size(t: torch.Tensor) -> int:
+    """How many tensors ``t`` stands for: the product of the batch sizes
+    of the `torch.func.vmap`s it is batched under (1 outside any)."""
+    size = 1
+    while _functorch.is_batchedtensor(t):
+        inner = _functorch.get_unwrapped(t)
+        size *= inner.shape[_functorch.maybe_get_bdim(t)]
+        t = inner
+    return size
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -2,8 +2,9 @@
 
 Port of the one-device round loop of the reference package's
 `fl/simulator.py` (paper Sec. V): every round each client trains I
-full-batch GD epochs on its local shard (batched over clients with
-`torch.func.vmap` of `torch.func.grad`), then models are exchanged and
+full-batch GD epochs on its local shard (an image model with convolutions
+one client at a time over its own samples, any other batched over clients
+with `torch.func.vmap` of `torch.func.grad`), then models are exchanged and
 locally aggregated under the selected protocol (R&A / AaYG / C-FL / ideal
 C-FL) and aggregation mechanism (adaptive normalization / substitution).
 
@@ -72,7 +73,8 @@ Under a profiler the round's phases are named ranges
 evaluation; the update is outside), ``dfl:exchange`` (the
 `protocols.dispatch_round_seg` call), ``dfl:eval`` (test accuracy and
 train loss) and ``dfl:fetch`` (the copy of the metrics to the host).
-`SAMPLE_PASSES` counts local training's sample passes, padding included.
+`SAMPLE_PASSES` counts local training's sample passes, padding included
+(none for an image model with convolutions).
 
 Entry points `build_sim` and `run` run on the CUDA card unless the caller
 passes ``device="cpu"``.  On CUDA, TF32 is off for matmuls and cuDNN
@@ -106,14 +108,15 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, vmap_size
 from ..core import (aggregation, compression, errors, protocols, routing,
                     selection, topology)
 from ..data.synthetic import FederatedDataset
 from ..kernels import count_launch
 from ..launch import mesh as launch_mesh
 from ..launch.tracker import span, spanned
-from ..models.smallnets import accuracy, ce_loss
+from ..models.smallnets import (accuracy, ce_loss, channels_last_kernels,
+                               weighted_ce_loss)
 from ..optim import optimizers
 
 # Default mesh axis name of model-axis (segment) sharding.
@@ -121,9 +124,10 @@ MODEL_AXIS = launch_mesh.MODEL_AXIS
 
 # Local training's sample passes, counted on the host by the round loops
 # (`kernels.count_launch`'s lock): ``computed``, the rows every gradient
-# evaluation runs (each client's shard tiled to the largest,
-# `_pad_shards`), and ``own``, the clients' own samples among them.  The
-# rest is padding.
+# evaluation runs (under vmap(grad) each client's shard tiled to the
+# largest, `_pad_shards`; an image model with convolutions its own
+# samples), and ``own``, the clients' own samples among them.  The rest is
+# padding.
 SAMPLE_PASSES: dict[str, int] = {}
 
 
@@ -436,8 +440,11 @@ class SimResult:
         return self.acc_per_client.mean(axis=1)
 
 
-def _pad_shards(data: FederatedDataset) -> tuple[np.ndarray, np.ndarray]:
-    """Pad client shards to a common size by tiling (full-batch GD)."""
+def _pad_shards(
+        data: FederatedDataset) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad client shards to a common size by tiling (full-batch GD):
+    (xs, ys, the clients' own shard sizes).  A tiled shard's first rows are
+    the client's own samples, in order."""
     max_sz = max(len(x) for x in data.train_x)
 
     def pad(x):
@@ -445,7 +452,8 @@ def _pad_shards(data: FederatedDataset) -> tuple[np.ndarray, np.ndarray]:
         return np.tile(x, (reps,) + (1,) * (x.ndim - 1))[:max_sz]
 
     return (np.stack([pad(x) for x in data.train_x]),
-            np.stack([pad(y) for y in data.train_y]))
+            np.stack([pad(y) for y in data.train_y]),
+            np.array([len(x) for x in data.train_x]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -554,7 +562,9 @@ def build_sim(
         reference's leaf order); every client starts from the same init.
       apply_fn: forward pass, ``(params, x) -> logits``.
       data: federated dataset; client shards are padded to a common size by
-        tiling (full-batch GD per the paper).
+        tiling (full-batch GD per the paper); an image model with
+        convolutions trains on each client's own samples, each weighed by
+        its count in the tiled shard.
       seg_len: K values per packet segment.
       local_epochs: I full-batch epochs per round (the bound that
         per-client ``Scenario.local_epochs`` clip to).
@@ -604,10 +614,10 @@ def build_sim(
 
     n = data.n_clients
     p = torch.tensor(data.weights(), dtype=torch.float32, device=dev)
-    xs_np, ys_np = _pad_shards(data)
+    xs_np, ys_np, own_np = _pad_shards(data)
     xs = torch.from_numpy(xs_np).to(dev)
     ys = torch.from_numpy(ys_np).to(dev)
-    own_samples = sum(len(x) for x in data.train_x)
+    own_samples = int(own_np.sum())
     test_x = torch.from_numpy(np.asarray(data.test_x)).to(dev)
     test_y = torch.from_numpy(np.asarray(data.test_y)).to(dev)
 
@@ -641,7 +651,51 @@ def build_sim(
     def _row_loss(row, x, y):
         return ce_loss(apply_fn(_leaf_views(row), x), y)
 
-    _batched_grad = torch.func.vmap(torch.func.grad(_row_loss))
+    # Local training's gradients, (N, S, K) from the (N, S, K) rows.  A
+    # model of images (NHWC samples) with convolutions (a rank-4 leaf, an
+    # HWIO kernel; a language model's rank-4 leaves are stacked experts)
+    # trains one client at a time over its own samples: under vmap over
+    # clients each convolution would be one grouped convolution over N
+    # channel groups (cuDNN's legacy float32 engines, wrapped in layout
+    # transposes), and every client would compute its shard tiled to the
+    # largest.  Sample i of a client's k appears M // k + (i < M % k) times
+    # among the M rows of its tiled shard, so weighing it by that count
+    # over M gives the tiled shard's mean (eq. 3).  Other models keep
+    # vmap(grad) over the tiled shards: a linear layer with per-client
+    # weights batches into one GEMM, and the LSTM's steps are
+    # launch-bound already.
+    if xs.ndim == 5 and any(len(sh) == 4 for sh in shapes):
+        def _client_loss(row, x, y, weights, grouped):
+            params = _leaf_views(row)
+            if grouped:
+                params = channels_last_kernels(params)
+            return weighted_ce_loss(apply_fn(params, x), y, weights)
+
+        _client_grad = torch.func.grad(_client_loss)
+        big = xs.shape[1]
+        shards = [(xs[m, :k], ys[m, :k],
+                   ((big // k + (torch.arange(k) < big % k)) / big).to(
+                       device=dev, dtype=torch.float32))
+                  for m, k in enumerate(own_np.tolist())]
+        rows_per_pass = own_samples
+
+        def _grads(rows: torch.Tensor) -> torch.Tensor:
+            # Under a batch's vmap over G > 1 scenarios each convolution is
+            # grouped over them, and cuDNN transposes far less with the
+            # kernels channels-last, as the NHWC input is; a dense one
+            # (G = 1) runs faster from the HWIO view (ResNet-56 sweeps on
+            # the H100: 1.55 against 1.21 scenario-rounds/s at G = 4, 0.485
+            # against 0.509 at G = 1).
+            grouped = vmap_size(rows) > 1
+            return torch.stack([_client_grad(rows[m], *shard, grouped)
+                                for m, shard in enumerate(shards)])
+    else:
+        _batched_grad = torch.func.vmap(torch.func.grad(_row_loss))
+        rows_per_pass = xs.shape[0] * xs.shape[1]
+
+        def _grads(rows: torch.Tensor) -> torch.Tensor:
+            return _batched_grad(rows, xs, ys)
+
     _batched_loss = torch.func.vmap(_row_loss)
 
     def _row_acc(row):
@@ -663,7 +717,7 @@ def build_sim(
         state = None if opt is None else opt.init(rows)
         for i in range(local_epochs):
             with span("dfl:local_train"):
-                g = _batched_grad(rows, xs, ys)
+                g = _grads(rows)
             if opt is None:
                 new, new_state = rows - lr * g, None
             else:
@@ -705,7 +759,7 @@ def build_sim(
         """Count one round's local training of ``scenarios`` scenarios in
         `SAMPLE_PASSES`."""
         count_launch(SAMPLE_PASSES, "computed",
-                     scenarios * local_epochs * xs.shape[0] * xs.shape[1])
+                     scenarios * local_epochs * rows_per_pass)
         count_launch(SAMPLE_PASSES, "own",
                      scenarios * local_epochs * own_samples)
 

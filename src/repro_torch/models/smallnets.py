@@ -88,6 +88,16 @@ def conv2d(x: torch.Tensor, w_hwio: torch.Tensor,
     return F.conv2d(F.pad(x, (wl, wr, ht, hb)), w, stride=stride)
 
 
+def channels_last_kernels(params: Params) -> Params:
+    """``params`` with each HWIO conv kernel (a rank-4 leaf) copied into O,
+    H, W, I order, so that `conv2d`'s OIHW view of it is channels-last, as
+    the NCHW view of an NHWC input is.  Under `torch.func.vmap` the
+    kernels stacked for a grouped convolution then stay one channels-last
+    view, and cuDNN transposes far less."""
+    return {k: v.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+            if v.ndim == 4 else v for k, v in params.items()}
+
+
 def apply_cnn(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, H, W, C) NHWC -> logits (B, n_classes)."""
     x = x.permute(0, 3, 1, 2)
@@ -227,10 +237,21 @@ def apply_mlp_clf(params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Shared losses
 # ---------------------------------------------------------------------------
-def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (logz - gold).mean()
+    return logz - gold
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return _nll(logits, labels).mean()
+
+
+def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Each sample's cross-entropy times its weight, summed: ``weights``
+    (B,) all 1 / B give `ce_loss`."""
+    return (_nll(logits, labels) * weights).sum()
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

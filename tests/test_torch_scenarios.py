@@ -597,10 +597,10 @@ def test_batched_knobs_match_run_sequential(optimizer):
 
 def test_batched_round_runs_one_convolution_and_one_k1_call_per_site():
     """A round of G scenarios runs the operators a round of one runs, no
-    more: under the vmap over scenarios and the vmap over clients, each of
-    the CNN's convolutions is one grouped convolution over G * N clients
-    (its weight G * N times as wide) and K1 one call of B = G, counted
-    below the vmap by a dispatch mode."""
+    more: under the vmap over scenarios, each of the CNN's convolutions (one
+    a client, the CNN training one client at a time) is one grouped
+    convolution over the G scenarios (its weight G times as wide) and K1
+    one call of B = G, counted below the vmap by a dispatch mode."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
