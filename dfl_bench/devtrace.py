@@ -2,7 +2,8 @@
 
 A `Trace` holds the device operations (kernels, copies, sets), the host
 time each was launched at (its CUDA runtime or driver call, joined by the
-correlation id), the benchmark's `record_function` ranges, and the host
+correlation id), the `record_function` ranges (the program's phase
+spans and the benchmark's ``dfl:call``), and the host
 operations of the thread that ran the traced call.  Times are in
 microseconds, as the export writes them.
 

@@ -8,12 +8,11 @@ calls repeat, each with new scenario seeds (`traffic.call_seeds`), until
 crosses it.  Set-up (imports, the card, K1's library, data, the runner and
 one warm-up call of the same grid) ends where the first timed call starts.
 
-With ``--trace 1`` the runner is built with the benchmark's
-`record_function` ranges around the bound gradient's calls
-(``dfl:local_train``) and around `core/protocols.dispatch_round_seg`
-(``dfl:exchange``), and the window's first call (``dfl:call``) runs under
-`torch.profiler`; its Chrome trace, written under ``dfl_bench/out/``, feeds
-the per-layer readers in ``dfl_bench/metrics/``.
+With ``--trace 1`` the window's first call (``dfl:call``) runs under
+`torch.profiler`, where the program opens its own phase spans
+(``dfl:local_train``, ``dfl:exchange``, ``dfl:eval``...); its Chrome
+trace, written under ``dfl_bench/out/``, feeds the per-layer readers in
+``dfl_bench/metrics/``.
 
 After the window (and after the peak memory is read and the runner freed),
 one call drawn from the seed is compared, one scenario of each protocol
@@ -53,7 +52,7 @@ OUT_DIR = BENCH_DIR / "out"
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "repro")
 END_TO_END = ("scenario_rounds_per_s", "mfu", "peak_mem_gib", "setup_s")
 # The numbers `compare` reads (a cell's limits choose among them).
-NUMBERS = ("loss_rel", "loss_rel_med", "acc_diff")
+NUMBERS = ("loss_rel", "loss_rel_med", "acc_diff", "acc_flips")
 GIB = 2 ** 30
 
 
@@ -181,10 +180,11 @@ def make_inputs(c: Cell, seed: int, device: torch.device) -> Inputs:
 def scaled(layout: list, scales: dict | None) -> list:
     """The layout with each leaf's init std times the configuration's
     ``init_scales`` entry for the last dotted part of its name (1 where
-    none is given)."""
+    none is given); a leaf's constant offset, its entry's fourth element
+    where it has one, is carried as it is."""
     scales = scales or {}
-    return [(name, shape, std * scales.get(name.rsplit(".", 1)[-1], 1.0))
-            for name, shape, std in layout]
+    return [(name, shape, std * scales.get(name.rsplit(".", 1)[-1], 1.0),
+             *rest) for name, shape, std, *rest in layout]
 
 
 def grid_rows(cell: dict, seeds: list[int]) -> list[tuple[int, int, int]]:
@@ -202,56 +202,11 @@ def scenarios_per_call(cell: dict) -> int:
 # ---------------------------------------------------------------------------
 # The program under test.
 # ---------------------------------------------------------------------------
-@contextlib.contextmanager
-def ranged_grad():
-    """While open, each gradient `torch.func.grad` binds runs its calls in
-    a ``dfl:local_train`` range (a simulator binds its gradient when it
-    is built)."""
-    from torch.profiler import record_function
-
-    orig = torch.func.grad
-
-    def grad(fn, *args, **kwargs):
-        inner = orig(fn, *args, **kwargs)
-
-        def call(*a, **k):
-            with record_function("dfl:local_train"):
-                return inner(*a, **k)
-        return call
-
-    torch.func.grad = grad
-    try:
-        yield
-    finally:
-        torch.func.grad = orig
-
-
-@contextlib.contextmanager
-def ranged_exchange():
-    """While open, each `core.protocols.dispatch_round_seg` call runs in a
-    ``dfl:exchange`` range."""
-    from torch.profiler import record_function
-
-    from repro_torch.core import protocols
-
-    orig = protocols.dispatch_round_seg
-
-    def dispatch(*args, **kwargs):
-        with record_function("dfl:exchange"):
-            return orig(*args, **kwargs)
-
-    protocols.dispatch_round_seg = dispatch
-    try:
-        yield
-    finally:
-        protocols.dispatch_round_seg = orig
-
-
 class Program:
     """`GridRunner` bound to the cell's model, data and statics."""
 
     def __init__(self, c: Cell, inputs: Inputs, device: torch.device, *,
-                 ranged: bool = False, rounds: int | None = None):
+                 rounds: int | None = None):
         from repro_torch.core import topology
         from repro_torch.data.synthetic import FederatedDataset
         from repro_torch.fl import scenarios, simulator
@@ -261,7 +216,7 @@ class Program:
         sim_model = registry.sim_model(model["sim_model"])
         like = sim_model.init_fn(torch.Generator().manual_seed(0),
                                  **model["init"])
-        mine = [(n, tuple(s)) for n, s, _ in inputs.layout]
+        mine = [(n, tuple(s)) for n, s, *_ in inputs.layout]
         theirs = [(n, tuple(t.shape)) for n, t in like.items()]
         if mine != theirs:
             raise RuntimeError(
@@ -285,10 +240,9 @@ class Program:
             aayg_mixes=cell["aayg_mixes"],
             eval_every=1)
         weights = inputs.weights
-        with ranged_grad() if ranged else contextlib.nullcontext():
-            self.runner = scenarios.GridRunner(
-                lambda gen: weights(gen.initial_seed()), sim_model.apply_fn,
-                data, cfg, device=device)
+        self.runner = scenarios.GridRunner(
+            lambda gen: weights(gen.initial_seed()), sim_model.apply_fn,
+            data, cfg, device=device)
 
     def grid(self, seeds: list[int]):
         return self._scenarios.ScenarioGrid.product(
@@ -381,7 +335,10 @@ def compare(got: dict[int, dict], want: dict[int, dict],
     margins' rounding).  ``loss_rel_med``: the median client's
     ``loss_rel`` of a row and round (one client whose trajectory is
     sensitive does not move it; a change to every client's arithmetic
-    does).  ``acc_diff``: the gap in right test predictions.  A cell's
+    does).  ``acc_diff``: the gap in right test predictions, widest over
+    the clients.  ``acc_flips``: those gaps summed over every row, round
+    and client (rounding flips a near-tied prediction now and then; a
+    lower precision flips some in most client-rounds).  A cell's
     ``limits`` name the numbers it holds its runs to."""
     out = dict.fromkeys(NUMBERS, 0.0)
     for r, ref in want.items():
@@ -397,6 +354,7 @@ def compare(got: dict[int, dict], want: dict[int, dict],
                           ("acc_diff", acc)):
             out[name] = max(out[name], float(np.nan_to_num(
                 gap, nan=np.inf).max()))
+        out["acc_flips"] += float(np.nan_to_num(acc, nan=np.inf).sum())
     return out
 
 
@@ -461,7 +419,7 @@ def run_cell(c: Cell, *, seed: int, seconds: float, trace: bool,
     marks = [("card", time.perf_counter())]
     inputs = make_inputs(c, seed, device)
     marks.append(("inputs", time.perf_counter()))
-    program = Program(c, inputs, device, ranged=trace)
+    program = Program(c, inputs, device)
     marks.append(("runner", time.perf_counter()))
     per_call = scenarios_per_call(cell)
     # The warm-up: one round of the same grid through a runner bound alike
@@ -510,7 +468,7 @@ def run_cell(c: Cell, *, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     per_round = flop_count.scenario_round_flops(
-        config["forward_flops_per_sample"], inputs.sizes,
+        flop_count.forward_flops(config), inputs.sizes,
         cell["local_epochs"], inputs.test_samples)
     scenario_rounds = len(results) * per_call * cell["rounds_per_call"]
     call, rows = sample(c, seed, len(results))
@@ -558,7 +516,7 @@ def _traced_call(program: Program, seeds, c: Cell, device: torch.device):
     before = _k1_shapes()
     _sync(device)
     with _profiler(device) as prof:
-        with ranged_exchange(), record_function("dfl:call"):
+        with record_function("dfl:call"):
             out = program.run(seeds)
         _sync(device)
     after = _k1_shapes()

@@ -1,10 +1,10 @@
 """exchange_ms: device time of the exchange a scenario-round (ms).
 
-The kernels launched inside the benchmark's ``dfl:exchange`` ranges, which
-wrap every `core/protocols.dispatch_round_seg` call: the mask draws'
-comparisons, eq. 6 through `core/aggregation.apply_mode` (K1), AaYG's
-mixes, C-FL's star and the bias diagnostic.  The round's uniforms are
-drawn before it, outside the range.  The time in which any of them ran
+The kernels launched inside the program's ``dfl:exchange`` spans, which
+wrap every `core/protocols.dispatch_round_seg` call (`fl/simulator`):
+the mask draws' comparisons, eq. 6 through `core/aggregation.apply_mode`
+(K1), AaYG's mixes, C-FL's star and the bias diagnostic.  The round's
+uniforms are drawn before it, outside the span.  The time in which any of them ran
 (kernels that overlap counted once) over the traced call, over its
 scenario-rounds.
 """

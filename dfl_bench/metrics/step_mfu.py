@@ -1,10 +1,11 @@
 """step_mfu: the traced call's model FLOPs over its window, as a share of
 the card's peak in the configuration's precision (%).
 
-The FLOPs are the benchmark's own count from shapes (`flops.call_flops`:
-local training's forward and backward, and each round's evaluation
-forwards, over the clients' own samples and the test set).  It bounds
-every kernel's roofline share from above on the whole call.
+The FLOPs are the benchmark's own count from shapes
+(`flops.scenario_round_flops` of `flops.forward_flops`: local training's
+forward and backward, and each round's evaluation forwards, over the
+clients' own samples and the test set; a routed term's expected work).
+It bounds every kernel's roofline share from above on the whole call.
 """
 
 

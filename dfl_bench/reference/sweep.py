@@ -88,7 +88,14 @@ def run_scenario(model, weights: dict, shards: Shards, link_eps: torch.Tensor,
     for _ in range(rounds):
         u = (None if shape is None
              else torch.rand(shape, generator=gen, device=dev))
-        trained = []
+        # Each trained row goes straight into one buffer (its padding
+        # zero), and the round's start rows are freed before the exchange:
+        # the sweep holds at most three copies of the clients' rows at once
+        # (the start rows, the buffer and one row in training; then the
+        # buffer and the exchange's result, beside what `exchange` makes
+        # for itself: one more copy for AaYG's mixes, two for C-FL's
+        # star).
+        trained = torch.zeros((n, segs * seg_len), dtype=w.dtype, device=dev)
         for c in range(n):
             row = w[c].reshape(-1)[:m]
             for _ in range(epochs):
@@ -97,11 +104,11 @@ def run_scenario(model, weights: dict, shards: Shards, link_eps: torch.Tensor,
                                              shards.xs[c]), shards.ys[c])
                 (grad,) = torch.autograd.grad(loss, row)
                 row = row.detach() - lr * grad
-            trained.append(torch.nn.functional.pad(row,
-                                                   (0, segs * seg_len - m)))
-        w = exchange.exchange(torch.stack(trained).reshape(n, segs, seg_len),
-                              shards.p, rho, eps, protocol, mode, aggregator,
-                              u)
+            trained[c, :m] = row
+        del row, w
+        w = exchange.exchange(trained.reshape(n, segs, seg_len), shards.p,
+                              rho, eps, protocol, mode, aggregator, u)
+        del trained
         acc, loss = [], []
         with torch.no_grad():
             for c in range(n):

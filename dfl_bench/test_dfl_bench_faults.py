@@ -20,13 +20,13 @@ def _run(kind):
                             device=torch.device("cpu"), t_start=0.0)
 
 
-@pytest.mark.parametrize("kind", ["char", "image"])
+@pytest.mark.parametrize("kind", ["char", "image", "tokens"])
 def test_sound_run_is_correct(kind):
     run = _run(kind)
     assert run.correct, run.checks
 
 
-@pytest.mark.parametrize("kind", ["char", "image"])
+@pytest.mark.parametrize("kind", ["char", "image", "tokens"])
 @pytest.mark.parametrize("fault", faults.FAULTS)
 def test_fault_is_not_correct(kind, fault):
     with faults.planted(fault):

@@ -76,12 +76,18 @@ def test_reference_layout_is_the_ports(name):
     ports = registry.sim_model(model["sim_model"]).init_fn(
         torch.Generator().manual_seed(0), **model["init"])
     mine = reference.model(config["reference"]).layout(model["init"])
-    assert [(n, tuple(s)) for n, s, _ in mine] == [
+    assert [(n, tuple(s)) for n, s, *_ in mine] == [
         (n, tuple(t.shape)) for n, t in ports.items()]
-    # The scales are the port's init's: compare each leaf's spread.
-    for n, _, std in mine:
-        got = float(ports[n].std()) if ports[n].numel() > 1 else 0.0
+    # The scales and offsets are the port's init's: compare each leaf's
+    # spread, and its mean within five standard errors of the offset (a
+    # leaf of ones: mean 1, spread 0).
+    for n, _, std, *rest in mine:
+        leaf = ports[n].double()
+        got = float(leaf.std()) if leaf.numel() > 1 else 0.0
         assert (got == 0.0) if std == 0.0 else abs(got / std - 1) < 0.2, n
+        offset = rest[0] if rest else 0.0
+        assert abs(float(leaf.mean()) - offset) <= (
+            5 * std / leaf.numel() ** 0.5 + 1e-6), n
 
 
 def _imports(path: Path) -> set[str]:

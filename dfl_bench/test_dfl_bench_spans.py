@@ -132,13 +132,14 @@ def test_idle_shares_split_the_device_idle_share(trace):
 
 def test_readers_read_nothing_without_the_programs_spans():
     # A program that opens no phase span of its own: only the benchmark's
-    # ranges are in its trace.
-    ev = [e for e in events() if e["name"] not in (
-        "dfl:prepare", "dfl:init", "dfl:draws", "dfl:eval", "dfl:fetch")]
+    # ``dfl:call`` range is in its trace, and the benchmark opens no range
+    # of a phase in the program's place.
+    ev = [e for e in events() if e["name"] not in spans.PHASES]
     ctx = _ctx(Trace(ev, "dfl:call"))
-    assert _read("eval_ms", ctx) is None
-    assert _read("host_idle_pct", ctx) is None
-    assert _read("train_idle_pct", ctx) == pytest.approx(15.0)
+    for name in ("eval_ms", "host_idle_pct", "train_idle_pct",
+                 "local_train_ms", "layout_pct", "exchange_ms"):
+        assert _read(name, ctx) is None, name
+    assert _read("device_idle_pct", ctx) == pytest.approx(62.0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,6 +5,7 @@ import json
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +14,7 @@ from dfl_bench import harness, testing
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("kind", ["char", "image"])
+@pytest.mark.parametrize("kind", ["char", "image", "tokens"])
 def test_cpu_run_is_correct_and_refuses_device_numbers(kind):
     c = testing.tiny_cell(kind)
     run = harness.run_cell(c, seed=2 ** 33 + 1, seconds=0.3, trace=False,
@@ -42,7 +43,7 @@ def test_result_line_keys(monkeypatch):
     c = harness.load_cell("charrnn.grid12")
     run = harness.Run(c, torch.device("cuda", 0), 12.5, 10.25, 4, 144,
                       1.5e14, 25 * 2 ** 30, {"loss_rel": 1e-7,
-                                             "acc_diff": 0.0},
+                                             "acc_flips": 0.0},
                       0, (False, False))
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *_: "NVIDIA H100 80GB HBM3")
@@ -63,7 +64,7 @@ def test_result_line_keys(monkeypatch):
     # TF32 on, or a number past its limit, is not correct.
     assert not harness.Run(**{**run.__dict__, "tf32": (True, False)}).correct
     assert not harness.Run(**{**run.__dict__, "checks": {
-        "loss_rel": 1.0, "acc_diff": 0.0}}).correct
+        "loss_rel": 1.0, "acc_flips": 0.0}}).correct
 
 
 def test_cli_without_a_card_prints_no_result():
@@ -74,3 +75,18 @@ def test_cli_without_a_card_prints_no_result():
          "resnet56.ra", "--seed", "1", "--seconds", "1", "--trace", "0"],
         capture_output=True, text=True, cwd=harness.ROOT, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_compare_counts_flips_over_rows_rounds_and_clients():
+    # Two rows of two rounds by three clients over 100 test tokens: one
+    # prediction flipped in row 0, and three clients of row 1 off by 1, 2
+    # and 1 in its second round.
+    want = {r: {"loss": np.full((2, 3), 4.5, np.float32),
+                "acc": np.full((2, 3), 0.25, np.float32)} for r in (0, 1)}
+    got = {r: {k: v.copy() for k, v in d.items()} for r, d in want.items()}
+    got[0]["acc"][0, 1] += 0.01
+    got[1]["acc"][1] += np.float32([0.01, -0.02, 0.01])
+    numbers = harness.compare(got, want, 100)
+    assert numbers["acc_diff"] == 2.0 and numbers["acc_flips"] == 5.0
+    assert numbers["loss_rel"] == 0.0
+    assert harness.compare(want, want, 100)["acc_flips"] == 0.0

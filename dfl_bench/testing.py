@@ -15,15 +15,18 @@ PROTOCOLS = [["ra", "ra_normalized"], ["aayg", "ra_normalized"],
 
 
 def tiny_cell(kind: str = "char", **cell_overrides) -> harness.Cell:
-    """A 6-client, 12-scenario cell of a small CharRNN or ResNet."""
-    if kind == "char":
-        config = {"name": "tiny-char",
+    """A 6-client, 12-scenario cell of a small CharRNN (on ``char`` or
+    ``tokens`` data) or ResNet (``image``)."""
+    if kind in ("char", "tokens"):
+        data = ({"kind": "char", "vocab": 12, "seq_len": 6, "iid": False,
+                 "gamma_shape": 0.3, "test_sequences": 8}
+                if kind == "char" else
+                {"kind": "tokens", "vocab": 12, "seq_len": 6, "fanout": 4,
+                 "zipf": 1.0, "gamma_shape": 0.3, "test_sequences": 8})
+        config = {"name": f"tiny-{kind}",
                   "model": {"sim_model": "charrnn",
                             "init": {"vocab": 12, "embed": 4, "hidden": 8}},
-                  "reference": "charrnn",
-                  "data": {"kind": "char", "vocab": 12, "seq_len": 6,
-                           "iid": False, "gamma_shape": 0.3,
-                           "test_sequences": 8},
+                  "reference": "charrnn", "data": data,
                   "precision": "float32", "forward_flops_per_sample": 1}
         lr, epochs, real = 0.5, 1, "charrnn.grid12"
     else:

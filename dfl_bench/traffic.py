@@ -13,6 +13,11 @@ from ``--seed`` and the cell's and configuration's data files.
   * `char_data` — the Shakespeare stand-in (as `fed_char_stream`): Markov
     chains over the vocabulary with Gamma(0.3) transition rows, one chain
     per client when non-i.i.d., the test set from a global chain.
+  * `token_data` — token sequences for a language model: one sparse
+    Markov chain a client over ``vocab`` ids, each id ``fanout``
+    successors drawn from a Zipf law over the ids with Gamma transition
+    weights (O(V x fanout) memory), so token frequencies are skewed as
+    text's are; the test set from a global chain.
   * `network` — the paper's channel model (Sec. V-A; as `core/topology.py`
     `make_network`): the closest ``edge_density`` of node pairs linked,
     components joined by their shortest edge, per-link packet success
@@ -142,7 +147,70 @@ def char_data(spec: dict, sizes: list[int], seed: int,
                 test[:, :-1].contiguous(), test[:, 1:].contiguous())
 
 
-DATA_KINDS = {"image": image_data, "char": char_data}
+def zipf_law(vocab: int, exponent: float) -> np.ndarray:
+    """Zipf(``exponent``) probabilities over the ids: id i (0 the most
+    frequent) in proportion to (i + 1) ** -exponent."""
+    w = np.arange(1, vocab + 1, dtype=np.float64) ** -float(exponent)
+    return w / w.sum()
+
+
+def token_chain(spec: dict,
+                rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """One sparse Markov chain over ``vocab`` ids: each id's ``fanout``
+    successors (V, F) int32, drawn from the Zipf law over the ids, and
+    their cumulative Gamma(``gamma_shape``) weights (V, F) float64.  The
+    successors are drawn 1,024 ids at a time, so that about 12 bytes an
+    entry are held at most (O(V x F), never O(V^2))."""
+    vocab, fanout = spec["vocab"], spec["fanout"]
+    cdf = np.cumsum(zipf_law(vocab, spec["zipf"]))
+    succ = np.empty((vocab, fanout), np.int32)
+    for lo in range(0, vocab, 1024):
+        u = rng.random((min(1024, vocab - lo), fanout))
+        succ[lo:lo + len(u)] = np.minimum(
+            np.searchsorted(cdf, u, side="right"), vocab - 1)
+    cum = rng.gamma(spec["gamma_shape"], size=(vocab, fanout))
+    cum /= cum.sum(axis=1, keepdims=True)
+    np.cumsum(cum, axis=1, out=cum)
+    return succ, cum
+
+
+def token_data(spec: dict, sizes: list[int], seed: int,
+               device: torch.device) -> Data:
+    """Token sequences for a language model: one sparse chain a client
+    (`token_chain`), the test sequences from a global chain, each
+    sequence's first id from the Zipf law; ``seq_len`` inputs and their
+    next ids a sequence."""
+    vocab, fanout, steps = spec["vocab"], spec["fanout"], spec["seq_len"] + 1
+    rng = np.random.default_rng(_seq(seed, _DATA))
+    counts = list(sizes) + [spec["test_sequences"]]
+    succ = torch.empty((len(counts), vocab, fanout), dtype=torch.int32,
+                       device=device)
+    cum = torch.empty((len(counts), vocab, fanout), dtype=torch.float64,
+                      device=device)
+    glob = token_chain(spec, rng)
+    for c in range(len(counts)):
+        s, w = glob if c == len(sizes) else token_chain(spec, rng)
+        succ[c], cum[c] = torch.from_numpy(s), torch.from_numpy(w)
+    chain = torch.repeat_interleave(torch.arange(len(counts), device=device),
+                                    torch.tensor(counts, device=device))
+    gen = torch.Generator(device=device).manual_seed(
+        torch_seed(seed, _DATA))
+    law = torch.from_numpy(zipf_law(vocab, spec["zipf"])).to(device)
+    tok = torch.multinomial(law, len(chain), replacement=True, generator=gen)
+    out = [tok]
+    for _ in range(steps - 1):
+        u = torch.rand((len(chain), 1), generator=gen, device=device,
+                       dtype=torch.float64)
+        j = torch.clamp((cum[chain, tok] < u).sum(dim=1), max=fanout - 1)
+        tok = succ[chain, tok, j].long()
+        out.append(tok)
+    seqs = torch.split(torch.stack(out, dim=1).to(torch.int32), counts)
+    train, test = seqs[:-1], seqs[-1]
+    return Data([s[:, :-1] for s in train], [s[:, 1:] for s in train],
+                test[:, :-1].contiguous(), test[:, 1:].contiguous())
+
+
+DATA_KINDS = {"image": image_data, "char": char_data, "tokens": token_data}
 
 
 def make_data(spec: dict, sizes: list[int], seed: int,
@@ -237,16 +305,24 @@ def network(coords, *, edge_density: float, packet_len_bits: int,
 class Weights:
     """A model's initial leaves for a scenario seed: one normal draw of all
     parameters on the device, scaled leaf by leaf (a zero scale gives a
-    zero leaf), split into views in leaf order."""
+    zero leaf), plus each leaf's constant offset where a layout entry
+    gives one as its fourth element (``(name, shape, 0.0, 1.0)`` is a leaf
+    of ones), split into views in leaf order."""
 
     def __init__(self, layout, run_seed: int, device: torch.device):
-        self.names = [name for name, _, _ in layout]
-        self.shapes = [tuple(shape) for _, shape, _ in layout]
-        sizes = [math.prod(shape) for shape in self.shapes]
-        self.count = sum(sizes)
+        self.names = [name for name, *_ in layout]
+        self.shapes = [tuple(shape) for _, shape, *_ in layout]
+        sizes = torch.tensor([math.prod(shape) for shape in self.shapes])
+        self.count = int(sizes.sum())
         self.scale = torch.repeat_interleave(
-            torch.tensor([std for _, _, std in layout], dtype=torch.float32),
-            torch.tensor(sizes)).to(device)
+            torch.tensor([std for _, _, std, *_ in layout],
+                         dtype=torch.float32), sizes).to(device)
+        offsets = [entry[3] if len(entry) > 3 else 0.0 for entry in layout]
+        # Only a layout that states an offset adds one: x + 0.0 turns the
+        # -0.0 of a zero-scaled negative draw into +0.0.
+        self.offset = (torch.repeat_interleave(
+            torch.tensor(offsets, dtype=torch.float32), sizes).to(device)
+            if any(offsets) else None)
         self.run_seed = run_seed
         self.device = device
 
@@ -255,6 +331,8 @@ class Weights:
             torch_seed(self.run_seed, _WEIGHTS, int(scenario_seed)))
         flat = torch.randn(self.count, generator=gen,
                            device=self.device) * self.scale
+        if self.offset is not None:
+            flat = flat + self.offset
         parts = torch.split(flat, [math.prod(s) for s in self.shapes])
         return {n: t.reshape(s)
                 for n, t, s in zip(self.names, parts, self.shapes)}
